@@ -1,0 +1,191 @@
+"""Skew-aware matmul (schedule x block-shape) planner under an AMP budget.
+
+The port of the JAX package's planner, single-chip modes only:
+
+  * candidate blocks are granule-aligned (`chip.mxu_sublanes` on m below
+    the lane width, `chip.mxu_lanes` otherwise and on k/n),
+  * the working set must fit `amp * vmem_bytes` (on `gpu_h100`: the CTA's
+    shared memory, so every plan is launchable),
+  * the search covers the dense schedule family, the batch-grid variant
+    when a leading batch dim is present, and at decode shapes the split-K
+    GEMV family; the modeled argmin wins.
+
+Plans are memoized per (dims, chip, amp, mode): PyTorch runs eagerly and
+plans on every call of every step, so the cache is what keeps host time
+down.  Tuned and sharded planning are not ported yet.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import functools
+from typing import Iterable
+
+from repro_torch.core import config, hw
+from repro_torch.core.costmodel import (ALL_SCHEDULES, SCHEDULES, BlockPlan,
+                                        MatmulCost, MatmulDims, cost_matmul)
+
+
+def _round_up(a: int, b: int) -> int:
+    return -(-a // b) * b
+
+
+def _aligned_candidates(dim: int, granule: int, cap: int) -> list[int]:
+    """Aligned block-size candidates for one dimension: the full (rounded)
+    dim when it fits the cap, power-of-two granule multiples, and a 1.5x
+    companion for each power of two (rounded down to a granule multiple)."""
+    full = _round_up(dim, granule)
+    hi = min(full, cap)
+    out = {hi}
+    b = granule
+    while b <= hi:
+        out.add(b)
+        threehalves = (b + b // 2) // granule * granule
+        if granule <= threehalves <= hi:
+            out.add(threehalves)
+        b *= 2
+    return sorted(out)
+
+
+def _feasible_costs(d: MatmulDims, chip: hw.ChipSpec, budget: int,
+                    schedules: tuple[str, ...],
+                    batch_grid: bool = False) -> Iterable[MatmulCost]:
+    """Every (schedule x aligned blocks) plan that fits the AMP budget."""
+    sub, lane = chip.mxu_sublanes, chip.mxu_lanes
+    m_eff = d.m if batch_grid else d.m * d.batch
+    bm_cands = _aligned_candidates(m_eff, sub if m_eff < lane else lane, 4096)
+    bk_cands = _aligned_candidates(d.k, lane, 4096)
+    bn_cands = _aligned_candidates(d.n, lane, 4096)
+    for schedule in schedules:
+        for bm in bm_cands:
+            for bk in bk_cands:
+                for bn in bn_cands:
+                    p = BlockPlan(bm, bk, bn, schedule=schedule,
+                                  batch_grid=batch_grid)
+                    if p.vmem_bytes(d) > budget:
+                        continue
+                    yield cost_matmul(d, p, chip)
+
+
+def _search(d: MatmulDims, chip: hw.ChipSpec, budget: int,
+            schedules: tuple[str, ...],
+            batch_grid: bool = False) -> MatmulCost | None:
+    best: MatmulCost | None = None
+    for c in _feasible_costs(d, chip, budget, schedules, batch_grid):
+        if best is None or c.total_s < best.total_s or (
+                c.total_s == best.total_s
+                and c.grid_steps < best.grid_steps):
+            best = c
+    return best
+
+
+def gemv_applicable(m: int, batch: int, chip: hw.ChipSpec) -> bool:
+    """Whether the split-K GEMV family joins the search: plain 2-D
+    contractions whose row count is below the lane width (decode)."""
+    return batch == 1 and m < chip.mxu_lanes
+
+
+def _gemv_costs(d: MatmulDims, chip: hw.ChipSpec,
+                budget: int) -> Iterable[MatmulCost]:
+    """Split-K candidates: one sublane-padded m block, (bk, bn) aligned."""
+    sub, lane = chip.mxu_sublanes, chip.mxu_lanes
+    bm = _round_up(d.m, sub)
+    for bk in _aligned_candidates(d.k, lane, 4096):
+        for bn in _aligned_candidates(d.n, lane, 4096):
+            p = BlockPlan(bm, bk, bn, schedule="splitk")
+            if p.vmem_bytes(d) > budget:
+                continue
+            yield cost_matmul(d, p, chip)
+
+
+def _search_gemv(d: MatmulDims, chip: hw.ChipSpec,
+                 budget: int) -> MatmulCost | None:
+    best: MatmulCost | None = None
+    for c in _gemv_costs(d, chip, budget):
+        if best is None or _plan_order(c) < _plan_order(best):
+            best = c
+    return best
+
+
+def _plan_order(c: MatmulCost) -> tuple:
+    """Deterministic ranking: modeled time, grid steps, then encounter
+    order (schedule-family position, blocks ascending, folded first)."""
+    p = c.plan
+    return (c.total_s, c.grid_steps, p.batch_grid,
+            ALL_SCHEDULES.index(p.schedule), p.bm, p.bk, p.bn)
+
+
+def plan_matmul(m: int, k: int, n: int, *, dtype_bytes: int = 2,
+                amp: float | None = None, chip: hw.ChipSpec | str | None = None,
+                mode: str | None = None, batch: int = 1) -> MatmulCost:
+    """Choose a (schedule, block shape) plan for A[batch, m, k] @ B[k, n].
+
+    amp / chip / mode left as None resolve through the active `mm_config`
+    context stack (defaults: 0.45 / gpu_h100 / "skew_aware").
+
+    mode:
+      "skew_aware" — full (schedule x block) search; with batch > 1 it
+                     also weighs a batch-grid plan, and at decode shapes
+                     (2-D, m below the lane width) the split-K family joins
+                     and wins exactly when its modeled cost does.
+      "dense"      — the search without the GEMV family.
+      "k_inner"    — the search restricted to the K-innermost schedule.
+      "naive"      — fixed 512^3 blocks clipped to the problem.
+    """
+    cfg = config.resolve(amp=amp, chip=chip, plan_mode=mode)
+    return _plan_matmul_cached(m, k, n, dtype_bytes=dtype_bytes,
+                               amp=cfg.amp, chip=cfg.chip_spec,
+                               mode=cfg.plan_mode, batch=batch)
+
+
+@functools.lru_cache(maxsize=4096)
+def _plan_matmul_cached(m: int, k: int, n: int, *, dtype_bytes: int,
+                        amp: float, chip: hw.ChipSpec, mode: str,
+                        batch: int) -> MatmulCost:
+    d = MatmulDims(m=m, k=k, n=n, dtype_bytes=dtype_bytes, batch=batch)
+    budget = int(amp * chip.vmem_bytes)
+
+    if mode == "naive":
+        folded = dataclasses.replace(d, m=m * batch, batch=1)
+        p = _clip_plan(BlockPlan(512, 512, 512), folded, chip, budget)
+        return cost_matmul(folded, p, chip)
+
+    schedules = ("k_inner",) if mode == "k_inner" else SCHEDULES
+    best = _search(d, chip, budget, schedules)
+    if mode == "skew_aware" and gemv_applicable(m, batch, chip):
+        # Family switch: split-K wins iff it out-ranks the dense argmin
+        # (dense wins exact ties — GEMV sits after SCHEDULES in the order).
+        gemv = _search_gemv(d, chip, budget)
+        if gemv is not None and (
+                best is None or _plan_order(gemv) < _plan_order(best)):
+            best = gemv
+    if batch > 1:
+        # The batched-grid kernel is K-inner only; residency schedules fold.
+        batched = _search(d, chip, budget, ("k_inner",), batch_grid=True)
+        if batched is not None and (
+                best is None or _plan_order(batched) < _plan_order(best)):
+            best = batched
+    if best is None:
+        # Budget too small for any aligned plan: the minimum-granule plan.
+        best = cost_matmul(d, BlockPlan(chip.mxu_sublanes, chip.mxu_lanes,
+                                        chip.mxu_lanes), chip)
+    return best
+
+
+def _clip_plan(p: BlockPlan, d: MatmulDims, chip: hw.ChipSpec,
+               budget: int) -> BlockPlan:
+    bm = min(p.bm, _round_up(d.m, chip.mxu_sublanes))
+    bk = min(p.bk, _round_up(d.k, chip.mxu_lanes))
+    bn = min(p.bn, _round_up(d.n, chip.mxu_lanes))
+    p = BlockPlan(bm, bk, bn)
+    # halve the largest dim until it fits the budget
+    while p.vmem_bytes(d) > budget:
+        if p.bk >= max(p.bm, p.bn) and p.bk > chip.mxu_lanes:
+            p = BlockPlan(p.bm, p.bk // 2, p.bn)
+        elif p.bn >= p.bm and p.bn > chip.mxu_lanes:
+            p = BlockPlan(p.bm, p.bk, p.bn // 2)
+        elif p.bm > chip.mxu_sublanes:
+            p = BlockPlan(p.bm // 2, p.bk, p.bn)
+        else:
+            break
+    return p
