@@ -10,12 +10,12 @@ nonzero and prints no result:
      off for matmuls and cuDNN;
   2. build — nvcc builds every kernel of `src/repro_torch/csrc/` (one nvcc
      per source, in parallel);
-  3. kernel parity — each kernel against its plain PyTorch version on the
-     card at phi4-mini-3.8b's shapes, bf16 and fp32, every schedule and
-     epilogue on the path, plus split-K bitwise stability across split
-     counts for integer-valued inputs;
-  4. serve at full width (the main path) — phi4-mini-3.8b, bf16, seeded
-     weights, batch 4 x prompt 128 + 16 generated tokens through
+  3. kernel parity — each dense kernel (K1-K4) against its plain PyTorch
+     version on the card at phi4-mini-3.8b's shapes, bf16 and fp32, every
+     schedule and epilogue on the path, plus split-K bitwise stability
+     across split counts for integer-valued inputs;
+  4. serve at full width (the first main path) — phi4-mini-3.8b, bf16,
+     seeded weights, batch 4 x prompt 128 + 16 generated tokens through
      `repro_torch.launch.serve.serve`; then, because the gpu_h100 planner
      picks neither split-K nor the batched grid at these shapes, a batch-1
      serve and explicit-plan calls through `ops` at the LM-head shape for
@@ -26,11 +26,28 @@ nonzero and prints no result:
   6. timings — each kernel, its plain version and one PyTorch call
      computing the same function (the yardstick; never on the port's path),
      with CUDA events, at the main path's shapes;
-  7. the `kernels` JSON line, then the device line.
+then dbrx-132b's MoE layers, after phi4's weights are freed:
+  3b. K5 parity — the grouped expert GEMM against its plain version at the
+     dbrx decode shapes (16 experts x 8 capacity rows, gate/up and down),
+     the prefill shape (160 rows) and a shape ragged in m, k and n;
+  4b. serve dbrx-132b (the second main path) — every published width, depth
+     cut to 8 of 40 layers (the whole model is ~263 GB of bf16 weights),
+     seeded bf16 weights, batch 4 x prompt 128 + 16 generated tokens
+     through `serve(cfg=...)`; K5 must launch 3 times per MoE layer per
+     step.  Counts are zeroed just before and read just after;
+  5b. whole-path parity at full width and 2 layers — "cuda", "torch" and an
+     fp32 run of the same weights, plus the share of top-k routing choices
+     on which "cuda" and "torch" agree (information, not a gate);
+  6b. timings — K5, its plain version and `torch.bmm` at the decode and
+     prefill shapes;
+  7. the `kernels` JSON line (K1-K5; launches summed over both main
+     paths), then the device line.
 """
 
 from __future__ import annotations
 
+import dataclasses
+import functools
 import json
 import math
 import subprocess
@@ -87,7 +104,16 @@ KERNELS = {
     "gemv_splitk_reduce": (
         "src/repro_torch/csrc/gemv_splitk.cu",
         "src/repro/kernels/gemv_splitk.py:132"),
+    "grouped_matmul": (
+        "src/repro_torch/csrc/grouped_matmul.cu",
+        "src/repro/sparse/kernels.py:330"),
 }
+# The dense kernels run on phi4's main path, K5 on dbrx's.
+PHI4_KERNELS = tuple(n for n in KERNELS if n != "grouped_matmul")
+# dbrx-132b: 40 layers of 6.52 GB (bf16) do not fit one 80 GB card; the
+# serve keeps every width and cuts depth to 8 layers (54.6 GB), the
+# whole-path parity to 2 (an fp32 copy fits beside the bf16 one).
+DBRX_LAYERS, DBRX_PARITY_LAYERS = 8, 2
 
 
 def fail(msg: str) -> None:
@@ -157,6 +183,39 @@ def bound_ms(nbytes: float, flops: float, peak: float) -> tuple[float, str]:
                                        else "operations")
 
 
+def check_kernel(torch, errs: dict, name, got, want, out_dtype, tag) -> None:
+    """A kernel's output against its plain version's, within `tolerance`;
+    records the largest error per kernel in `errs`."""
+    diff, rel = rel_err(torch, got, want)
+    scale = want.float().abs().max().item()
+    tol = tolerance(str(out_dtype).split(".")[-1], scale)
+    ok = diff <= tol
+    say(f"parity {name:24s} {tag:44s} max_abs_err={diff:.3e} "
+        f"rel={rel:.2e} tol={tol:.2e} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        fail(f"{name} disagrees with its plain version at {tag}")
+    errs[name] = max(errs.get(name, 0.0), diff)
+
+
+def timing_row(torch, counts, errs, name, kernel, plain, library, nbytes,
+               flops, shape) -> dict:
+    """Time a kernel, its plain version and the PyTorch yardstick (CUDA
+    events) beside the bound from `nbytes` and `flops`."""
+    ms = time_ms(torch, kernel)
+    plain_ms = time_ms(torch, plain, iters=5, warmup=1)
+    lib_ms = time_ms(torch, library) if library else None
+    bms, by = bound_ms(nbytes, flops, PEAK_BF16)
+    src, rep = KERNELS[name]
+    say(f"time {name:24s} {shape:28s} {ms:.4f} ms  plain {plain_ms:.4f}"
+        f"  torch {lib_ms if lib_ms is None else round(lib_ms, 4)}  "
+        f"bound {bms:.4f} ({by})")
+    return {"name": name, "route": "cuda", "source": src,
+            "replaces": rep, "launches": int(counts.get(name, 0)),
+            "max_abs_err": errs.get(name), "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bms, "bound_by": by, "library_ms": lib_ms,
+            "shape": shape}
+
+
 # ----------------------------------------------------------------- phase 3
 def phase_parity(torch, cfg) -> dict:
     """Every kernel against its plain version at phi4-mini shapes."""
@@ -175,16 +234,7 @@ def phase_parity(torch, cfg) -> dict:
         return (torch.randn(shape, generator=gen, device=dev) * scale
                 ).to(dtype)
 
-    def check(name, got, want, out_dtype, tag):
-        diff, rel = rel_err(torch, got, want)
-        scale = want.float().abs().max().item()
-        tol = tolerance(str(out_dtype).split(".")[-1], scale)
-        ok = diff <= tol
-        say(f"parity {name:24s} {tag:44s} max_abs_err={diff:.3e} "
-            f"rel={rel:.2e} tol={tol:.2e} {'ok' if ok else 'FAIL'}")
-        if not ok:
-            fail(f"{name} disagrees with its plain version at {tag}")
-        errs[name] = max(errs.get(name, 0.0), diff)
+    check = functools.partial(check_kernel, torch, errs)
 
     blocks = (64, 64, 128)
     silu = ep_mod.normalize_spec("silu")
@@ -375,7 +425,7 @@ def phase_serve(torch, cfg):
     counts = ops.launch_counts()
     # ---- end of the main path.
     say(f"launch counts on the main path: {counts}")
-    for name in KERNELS:
+    for name in PHI4_KERNELS:
         if counts.get(name, 0) <= 0:
             fail(f"kernel {name} was not launched on the main path")
     out["counts"] = counts
@@ -413,11 +463,12 @@ def _float_tree(tree):
 def phase_path_parity(torch, cfg, params) -> dict:
     """Prefill and first-decode logits: the "cuda" backend against the
     "torch" backend on the same bf16 weights, and both against an fp32 run
-    of the same weights (the "torch" backend on fp32 copies)."""
-    import dataclasses
-
+    of the same weights (the "torch" backend on fp32 copies).  For an MoE
+    model, also the share of top-k routing choices (every layer, every
+    token, prefill and decode) on which "cuda" and "torch" agree."""
     import numpy as np
     from repro_torch.core.config import mm_config
+    from repro_torch.models import moe
     from repro_torch.serve import engine
 
     rng = np.random.default_rng(0)
@@ -425,16 +476,18 @@ def phase_path_parity(torch, cfg, params) -> dict:
                         dtype=torch.long, device="cuda")
     runs = (("cuda", cfg, params), ("torch", cfg, params),
             ("fp32", dataclasses.replace(cfg, dtype="float32"), None))
-    out = {}
+    out, routes = {}, {}
     for name, c, p in runs:
         if p is None:
             p = _float_tree(params)
-        with mm_config(backend="cuda" if name == "cuda" else "torch"):
+        with mm_config(backend="cuda" if name == "cuda" else "torch"), \
+                moe.routing_capture() as log:
             cache, pre = engine.prefill(p, c, toks, max_len=144)
             if name == "cuda":
                 nxt = torch.argmax(pre, -1)
             dec, _ = engine.decode_step(p, c, cache, nxt, 128)
         out[name] = (pre, dec)
+        routes[name] = [r["experts"] for r in log]
         del cache, p
         torch.cuda.empty_cache()
     res = {}
@@ -457,7 +510,28 @@ def phase_path_parity(torch, cfg, params) -> dict:
         if not ok:
             fail(f"cuda and torch backends disagree on {what} logits")
         res[what] = rel
+    if routes["cuda"]:
+        res["routing_agreement"] = routing_agreement(torch, routes, cfg)
+        say(f"path parity routing: cuda and torch agree on "
+            f"{res['routing_agreement']:.5f} of the top-"
+            f"{cfg.n_experts_per_tok} expert choices "
+            f"({len(routes['cuda'])} MoE calls; fp32 run agrees with cuda "
+            f"on {routing_agreement(torch, routes, cfg, 'fp32'):.5f})")
     return res
+
+
+def routing_agreement(torch, routes, cfg, other: str = "torch") -> float:
+    """Mean over tokens and MoE calls of |S_cuda & S_other| / k, where S is
+    a token's set of top-k experts."""
+    import torch.nn.functional as F
+    e, k = cfg.n_experts, cfg.n_experts_per_tok
+    same = total = 0
+    for a, b in zip(routes["cuda"], routes[other]):
+        sa = F.one_hot(a, e).sum(1)
+        sb = F.one_hot(b, e).sum(1)
+        same += int((sa * sb).sum())
+        total += a.shape[0] * k
+    return same / total
 
 
 # ----------------------------------------------------------------- phase 6
@@ -472,21 +546,7 @@ def phase_timings(torch, cfg, params, counts, errs) -> list[dict]:
     emb_t = params["embed"].T
     h4 = torch.randn((4, d), generator=gen, device="cuda").to(bf)
     rows = []
-
-    def row(name, kernel, plain, library, nbytes, flops, shape):
-        ms = time_ms(torch, kernel)
-        plain_ms = time_ms(torch, plain, iters=5, warmup=1)
-        lib_ms = time_ms(torch, library) if library else None
-        bms, by = bound_ms(nbytes, flops, PEAK_BF16)
-        src, rep = KERNELS[name]
-        say(f"time {name:24s} {shape:28s} {ms:.4f} ms  plain {plain_ms:.4f}"
-            f"  torch {lib_ms if lib_ms is None else round(lib_ms, 4)}  "
-            f"bound {bms:.4f} ({by})")
-        return {"name": name, "route": "cuda", "source": src,
-                "replaces": rep, "launches": int(counts.get(name, 0)),
-                "max_abs_err": errs.get(name), "ms": ms, "plain_ms": plain_ms,
-                "bound_ms": bms, "bound_by": by, "library_ms": lib_ms,
-                "shape": shape}
+    row = functools.partial(timing_row, torch, counts, errs)
 
     lm_bytes = 4 * d * 2 + d * v * 2 + 4 * v * 4
     lm_flops = 2 * 4 * d * v
@@ -553,6 +613,215 @@ def phase_timings(torch, cfg, params, counts, errs) -> list[dict]:
     return rows
 
 
+# ----------------------------------------------------------------- dbrx
+def grouped_blocks(g: int, m: int, k: int, n: int, dtype_bytes: int):
+    """K5's blocks as `ops.grouped_matmul` takes them: the gpu_h100 plan,
+    clipped to the granule-rounded dims."""
+    from repro_torch.core import hw
+    from repro_torch.kernels.ops import clip_blocks
+    from repro_torch.sparse.planner import plan_grouped_matmul
+    chip = hw.get_chip("gpu_h100")
+    plan = plan_grouped_matmul(g, m, k, n, dtype_bytes=dtype_bytes,
+                               chip=chip).plan
+    return clip_blocks(plan, m, k, n, chip)
+
+
+def phase_parity_grouped(torch, cfg) -> dict:
+    """K5 against its plain version: the dbrx decode shapes (gate/up and
+    down), the prefill shape, and a ragged shape in bf16 and fp32 with the
+    epilogues none / gelu / scale / residual."""
+    from repro_torch.kernels import grouped_matmul as gmm
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(4321)
+    e, d, f = cfg.n_experts, cfg.d_model, cfg.moe_d_ff
+    errs: dict = {}
+    check = functools.partial(check_kernel, torch, errs)
+    bf, fp = torch.bfloat16, torch.float32
+
+    def rnd(shape, dtype, scale=1.0):
+        return (torch.randn(shape, generator=gen, device=dev) * scale
+                ).to(dtype)
+
+    cases = [  # (g, m, k, n, in dtype, out dtype, epilogue)
+        (e, 8, d, f, bf, fp, ()), (e, 8, f, d, bf, fp, ()),
+        (e, 160, d, f, bf, fp, ())]
+    for dtype in (bf, fp):
+        for spec in ((), (("gelu", None),), (("scale", 0.5),),
+                     (("residual", None),)):
+            cases.append((4, 40, 1000, 700, dtype, dtype, spec))
+    for g, m, k, n, dtype, odt, spec in cases:
+        a = rnd((g, m, k), dtype)
+        b = rnd((g, k, n), dtype, k ** -0.5)
+        res = rnd((g, m, n), dtype) if "residual" in dict(spec) else None
+        bm, bk, bn = grouped_blocks(g, m, k, n, a.element_size())
+        got = gmm.grouped_matmul_cuda(a, b, res, bm=bm, bk=bk, bn=bn,
+                                      epilogue=spec, out_dtype=odt)
+        want = gmm.grouped_matmul_plain(a, b, res, bk=bk, epilogue=spec,
+                                        out_dtype=odt)
+        torch.cuda.synchronize()
+        dn = str(dtype).split(".")[-1]
+        check("grouped_matmul", got, want, odt,
+              f"{dn} {g}x{m}x{k}x{n} {(bm, bk, bn)} {[t for t, _ in spec]}")
+        del a, b, res, got, want
+    torch.cuda.empty_cache()
+    return errs
+
+
+def moe_serve_bounds(cfg, params, batch: int, prompt: int,
+                     kv_bytes: int) -> tuple[float, float]:
+    """(prefill bound ms, decode bound ms per token) of the MoE serve.
+
+    Bytes: every weight but the input embedding, which is read only at the
+    rows of the step's tokens (every capacity slot goes through its
+    expert, so every expert's weights are read each step), plus the KV
+    cache at decode.  FLOPs: projections, causal attention, router, the
+    expert GEMMs over all E x capacity slots, and the LM head on the last
+    positions."""
+    from repro_torch.models import moe
+    from repro_torch.models.model import param_bytes
+    d, v, L = cfg.d_model, cfg.vocab_size, cfg.n_layers
+    hd, h, kvh = cfg.head_dim, cfg.n_heads, cfg.n_kv_heads
+    e, f = cfg.n_experts, cfg.moe_d_ff
+    attn_w = d * h * hd + 2 * d * kvh * hd + h * hd * d
+    emb = params["embed"]
+    weights = param_bytes(params) - emb.numel() * emb.element_size()
+    row = d * emb.element_size()
+    toks = batch * prompt
+
+    def layer_flops(t, cap, attn):
+        return (2 * t * attn_w + attn + 2 * t * d * e
+                + 3 * 2 * e * cap * d * f)
+
+    attn_pre = 2 * 2 * batch * h * hd * prompt * prompt / 2
+    pre_flops = (L * layer_flops(toks, moe._capacity(toks, cfg), attn_pre)
+                 + 2 * batch * d * v)
+    pre = max(pre_flops / PEAK_BF16, (weights + toks * row) / HBM_BW)
+    attn_dec = 2 * 2 * batch * h * hd * (prompt + 1)
+    dec_flops = (L * layer_flops(batch, moe._capacity(batch, cfg), attn_dec)
+                 + 2 * batch * d * v)
+    dec = max(dec_flops / PEAK_BF16,
+              (weights + kv_bytes + batch * row) / HBM_BW)
+    return pre * 1e3, dec * 1e3
+
+
+def plan_key(cost) -> tuple:
+    """A capture entry's GEMM: ("grouped", g, m, k, n) or (m, k, n, batch)."""
+    if hasattr(cost, "layout"):
+        s = cost.layout
+        return ("grouped", s.groups, s.m // s.groups, s.k // s.groups,
+                cost.n)
+    dd = cost.dims
+    return (dd.m, dd.k, dd.n, dd.batch)
+
+
+def phase_serve_moe(torch, cfg):
+    """The second main path: dbrx-132b at every published width, depth cut
+    to `cfg.n_layers`, served through `serve(cfg=...)`."""
+    from repro_torch.core import skewmm
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve as serve_mod
+    from repro_torch.models.model import build_model, param_bytes
+    from repro_torch.serve import kvcache
+
+    t0 = time.perf_counter()
+    params = build_model(cfg, "cuda").init(0)
+    torch.cuda.synchronize()
+    pbytes = param_bytes(params)
+    say(f"init dbrx-132b at {cfg.n_layers} of 40 layers (depth cut; every "
+        f"width published): {pbytes / 1e9:.3f} GB of bf16 weights in "
+        f"{time.perf_counter() - t0:.1f} s")
+
+    batch, prompt, gen = 4, 128, 16
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    # ---- the main path: counts zeroed above, read right after it.
+    with skewmm.plan_capture() as log:
+        res = serve_mod.serve(cfg=cfg, params=params, batch=batch,
+                              prompt_len=prompt, gen=gen, seed=0)
+    counts = ops.launch_counts()
+    # ---- end of the main path.
+    peak = torch.cuda.max_memory_allocated()
+    if not res["logits_finite"]:
+        fail("dbrx serve produced non-finite logits")
+    kv = kvcache.cache_bytes(kvcache.init_cache(cfg, batch, prompt + gen,
+                                                "meta"))
+    pre_b, dec_b = moe_serve_bounds(cfg, params, batch, prompt, kv)
+    say(f"serve dbrx-132b ({cfg.n_layers} of 40 layers) b{batch} p{prompt} "
+        f"g{gen}: prefill {res['prefill_s'] * 1e3:.1f} ms (bound "
+        f"{pre_b:.2f} ms), decode {res['decode_s_per_token'] * 1e3:.2f} "
+        f"ms/token (bound {dec_b:.2f} ms), peak memory "
+        f"{peak / 2**30:.2f} GiB of {pbytes / 2**30:.2f} GiB weights, KV "
+        f"cache {kv / 1e6:.1f} MB")
+    seen = {}
+    for c in log:
+        seen.setdefault(plan_key(c), c)
+    for key, c in seen.items():
+        say(f"plan {key}: {c.explain()}")
+    say(f"launch counts on the dbrx main path: {counts}")
+    steps = 1 + gen
+    want_k5 = 3 * cfg.n_layers * steps
+    if counts["grouped_matmul"] != want_k5:
+        fail(f"K5 launched {counts['grouped_matmul']} times, expected "
+             f"{want_k5} (3 per MoE layer per step, {steps} steps)")
+    say(f"K5 launches: {counts['grouped_matmul'] // steps} per step "
+        f"({cfg.n_layers} MoE layers x 3 expert GEMMs)")
+    used = {"grouped_matmul"}
+    for c in log:
+        if hasattr(c, "layout"):
+            continue
+        if c.plan.schedule == "splitk":
+            used |= {"gemv_splitk_partial", "gemv_splitk_reduce"}
+        elif c.plan.batch_grid and c.dims.batch > 1:
+            used.add("skew_matmul_batched")
+        else:
+            used.add(f"skew_matmul_{c.plan.schedule}")
+    for name in sorted(used):
+        if counts.get(name, 0) <= 0:
+            fail(f"kernel {name} was not launched on the dbrx main path")
+    return {"serve": res, "peak": peak, "bounds": (pre_b, dec_b),
+            "params": params, "params_bytes": pbytes, "kv_bytes": kv,
+            "counts": counts}
+
+
+def first_layers(params, n: int) -> dict:
+    """The model's first `n` layers, sharing the tensors (one stage)."""
+    out = {k: v for k, v in params.items() if not k.startswith("stage")}
+    out["stage0"] = params["stage0"][:n]
+    return out
+
+
+def phase_timings_grouped(torch, cfg, params, counts, errs) -> list[dict]:
+    """K5, its plain version and `torch.bmm` at the dbrx decode and prefill
+    shapes, on the first layer's expert weights."""
+    from repro_torch.kernels import grouped_matmul as gmm
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(98)
+    p = params["stage0"][0]["b0"]["moe"]
+    e, d, f = cfg.n_experts, cfg.d_model, cfg.moe_d_ff
+    bf, fp = torch.bfloat16, torch.float32
+    row = functools.partial(timing_row, torch, counts, errs)
+    rows = []
+    for m, w, what in ((8, p["w_gate"], "decode gate/up"),
+                       (8, p["w_down"], "decode down"),
+                       (160, p["w_gate"], "prefill gate/up")):
+        k, n = w.shape[1], w.shape[2]
+        a = torch.randn((e, m, k), generator=gen, device="cuda").to(bf)
+        bm, bk, bn = grouped_blocks(e, m, k, n, 2)
+        rows.append(row(
+            "grouped_matmul",
+            lambda a=a, w=w, bm=bm, bk=bk, bn=bn: gmm.grouped_matmul_cuda(
+                a, w, bm=bm, bk=bk, bn=bn, out_dtype=fp),
+            lambda a=a, w=w, bk=bk: gmm.grouped_matmul_plain(
+                a, w, bk=bk, out_dtype=fp),
+            lambda a=a, w=w: torch.bmm(a, w),
+            (e * m * k + e * k * n) * 2 + e * m * n * 4, 2 * e * m * k * n,
+            f"{what} {e}x{m}x{k}x{n} bf16->fp32 {(bm, bk, bn)}"))
+    return rows
+
+
 # ----------------------------------------------------------------- --profile
 def profile_steps(torch, cfg, params) -> None:
     """torch.profiler over one prefill and one decode step (batch 4): device
@@ -611,18 +880,46 @@ def main() -> None:
     phase_path_parity(torch, cfg, main_path["params"])
     rows = phase_timings(torch, cfg, main_path["params"],
                          main_path["counts"], errs)
+    phi4_counts = main_path["counts"]
+    del main_path                   # free phi4's weights
+    torch.cuda.empty_cache()
 
-    # One entry per kernel for the contract line (the LM-head shape, the
-    # paper's right-skew case); the other shapes are in the log above.
+    dcfg = dataclasses.replace(get_config("dbrx-132b"),
+                               n_layers=DBRX_LAYERS)
+    say(f"config: {dcfg.name} L={dcfg.n_layers} (of 40) d={dcfg.d_model} "
+        f"H={dcfg.n_heads}/{dcfg.n_kv_heads} E={dcfg.n_experts} "
+        f"top-{dcfg.n_experts_per_tok} ff={dcfg.moe_d_ff} "
+        f"V={dcfg.vocab_size}")
+    errs.update(phase_parity_grouped(torch, dcfg))
+    moe_path = phase_serve_moe(torch, dcfg)
+    if "--profile" in sys.argv[1:]:
+        profile_steps(torch, dcfg, moe_path["params"])
+    params2 = first_layers(moe_path.pop("params"), DBRX_PARITY_LAYERS)
+    torch.cuda.empty_cache()
+    phase_path_parity(torch, dataclasses.replace(
+        dcfg, n_layers=DBRX_PARITY_LAYERS), params2)
+    rows += phase_timings_grouped(torch, dcfg, params2, moe_path["counts"],
+                                  errs)
+    del params2
+    torch.cuda.empty_cache()
+
+    # One entry per kernel for the contract line (the LM-head shape for
+    # K1-K4, the dbrx decode gate/up shape for K5); the other shapes are in
+    # the log above.  Launches: summed over the two main paths.
+    launches = {n: phi4_counts.get(n, 0) + moe_path["counts"].get(n, 0)
+                for n in KERNELS}
     first = {}
     for r in rows:
         first.setdefault(r["name"], r)
     kernels = [{k: val for k, val in r.items() if k != "shape"}
                for r in first.values()]
     for r in kernels:
+        r["launches"] = int(launches[r["name"]])
         for key in ("ms", "plain_ms", "bound_ms"):
             if not (isinstance(r[key], float) and math.isfinite(r[key])):
                 fail(f"{r['name']}: {key} not measured")
+    if sorted(r["name"] for r in kernels) != sorted(KERNELS):
+        fail("the kernels line does not list every kernel")
     say(f"total {time.perf_counter() - t_start:.1f} s")
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

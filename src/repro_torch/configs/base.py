@@ -3,9 +3,9 @@
 One `ModelConfig` describes any member of the zoo (dense / MoE / SSM / hybrid
 / enc-dec / VLM).  Each ported architecture gets a module under
 `repro_torch.configs` registering its exact published config; `reduced()`
-derives the same-family smoke-test config.  The port registers the dense
-archs it can run; the dataclass keeps every field so configs stay
-field-for-field comparable with the JAX package's.
+derives the same-family smoke-test config.  The port registers the archs
+it can run (dense GQA, and MoE without MLA); the dataclass keeps every
+field so configs stay field-for-field comparable with the JAX package's.
 """
 
 from __future__ import annotations
@@ -16,10 +16,11 @@ from typing import Callable
 
 _REGISTRY: dict[str, Callable[[], "ModelConfig"]] = {}
 
-ARCH_IDS = ["phi4-mini-3.8b"]
+ARCH_IDS = ["phi4-mini-3.8b", "dbrx-132b"]
 
 _MODULE_FOR = {
     "phi4-mini-3.8b": "phi4_mini_3p8b",
+    "dbrx-132b": "dbrx_132b",
 }
 
 

@@ -6,6 +6,9 @@ a list of per-layer unit dicts instead.  `params_from_numpy` takes the JAX
 parameter tree with its leaves already turned into numpy arrays (for
 example ``jax.tree.map(np.asarray, params)``) and returns the port's
 parameters on `device`, so both packages compute with the same weights.
+
+Every leaf keeps its dtype: an MoE block's ``(R, E, D, F)`` expert stacks
+become ``(E, D, F)`` per layer, and its router stays fp32 in a bf16 model.
 """
 
 from __future__ import annotations

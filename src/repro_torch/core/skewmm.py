@@ -12,7 +12,8 @@ skew-aware planner and dispatches to one of two backends:
 Configuration resolves through the `mm_config` stack (repro_torch.core.
 config).  Fused epilogues are structured (`Epilogue`) or legacy token
 strings.  ``with plan_capture() as log:`` collects the `MatmulCost` of
-every matmul issued inside the block (captures nest).
+every matmul issued inside the block, and the `SparseMatmulCost` of every
+grouped expert GEMM (captures nest).
 """
 
 from __future__ import annotations
@@ -44,7 +45,9 @@ def plan_capture() -> Iterator[list]:
                 break
 
 
-def _record(cost) -> None:
+def record_plan(cost) -> None:
+    """Append a plan to every active capture.  `ops.grouped_matmul` records
+    its grouped plans here, so a capture sees the whole workload."""
     for log in _ACTIVE_LOGS:
         log.append(cost)
 
@@ -79,7 +82,7 @@ def matmul(a: torch.Tensor, b: torch.Tensor, *, backend: str | None = None,
         batch *= s
     cost = plan_matmul(m, k, n, dtype_bytes=a.element_size(), amp=cfg.amp,
                        chip=cfg.chip_spec, mode=cfg.plan_mode, batch=batch)
-    _record(cost)
+    record_plan(cost)
     odt = cfg.out_dtype or a.dtype
 
     if cfg.backend == "cuda":

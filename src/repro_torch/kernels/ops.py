@@ -1,4 +1,5 @@
-"""Public wrappers for the planned-matmul kernels.
+"""Public wrappers for the planned-matmul kernels and the grouped expert
+GEMM.
 
 The wrappers take plans from the skew-aware planner when none is given
 (amp / chip resolve through the `mm_config` stack), clip the plan's blocks
@@ -17,11 +18,16 @@ from __future__ import annotations
 import torch
 
 from repro_torch.core import config
+from repro_torch.core import skewmm as _skewmm
 from repro_torch.core.costmodel import BlockPlan
 from repro_torch.core.epilogue import Epilogue
 from repro_torch.core.planner import plan_matmul
 from repro_torch.kernels import gemv_splitk as _gemv
+from repro_torch.kernels import grouped_matmul as _gmm
+from repro_torch.kernels import ref as _ref
 from repro_torch.kernels import skew_matmul as _mm
+from repro_torch.sparse.costmodel import SparseMatmulCost
+from repro_torch.sparse.planner import plan_grouped_matmul
 
 
 def _round_up(a: int, b: int) -> int:
@@ -88,17 +94,61 @@ def skew_matmul_batched(a: torch.Tensor, b: torch.Tensor, *,
                                    bn=bn, epilogue=ep.spec, out_dtype=odt)
 
 
+def grouped_matmul(a: torch.Tensor, b: torch.Tensor, *,
+                   plan: BlockPlan | SparseMatmulCost | None = None,
+                   backend: str | None = None, amp: float | None = None,
+                   chip=None, epilogue: Epilogue | str | None = None,
+                   residual: torch.Tensor | None = None,
+                   out_dtype=None) -> torch.Tensor:
+    """Grouped matmul with per-group rhs.  a (g, m, k) @ b (g, k, n).
+
+    The MoE expert-GEMM entry.  Without an explicit plan it plans through
+    `plan_grouped_matmul` and records the plan into `plan_capture()` on
+    either backend, as the JAX package does.  Backend "torch" runs the
+    oracle `grouped_matmul_ref`; "cuda" runs K5 on a CUDA tensor (its
+    plain version on a CPU tensor) at the plan's blocks clipped to the
+    granule-rounded dims.  The epilogue takes scale / act / residual; a
+    bias raises.
+    """
+    g, m, k = a.shape
+    g2, k2, n = b.shape
+    if g != g2 or k != k2:
+        raise ValueError(f"group/contraction mismatch: {tuple(a.shape)} @ "
+                         f"{tuple(b.shape)}")
+    cfg = config.resolve(backend=backend, amp=amp, chip=chip)
+    ep = Epilogue.parse(epilogue, residual=residual)
+    if ep.bias is not None:
+        raise ValueError("grouped_matmul epilogue supports scale / act / "
+                         "residual; bias is not plumbed per-group")
+    odt = out_dtype or a.dtype
+    if plan is None:
+        cost = plan_grouped_matmul(g, m, k, n, dtype_bytes=a.element_size(),
+                                   amp=cfg.amp, chip=cfg.chip_spec)
+        _skewmm.record_plan(cost)
+        plan = cost.plan
+    elif isinstance(plan, SparseMatmulCost):
+        plan = plan.plan
+    if cfg.backend == "torch":
+        return _ref.grouped_matmul_ref(a, b, epilogue=ep, out_dtype=odt)
+    bm, bk, bn = clip_blocks(plan, m, k, n, cfg.chip_spec)
+    return _gmm.grouped_matmul(a, b, ep.residual, bm=bm, bk=bk, bn=bn,
+                               epilogue=ep.spec, out_dtype=odt)
+
+
 def launch_counts() -> dict[str, int]:
-    """Launches of every planned-matmul kernel since the last reset."""
+    """Launches of every kernel since the last reset."""
     out = {f"skew_matmul_{s}": 0 for s in _mm.SCHEDULE_IDS}
     out["skew_matmul_batched"] = 0
     out["gemv_splitk_partial"] = 0
     out["gemv_splitk_reduce"] = 0
+    out["grouped_matmul"] = 0
     out.update(_mm.LAUNCHES)
     out.update(_gemv.LAUNCHES)
+    out.update(_gmm.LAUNCHES)
     return out
 
 
 def reset_launch_counts() -> None:
     _mm.LAUNCHES.clear()
     _gemv.LAUNCHES.clear()
+    _gmm.LAUNCHES.clear()

@@ -1,17 +1,21 @@
 """Block dispatcher: one residual block, init + forward.
 
-Ported kinds: attn_global | attn_local (dense FFN).  MoE, SSM and RG-LRU
-blocks are not ported yet and raise.
+Ported kinds: attn_global | attn_local | attn_dense (dense FFN) and
+attn_moe (MoE FFN).  SSM and RG-LRU blocks are not ported yet and raise.
 """
 
 from __future__ import annotations
 
 import torch
 
-from repro_torch.models import attention, layers
+from repro_torch.models import attention, layers, moe
 from repro_torch.models.layers import rmsnorm
 
-_KINDS = ("attn_global", "attn_local", "attn_dense")
+_KINDS = ("attn_global", "attn_local", "attn_dense", "attn_moe")
+
+
+def ffn_is_moe(kind: str) -> bool:
+    return kind.endswith("_moe")
 
 
 def _check_kind(kind: str) -> None:
@@ -25,8 +29,11 @@ def init_block(gen, cfg, kind: str, device) -> dict:
     d = cfg.d_model
     p: dict = {"ln1": torch.zeros((d,), dtype=dt, device=device),
                "attn": attention.init_attn(gen, cfg, device),
-               "ln2": torch.zeros((d,), dtype=dt, device=device),
-               "mlp": layers.init_mlp(gen, cfg, device)}
+               "ln2": torch.zeros((d,), dtype=dt, device=device)}
+    if ffn_is_moe(kind):
+        p["moe"] = moe.init_moe(gen, cfg, device)
+    else:
+        p["mlp"] = layers.init_mlp(gen, cfg, device)
     if cfg.use_post_norm:
         p["post_ln1"] = torch.zeros((d,), dtype=dt, device=device)
         p["post_ln2"] = torch.zeros((d,), dtype=dt, device=device)
@@ -34,10 +41,13 @@ def init_block(gen, cfg, kind: str, device) -> dict:
 
 
 def block_fwd(x: torch.Tensor, p: dict, cfg, kind: str,
-              positions: torch.Tensor) -> torch.Tensor:
-    """Residual block: attention, then the MLP with the residual add fused
-    into the down projection's epilogue (when there is no post-norm)."""
+              positions: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Residual block: attention, then the FFN.  A dense MLP fuses the
+    residual add into its down projection's epilogue (when there is no
+    post-norm).  Returns (x, aux_loss): the MoE router's aux loss, 0 for a
+    dense FFN."""
     _check_kind(kind)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     h = rmsnorm(x, p["ln1"], cfg.norm_eps)
     window = cfg.local_window if kind == "attn_local" else None
     h = attention.attn(h, p["attn"], cfg, window=window, positions=positions)
@@ -45,7 +55,12 @@ def block_fwd(x: torch.Tensor, p: dict, cfg, kind: str,
         h = rmsnorm(h, p["post_ln1"], cfg.norm_eps)
     x = x + h
     h = rmsnorm(x, p["ln2"], cfg.norm_eps)
-    if not cfg.use_post_norm:
-        return layers.mlp(h, p["mlp"], cfg, residual=x)
-    h = rmsnorm(layers.mlp(h, p["mlp"], cfg), p["post_ln2"], cfg.norm_eps)
-    return x + h
+    if ffn_is_moe(kind):
+        h, aux = moe.moe_mlp(h, p["moe"], cfg)
+    elif not cfg.use_post_norm:
+        return layers.mlp(h, p["mlp"], cfg, residual=x), aux
+    else:
+        h = layers.mlp(h, p["mlp"], cfg)
+    if cfg.use_post_norm:
+        h = rmsnorm(h, p["post_ln2"], cfg.norm_eps)
+    return x + h, aux

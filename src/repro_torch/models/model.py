@@ -18,19 +18,23 @@ class ModelBundle:
     device: torch.device
     # init(seed) -> params drawn from a torch.Generator seeded with `seed`
     init: Callable[[int], Any]
-    # hidden_fn(params, batch) -> hidden (B, T, D)
-    hidden_fn: Callable[[Any, dict], torch.Tensor]
+    # hidden_fn(params, batch) -> (hidden (B, T, D), aux_loss)
+    hidden_fn: Callable[[Any, dict], tuple[torch.Tensor, torch.Tensor]]
     # logits_fn(params, hidden) -> fp32 logits
     logits_fn: Callable[[Any, torch.Tensor], torch.Tensor]
 
 
 def build_model(cfg: ModelConfig | str, device=None) -> ModelBundle:
-    """Bundle for a dense decoder LM.  `device` defaults to the card and
-    raises when CUDA is absent (pass device="cpu" to run on the CPU)."""
+    """Bundle for a decoder LM, dense or MoE (without MLA).  `device`
+    defaults to the card and raises when CUDA is absent (pass
+    device="cpu" to run on the CPU)."""
     if isinstance(cfg, str):
         cfg = get_config(cfg)
-    if cfg.family not in ("dense",):
+    if cfg.family not in ("dense", "moe"):
         raise NotImplementedError(f"family {cfg.family!r} is not ported yet")
+    if cfg.use_mla:
+        raise NotImplementedError(f"{cfg.name}: MLA attention is not "
+                                  f"ported yet")
     dev = resolve_device(device)
 
     def init(seed: int = 0):

@@ -1,0 +1,156 @@
+"""Mixture-of-Experts layer: sort-based dispatch + grouped expert GEMMs.
+
+The JAX package's single-device MoE, op for op: tokens are routed by an
+fp32 router (softmax, top-k, renormalised), stably sorted by expert id,
+packed into (E, capacity) slots (capacity-dropped like Switch), run
+through the planned grouped expert GEMMs (`kernels.ops.grouped_matmul`:
+K5 on the card under the "cuda" backend), and combined back with the
+router weights by an fp32 index-add.
+
+Where PyTorch differs from JAX, the port reproduces JAX's semantics:
+  * `jnp.argsort` is stable; `torch.argsort` only with ``stable=True``
+    (ties decide which tokens fall past capacity);
+  * `.at[slot].set(..., mode="drop")` writes nothing for the sentinel
+    slot E*cap: the slot buffer carries one extra row that takes the
+    dropped copies and is sliced off;
+  * `.at[st].add` is `index_add_` into an fp32 tensor — on CUDA its order
+    of additions is not deterministic.
+
+The expert-parallel shard_map path and capacity-slot telemetry are not
+ported yet.
+"""
+
+from __future__ import annotations
+
+import contextlib
+from typing import Iterator
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.kernels import ops
+from repro_torch.models import layers
+from repro_torch.models.layers import linear_init
+
+_ROUTING_LOGS: list[list] = []
+
+
+@contextlib.contextmanager
+def routing_capture() -> Iterator[list]:
+    """Collect, for every MoE dispatch inside the block, a dict with its
+    top-k expert ids ``experts`` (T, K) and the number of token copies
+    ``dropped`` past capacity (a 0-d tensor; read it after the block)."""
+    log: list = []
+    _ROUTING_LOGS.append(log)
+    try:
+        yield log
+    finally:
+        _ROUTING_LOGS.remove(log)
+
+
+def init_moe(gen: torch.Generator, cfg, device) -> dict:
+    """Router (fp32, kept fp32 in a bf16 model) and (E, D, F) / (E, F, D)
+    expert stacks drawn from `gen`; a shared expert when configured."""
+    d, e, f = cfg.d_model, cfg.n_experts, cfg.moe_d_ff
+    dt = layers.dtype_of(cfg)
+
+    def stack_init(d_in, d_out):
+        w = torch.empty((e, d_in, d_out), dtype=dt, device=device)
+        for i in range(e):
+            w[i] = linear_init(gen, d_in, d_out, dt, device)
+        return w
+
+    p = {
+        "router": torch.randn((d, e), generator=gen, device=device,
+                              dtype=torch.float32) * d ** -0.5,
+        "w_gate": stack_init(d, f),
+        "w_up": stack_init(d, f),
+        "w_down": stack_init(f, d),
+    }
+    if cfg.n_shared_experts:
+        p["shared"] = layers.init_mlp(
+            gen, cfg, device, d_ff=cfg.moe_d_ff * cfg.n_shared_experts)
+    return p
+
+
+def _capacity(n_tokens: int, cfg) -> int:
+    c = int(n_tokens * cfg.n_experts_per_tok * cfg.capacity_factor
+            / cfg.n_experts)
+    return max(8, -(-c // 8) * 8)
+
+
+def _dispatch_compute_combine(xf: torch.Tensor, p: dict, cfg, *,
+                              n_local_experts: int, expert_offset: int):
+    """Route xf (T, D) to the experts [offset, offset + n_local) and return
+    their weighted contribution (T, D) fp32 and the router aux loss."""
+    t, d = xf.shape
+    e, k = cfg.n_experts, cfg.n_experts_per_tok
+    dev = xf.device
+    logits = torch.matmul(xf.float(), p["router"])            # (T, E) fp32
+    probs = torch.softmax(logits, dim=-1)
+    gate_w, gate_i = torch.topk(probs, k, dim=-1)              # (T, K)
+    gate_w = gate_w / torch.clamp(gate_w.sum(-1, keepdim=True), min=1e-9)
+
+    frac_tokens = F.one_hot(gate_i, e).float().sum(1).mean(0)
+    frac_probs = probs.mean(0)
+    aux = cfg.router_aux_coef * e * torch.sum(frac_tokens * frac_probs)
+
+    cap = _capacity(t, cfg)
+    n_slots = n_local_experts * cap
+    flat_e = gate_i.reshape(-1)                                # (T*K,)
+    flat_t = torch.arange(t, device=dev).repeat_interleave(k)
+    flat_w = gate_w.reshape(-1)
+    # retarget to the local expert slice; out-of-slice -> dropped
+    local_e = flat_e - expert_offset
+    in_slice = (local_e >= 0) & (local_e < n_local_experts)
+    local_e = torch.where(in_slice, local_e, n_local_experts)
+    order = torch.argsort(local_e, stable=True)
+    se, st, sw = local_e[order], flat_t[order], flat_w[order]
+    keep_slice = se < n_local_experts
+    start = torch.searchsorted(
+        se, torch.arange(n_local_experts, device=dev), side="left")
+    rank = torch.arange(t * k, device=dev) - start[
+        torch.clamp(se, max=n_local_experts - 1)]
+    keep = keep_slice & (rank < cap)
+    slot = torch.where(keep, se * cap + rank, n_slots)
+    for log in _ROUTING_LOGS:
+        log.append({"experts": gate_i,
+                    "dropped": (keep_slice & ~keep).sum()})
+
+    gathered = xf[st] * keep[:, None].to(xf.dtype)             # (T*K, D)
+    # row n_slots is the sentinel that takes the dropped copies
+    slots = torch.zeros((n_slots + 1, d), dtype=xf.dtype, device=dev)
+    slots.index_copy_(0, slot, gathered)
+    slots = slots[:n_slots].view(n_local_experts, cap, d)
+
+    if cfg.mlp_type == "swiglu":
+        g = ops.grouped_matmul(slots, p["w_gate"], out_dtype=torch.float32)
+        u = ops.grouped_matmul(slots, p["w_up"], out_dtype=torch.float32)
+        h = (F.silu(g) * u).to(xf.dtype)
+    else:
+        # act fused into the expert GEMM's epilogue (fp32, one cast).
+        h = ops.grouped_matmul(slots, p["w_up"], epilogue="gelu",
+                               out_dtype=xf.dtype)
+    y_slots = ops.grouped_matmul(h, p["w_down"], out_dtype=torch.float32)
+    y_slots = y_slots.reshape(n_slots, d)
+
+    contrib = y_slots[torch.clamp(slot, max=n_slots - 1)]
+    contrib = contrib * (sw * keep)[:, None]
+    y = torch.zeros((t, d), dtype=torch.float32, device=dev)
+    y.index_add_(0, st, contrib)
+    return y, aux
+
+
+def moe_mlp(x: torch.Tensor, p: dict, cfg):
+    """x (B, S, D) -> (y (B, S, D), aux_loss fp32 scalar): the
+    single-device path over the full expert range.  A shared expert's
+    output lands on the routed sum through its down projection's fused
+    residual epilogue."""
+    b, s, d = x.shape
+    xf = x.reshape(b * s, d)
+    y, aux = _dispatch_compute_combine(
+        xf, p, cfg, n_local_experts=cfg.n_experts, expert_offset=0)
+    y = y.to(x.dtype)
+    if cfg.n_shared_experts:
+        y = layers.mlp(xf, p["shared"], cfg, residual=y)
+    return y.reshape(b, s, d), aux

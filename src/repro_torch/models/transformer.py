@@ -49,15 +49,19 @@ def embed_tokens(params, cfg, tokens: torch.Tensor) -> torch.Tensor:
     return x
 
 
-def forward_hidden(params, cfg, tokens: torch.Tensor) -> torch.Tensor:
-    """tokens (B, S) -> hidden (B, S, D) after the final norm."""
+def forward_hidden(params, cfg, tokens: torch.Tensor
+                   ) -> tuple[torch.Tensor, torch.Tensor]:
+    """tokens (B, S) -> (hidden (B, S, D) after the final norm, the summed
+    MoE aux loss, fp32 scalar)."""
     if cfg.pos_embedding != "rope":
         raise NotImplementedError("only rope position embeddings are ported")
     x = embed_tokens(params, cfg, tokens)
     positions = torch.arange(x.shape[1], dtype=torch.int32, device=x.device)
+    aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     for kind, p, *_ in layer_iter(params, cfg):
-        x = blocks.block_fwd(x, p, cfg, kind, positions)
-    return rmsnorm(x, params["final_norm"], cfg.norm_eps)
+        x, aux = blocks.block_fwd(x, p, cfg, kind, positions)
+        aux_total = aux_total + aux
+    return rmsnorm(x, params["final_norm"], cfg.norm_eps), aux_total
 
 
 def unembed(params, cfg, h: torch.Tensor) -> torch.Tensor:

@@ -1,4 +1,5 @@
-"""Serving engine: prefill + single-token decode for the dense GQA archs.
+"""Serving engine: prefill + single-token decode for the GQA archs, with a
+dense or an MoE FFN.
 
 `prefill` runs the full-sequence forward while filling the KV cache;
 `decode_step` advances one token against it.  Unlike the JAX package's
@@ -6,9 +7,10 @@ pure functions, the cache is **updated in place**: `decode_step` writes
 the new token's k/v into the cache tensors it is given (and returns the
 same dict), so no per-step copy of the cache is made.
 
-Both follow the JAX engine op for op (the MLP's residual add is not fused
-in the serving path there, so it is not fused here either), so their
-logits compare with the reference's at the same weights.
+Both follow the JAX engine op for op (the FFN's residual add is not fused
+in the serving path there, so it is not fused here either; the MoE aux
+loss is discarded), so their logits compare with the reference's at the
+same weights.
 """
 
 from __future__ import annotations
@@ -19,15 +21,16 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.core import config as mmcfg
 from repro_torch.core import skewmm
 from repro_torch.models import attention as attn_mod
-from repro_torch.models import layers, transformer
+from repro_torch.models import blocks, layers, moe, transformer
 from repro_torch.models.layers import rmsnorm
 from repro_torch.serve import kvcache
 
 
 def _check(cfg: ModelConfig) -> None:
-    if cfg.use_mla or cfg.family != "dense" or cfg.pos_embedding != "rope":
+    if (cfg.use_mla or cfg.family not in ("dense", "moe")
+            or cfg.pos_embedding != "rope"):
         raise NotImplementedError(
-            f"{cfg.name}: only dense GQA archs with rope are ported")
+            f"{cfg.name}: only dense and MoE GQA archs with rope are ported")
 
 
 def _attn_prefill(h, p, cfg, kind, positions, k_dst, v_dst):
@@ -44,9 +47,12 @@ def _attn_prefill(h, p, cfg, kind, positions, k_dst, v_dst):
     return skewmm.matmul(ctx, p["wo"])
 
 
-def _ffn(x, p, cfg):
+def _ffn(x, p, cfg, kind):
     h = rmsnorm(x, p["ln2"], cfg.norm_eps)
-    h = layers.mlp(h, p["mlp"], cfg)
+    if blocks.ffn_is_moe(kind):
+        h, _ = moe.moe_mlp(h, p["moe"], cfg)
+    else:
+        h = layers.mlp(h, p["mlp"], cfg)
     if cfg.use_post_norm:
         h = rmsnorm(h, p["post_ln2"], cfg.norm_eps)
     return x + h
@@ -75,7 +81,7 @@ def prefill(params, cfg: ModelConfig, tokens: torch.Tensor, *, max_len: int,
                               entry["k"][r], entry["v"][r])
             if cfg.use_post_norm:
                 h = rmsnorm(h, p["post_ln1"], cfg.norm_eps)
-            x = _ffn(x + h, p, cfg)
+            x = _ffn(x + h, p, cfg, kind)
         h = rmsnorm(x, params["final_norm"], cfg.norm_eps)
         if last_index is None:
             last = h[:, -1]
@@ -130,6 +136,6 @@ def decode_step(params, cfg: ModelConfig, cache, tokens: torch.Tensor, pos,
                             pos, window)
             if cfg.use_post_norm:
                 h = rmsnorm(h, p["post_ln1"], cfg.norm_eps)
-            x = _ffn(x + h, p, cfg)
+            x = _ffn(x + h, p, cfg, kind)
         h = rmsnorm(x, params["final_norm"], cfg.norm_eps)
         return transformer.unembed(params, cfg, h[:, 0]), cache

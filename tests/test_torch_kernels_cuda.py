@@ -22,6 +22,7 @@ import pytest
 import torch
 
 from repro_torch.kernels import gemv_splitk as gk_mod
+from repro_torch.kernels import grouped_matmul as gmm_mod
 from repro_torch.kernels import skew_matmul as mm_mod
 
 RNG = np.random.default_rng(11)
@@ -132,3 +133,54 @@ def test_splitk_bitwise_across_split_counts(dev):
     for bk in (16, 48, 64, 128, 256, 384):     # gk = 48, 16, 12, 6, 3, 2
         got = gk_mod.gemv_splitk(a, b, bm=16, bk=bk, bn=64)
         assert torch.equal(got, want), bk
+
+
+GROUPED_EPILOGUES = [None, "gelu", "scale", "residual", "silu_residual"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("spec", GROUPED_EPILOGUES)
+def test_grouped_matches_plain(dev, dtype, spec):
+    """K5 at a shape ragged in m, k and n against (64, 64, 128) blocks."""
+    g, m, k, n = 4, 40, 1000, 700
+    a, b = _t((g, m, k), dtype, dev, 0.2), _t((g, k, n), dtype, dev, 0.1)
+    tokens = tuple((t, 0.5 if t == "scale" else None)
+                   for t in (spec.split("_") if spec else ()))
+    res = _t((g, m, n), dtype, dev) if spec and "residual" in spec else None
+    for out_dtype in (dtype, torch.float32):
+        got = gmm_mod.grouped_matmul_cuda(a, b, res, bm=64, bk=64, bn=128,
+                                          epilogue=tokens,
+                                          out_dtype=out_dtype)
+        want = gmm_mod.grouped_matmul_plain(a, b, res, bk=64,
+                                            epilogue=tokens,
+                                            out_dtype=out_dtype)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got.float(), want.float(), **TOL[dtype])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_grouped_strided_operands_and_decode_rows(dev, dtype):
+    """A and B read through their strides (B a transposed view, A a slice
+    of a wider buffer) with m = 8 capacity rows in a 64-row block."""
+    g, m, k, n = 3, 8, 256, 300
+    b = _t((g, n, k), dtype, dev, 0.1).transpose(1, 2)
+    a = _t((g, m, k + 64), dtype, dev, 0.2)[:, :, 64:]
+    got = gmm_mod.grouped_matmul_cuda(a, b, bm=64, bk=64, bn=128,
+                                      out_dtype=torch.float32)
+    want = gmm_mod.grouped_matmul_plain(a, b, bk=64,
+                                        out_dtype=torch.float32)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, want, **TOL[dtype])
+
+
+@pytest.mark.cuda
+def test_grouped_refuses_bias_and_bad_blocks(dev):
+    a = _t((2, 8, 64), torch.bfloat16, dev)
+    b = _t((2, 64, 64), torch.bfloat16, dev)
+    with pytest.raises(ValueError, match="bias"):
+        gmm_mod.grouped_matmul_cuda(a, b, bm=64, bk=64, bn=64,
+                                    epilogue=(("bias", None),))
+    with pytest.raises(ValueError, match="multiples of 16"):
+        gmm_mod.grouped_matmul_cuda(a, b, bm=8, bk=64, bn=64)

@@ -21,6 +21,7 @@ from repro_torch.core.config import mm_config
 from repro_torch.core.costmodel import BlockPlan
 from repro_torch.core.epilogue import Epilogue
 from repro_torch.kernels import gemv_splitk, ops, ref
+from repro_torch.kernels import grouped_matmul as gmm
 from repro_torch.kernels import skew_matmul as mm
 
 RNG = np.random.default_rng(21)
@@ -176,3 +177,96 @@ def test_epilogue_parse_validation():
     with pytest.raises(ValueError):
         ep_mod.normalize_spec("gelu_silu")
     assert Epilogue.parse("silu").spec == (("silu", None),)
+
+
+# ---------------------------------------------------------- grouped (K5)
+# (blocks, epilogue): g 3, m 20, k 200, n 130 — ragged against every
+# block.  The first three plans cover a whole group (one grid step per
+# group in interpret mode); the last splits k in two.
+GROUPED_CASES = [
+    ((24, 256, 256), None),
+    ((24, 256, 256), "gelu"),
+    ((24, 256, 256), "residual"),
+    ((24, 128, 256), "scale"),
+]
+
+
+@pytest.mark.parametrize("blocks,spec", GROUPED_CASES)
+def test_grouped_matmul_matches_jax_interpret(blocks, spec):
+    g, m, k, n = 3, 20, 200, 130
+    a, b, res = _arr(g, m, k), _arr(g, k, n), _arr(g, m, n)
+    kw = {"residual": res} if spec == "residual" else {}
+    if spec == "scale":
+        kw = {"scale": 0.5}
+    act = spec if spec == "gelu" else None
+    jep = JEpilogue(act=act, **{key: jnp.asarray(v) if key == "residual"
+                                else v for key, v in kw.items()})
+    tep = Epilogue(act=act, **{key: torch.tensor(v) if key == "residual"
+                               else v for key, v in kw.items()})
+    want = jops.grouped_matmul(jnp.asarray(a), jnp.asarray(b),
+                               plan=JPlan(*blocks), backend="pallas",
+                               epilogue=jep, out_dtype=jnp.float32,
+                               interpret=True)
+    # Under the reference chip the granule clipping (8 / 128) gives both
+    # packages the same blocks, hence the same k blocks.
+    with mm_config(chip="tpu_v5e", backend="cuda"):
+        got = ops.grouped_matmul(torch.tensor(a), torch.tensor(b),
+                                 plan=BlockPlan(*blocks), epilogue=tep,
+                                 out_dtype=torch.float32)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=RTOL,
+                               atol=ATOL)
+
+
+@pytest.mark.parametrize("backend", ["cuda", "torch"])
+@pytest.mark.parametrize("spec", [None, "gelu", "silu", "residual",
+                                  "silu_residual"])
+def test_grouped_ops_match_oracle_at_h100_blocks(backend, spec):
+    """Planned under gpu_h100 (64 granules) with ragged m, k, n: both
+    backends against the one-product oracle; each call records its plan
+    into the capture and launches nothing on the CPU."""
+    from repro_torch.core import skewmm
+    from repro_torch.sparse.costmodel import SparseMatmulCost
+    ops.reset_launch_counts()
+    g, m, k, n = 4, 40, 300, 150
+    a, b = torch.tensor(_arr(g, m, k)), torch.tensor(_arr(g, k, n))
+    res = torch.tensor(_arr(g, m, n))
+    ep = Epilogue.parse(spec, residual=res)
+    with skewmm.plan_capture() as log, mm_config(backend=backend):
+        got = ops.grouped_matmul(a, b, epilogue=ep)
+    want = ref.grouped_matmul_ref(a, b, epilogue=ep)
+    torch.testing.assert_close(got, want, rtol=RTOL, atol=ATOL)
+    assert len(log) == 1 and isinstance(log[0], SparseMatmulCost)
+    assert log[0].layout.groups == g and log[0].n == n
+    assert ops.launch_counts()["grouped_matmul"] == 0
+
+
+def test_grouped_plain_sums_k_blocks_in_order():
+    """The plain version is the kernel's arithmetic: fp32 partial products
+    over k blocks of width bk, added in order."""
+    a, b = torch.tensor(_arr(2, 5, 150)), torch.tensor(_arr(2, 150, 70))
+    got = gmm.grouped_matmul_plain(a, b, bk=64)
+    want = (a[..., :64] @ b[:, :64] + a[..., 64:128] @ b[:, 64:128]) \
+        + a[..., 128:] @ b[:, 128:]
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+
+
+def test_grouped_refuses_bias_and_cpu_tensors_in_the_kernel_entry():
+    a, b = torch.zeros(2, 8, 64), torch.zeros(2, 64, 64)
+    with pytest.raises(ValueError, match="bias"):
+        ops.grouped_matmul(a, b, epilogue=Epilogue(bias=torch.zeros(64)))
+    with pytest.raises(ValueError, match="mismatch"):
+        ops.grouped_matmul(a, torch.zeros(3, 64, 64))
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        gmm.grouped_matmul_cuda(a, b, bm=64, bk=64, bn=64)
+    out = gmm.grouped_matmul(a, b, bm=64, bk=64, bn=64)
+    assert out.device.type == "cpu" and out.shape == (2, 8, 64)
+    assert gmm.LAUNCHES["grouped_matmul"] == 0
+
+
+def test_grouped_explicit_plan_records_nothing():
+    """As in the JAX package, only a call that plans records a plan."""
+    from repro_torch.core import skewmm
+    a, b = torch.tensor(_arr(2, 8, 64)), torch.tensor(_arr(2, 64, 64))
+    with skewmm.plan_capture() as log:
+        ops.grouped_matmul(a, b, plan=BlockPlan(64, 64, 64))
+    assert log == []

@@ -35,9 +35,10 @@ from repro_torch.serve import engine
 RTOL = ATOL = 1e-4
 
 
-def _configs(variant: str, dtype: str | None = None):
-    jcfg = jget_config("phi4-mini-3.8b").reduced()
-    cfg = get_config("phi4-mini-3.8b").reduced()
+def _configs(variant: str, dtype: str | None = None,
+             arch: str = "phi4-mini-3.8b"):
+    jcfg = jget_config(arch).reduced()
+    cfg = get_config(arch).reduced()
     if variant == "decode_scale":
         jcfg, cfg = jcfg.decode_scale(), cfg.decode_scale()
     if dtype:
@@ -151,7 +152,7 @@ def test_forward_hidden_and_unembed_match_jax():
     with jmm_config(backend="xla"):
         jh, _ = jb.hidden_fn(jp, {"tokens": jnp.asarray(toks, jnp.int32)})
         jl = jb.logits_fn(jp, jh)
-    h = tb.hidden_fn(tp, {"tokens": torch.tensor(toks)})
+    h, _ = tb.hidden_fn(tp, {"tokens": torch.tensor(toks)})
     np.testing.assert_allclose(tb.logits_fn(tp, h).numpy(), _np(jl),
                                rtol=RTOL, atol=ATOL)
 
@@ -173,6 +174,49 @@ def test_bf16_prefill_close_to_jax():
 def test_launcher_runs_on_cpu_when_asked():
     res = serve_mod.main(["--arch", "phi4-mini-3.8b", "--reduced",
                           "--batch", "2", "--prompt-len", "6", "--gen", "3",
+                          "--device", "cpu"])
+    assert tuple(res["tokens"].shape) == (2, 3)
+    assert res["logits_finite"]
+
+
+@pytest.mark.parametrize("backend", ["cuda", "torch"])
+def test_moe_prefill_and_greedy_decode_match_jax(backend):
+    """dbrx-132b reduced (MoE FFN in every layer): prefill plus four greedy
+    decode steps against the JAX engine, weights carried by `convert`.
+    Decode has T = 2 tokens, so every expert runs at the minimum capacity
+    of 8 slots; prefill (T = 32) at 16."""
+    jcfg, cfg = _configs("reduced", arch="dbrx-132b")
+    jp, tp = _weights(jcfg)
+    assert tp["stage0"][0]["b0"]["moe"]["router"].dtype == torch.float32
+    rng = np.random.default_rng(15)
+    B, S, MAX = 2, 16, 24
+    toks = rng.integers(0, cfg.vocab_size, (B, S))
+    with jmm_config(backend="xla"):
+        jcache, jlogits = jengine.prefill(jp, jcfg,
+                                          jnp.asarray(toks, jnp.int32),
+                                          max_len=MAX)
+    with mm_config(backend=backend):
+        cache, logits = engine.prefill(tp, cfg, torch.tensor(toks),
+                                       max_len=MAX)
+    np.testing.assert_allclose(logits.numpy(), _np(jlogits), rtol=RTOL,
+                               atol=ATOL)
+    tok = np.argmax(_np(jlogits), -1)
+    for i in range(4):
+        with jmm_config(backend="xla"):
+            jlogits, jcache = jengine.decode_step(
+                jp, jcfg, jcache, jnp.asarray(tok, jnp.int32),
+                jnp.asarray(S + i, jnp.int32))
+        with mm_config(backend=backend):
+            logits, cache = engine.decode_step(tp, cfg, cache,
+                                               torch.tensor(tok), S + i)
+        np.testing.assert_allclose(logits.numpy(), _np(jlogits), rtol=RTOL,
+                                   atol=ATOL)
+        tok = np.argmax(_np(jlogits), -1)
+
+
+def test_moe_launcher_runs_on_cpu_when_asked():
+    res = serve_mod.main(["--arch", "dbrx-132b", "--reduced", "--batch",
+                          "2", "--prompt-len", "6", "--gen", "3",
                           "--device", "cpu"])
     assert tuple(res["tokens"].shape) == (2, 3)
     assert res["logits_finite"]
