@@ -40,8 +40,25 @@ then dbrx-132b's MoE layers, after phi4's weights are freed:
      on which "cuda" and "torch" agree (information, not a gate);
   6b. timings — K5, its plain version and `torch.bmm` at the decode and
      prefill shapes;
-  7. the `kernels` JSON line (K1-K5; launches summed over both main
+then recurrentgemma-9b, after dbrx's weights are freed:
+  3c. K6 / K7 parity — the RG-LRU scan (with its fp32 carry) and flash
+     attention against their plain versions at the prefill shapes of the
+     three served models (batch 4 x prompt 128), recurrentgemma's long
+     prefill (batch 1 x 3072, window 2048) and gemma2-27b's local layer
+     (32 / 16 heads, S 8192, window 4096, softcap 50);
+  4c. serve recurrentgemma-9b (the third main path) — every published
+     width and all 38 layers, seeded bf16 weights, batch 4 x prompt 128 +
+     16 generated tokens, then batch 1 x prompt 3072 + 4 (the window
+     masks bite in K7 and the 2048-slot ring caches wrap at decode).  K6
+     must launch once per recurrent layer and K7 once per attention layer
+     of every prefill.  Counts are zeroed just before and read just after;
+  5c. whole-path parity at full width and 6 layers (two whole (rec, rec,
+     attn) units), as in phase 5;
+  6c. timings — K6 and K7, their plain versions and, for K7 where the mask
+     is plain causal, `scaled_dot_product_attention`;
+  7. the `kernels` JSON line (K1-K7; launches summed over the three main
      paths), then the device line.
+Phi4's and dbrx's prefills reach K7 too (phases 4, 4b).
 """
 
 from __future__ import annotations
@@ -59,7 +76,12 @@ ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
 
 PEAK_BF16 = 989e12          # H100 SXM data sheet, dense
+PEAK_FP32 = 67e12           # the same, fp32 outside the tensor cores
 HBM_BW = 3.35e12
+# fp32 operations per element of the RG-LRU scan, counting exp, log1p,
+# sqrt and a division as one each: two sigmoids (3 each), log a (2), a and
+# exp(2 log a) (2), the clamped sqrt (3), the gated input and h (4).
+RGLRU_OPS = 17
 
 # Kernel tolerances, against the plain version on the same inputs:
 #  - bf16 output: two bf16 ulps at the largest magnitude of the plain
@@ -107,13 +129,24 @@ KERNELS = {
     "grouped_matmul": (
         "src/repro_torch/csrc/grouped_matmul.cu",
         "src/repro/sparse/kernels.py:330"),
+    "flash_attention": (
+        "src/repro_torch/csrc/flash_attention.cu",
+        "src/repro/kernels/flash_attention.py:112"),
+    "rglru_scan": (
+        "src/repro_torch/csrc/rglru_scan.cu",
+        "src/repro/kernels/rglru_scan.py:80"),
 }
-# The dense kernels run on phi4's main path, K5 on dbrx's.
-PHI4_KERNELS = tuple(n for n in KERNELS if n != "grouped_matmul")
+# The dense kernels and K7 run on phi4's main path, K5 on dbrx's, K6 (and
+# K7) on recurrentgemma's.
+PHI4_KERNELS = tuple(n for n in KERNELS
+                     if n not in ("grouped_matmul", "rglru_scan"))
 # dbrx-132b: 40 layers of 6.52 GB (bf16) do not fit one 80 GB card; the
 # serve keeps every width and cuts depth to 8 layers (54.6 GB), the
 # whole-path parity to 2 (an fp32 copy fits beside the bf16 one).
 DBRX_LAYERS, DBRX_PARITY_LAYERS = 8, 2
+# recurrentgemma-9b: all 38 layers (~17 GB of bf16) fit; the whole-path
+# parity keeps 2 of its 12 whole (rec, rec, attn_local) units.
+HYBRID_PARITY_UNITS = 2
 
 
 def fail(msg: str) -> None:
@@ -198,13 +231,13 @@ def check_kernel(torch, errs: dict, name, got, want, out_dtype, tag) -> None:
 
 
 def timing_row(torch, counts, errs, name, kernel, plain, library, nbytes,
-               flops, shape) -> dict:
+               flops, shape, peak: float = PEAK_BF16) -> dict:
     """Time a kernel, its plain version and the PyTorch yardstick (CUDA
-    events) beside the bound from `nbytes` and `flops`."""
+    events) beside the bound from `nbytes` and `flops` (at `peak`)."""
     ms = time_ms(torch, kernel)
     plain_ms = time_ms(torch, plain, iters=5, warmup=1)
     lib_ms = time_ms(torch, library) if library else None
-    bms, by = bound_ms(nbytes, flops, PEAK_BF16)
+    bms, by = bound_ms(nbytes, flops, peak)
     src, rep = KERNELS[name]
     say(f"time {name:24s} {shape:28s} {ms:.4f} ms  plain {plain_ms:.4f}"
         f"  torch {lib_ms if lib_ms is None else round(lib_ms, 4)}  "
@@ -767,7 +800,7 @@ def phase_serve_moe(torch, cfg):
              f"{want_k5} (3 per MoE layer per step, {steps} steps)")
     say(f"K5 launches: {counts['grouped_matmul'] // steps} per step "
         f"({cfg.n_layers} MoE layers x 3 expert GEMMs)")
-    used = {"grouped_matmul"}
+    used = {"grouped_matmul", "flash_attention"}
     for c in log:
         if hasattr(c, "layout"):
             continue
@@ -786,7 +819,8 @@ def phase_serve_moe(torch, cfg):
 
 
 def first_layers(params, n: int) -> dict:
-    """The model's first `n` layers, sharing the tensors (one stage)."""
+    """The model's first `n` units of its first stage (a unit is one layer
+    for dbrx, three for recurrentgemma), sharing the tensors."""
     out = {k: v for k, v in params.items() if not k.startswith("stage")}
     out["stage0"] = params["stage0"][:n]
     return out
@@ -819,6 +853,248 @@ def phase_timings_grouped(torch, cfg, params, counts, errs) -> list[dict]:
             lambda a=a, w=w: torch.bmm(a, w),
             (e * m * k + e * k * n) * 2 + e * m * n * 4, 2 * e * m * k * n,
             f"{what} {e}x{m}x{k}x{n} bf16->fp32 {(bm, bk, bn)}"))
+    return rows
+
+
+# ----------------------------------------------------------------- hybrid
+def seq_shapes(phi4, dbrx, rg) -> tuple[list, list]:
+    """K7's shapes (label, B, Hq, Hkv, S, D, window, softcap) and K6's
+    (label, B, L, D): every served model's prefill at batch 4 x 128,
+    recurrentgemma's long prefill, and gemma2-27b's local attention layer
+    (src/repro/configs/gemma2_27b.py: 32 / 16 heads of 128, window 4096,
+    softcap 50; the port does not serve gemma2 yet)."""
+    fa = [(f"{c.name} prefill", 4, c.n_heads, c.n_kv_heads, 128, c.head_dim,
+           c.local_window, c.attn_softcap) for c in (rg, phi4, dbrx)]
+    fa += [(f"{rg.name} long prefill", 1, rg.n_heads, rg.n_kv_heads, 3072,
+            rg.head_dim, rg.local_window, 0.0),
+           ("gemma2-27b local layer", 1, 32, 16, 8192, 128, 4096, 50.0)]
+    scan = [(f"{rg.name} prefill", 4, 128, rg.lru_width),
+            (f"{rg.name} long prefill", 1, 3072, rg.lru_width)]
+    return fa, scan
+
+
+def _qkv(torch, gen, b, hq, hkv, s, d, dtype):
+    """q, k, v as the model hands them to K7: (B, H, S, D) views of
+    (B, S, H, D) projections."""
+    def one(h):
+        return torch.randn((b, s, h, d), generator=gen, device="cuda").to(
+            dtype).transpose(1, 2)
+    return one(hq), one(hkv), one(hkv)
+
+
+def _scan_inputs(torch, gen, b, length, d, dtype=None):
+    dtype = dtype or torch.bfloat16
+    x, r, i = (torch.randn((b, length, d), generator=gen,
+                           device="cuda").to(dtype) for _ in range(3))
+    lam = torch.rand((d,), generator=gen, device="cuda") * 4.0 - 2.0
+    return x, r, i, lam
+
+
+def phase_parity_seq(torch, fa_shapes, scan_shapes) -> dict:
+    """K7 and K6 against their plain versions on the card."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import rglru_scan as rg
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(2468)
+    errs: dict = {}
+    check = functools.partial(check_kernel, torch, errs)
+    bf = torch.bfloat16
+    cases = [(*shape, bf) for shape in fa_shapes]
+    cases.append(("fp32 tile at head dim 256", 1, 16, 1, 300, 256, 100, 0.0,
+                  torch.float32))
+    for label, b, hq, hkv, s, d, window, cap, dtype in cases:
+        q, k, v = _qkv(torch, gen, b, hq, hkv, s, d, dtype)
+        got = fa.flash_attention_cuda(q, k, v, window=window, softcap=cap)
+        want = fa.flash_attention_plain(q, k, v, window=window, softcap=cap)
+        torch.cuda.synchronize()
+        check("flash_attention", got, want, dtype,
+              f"{label} {b}x{hq}/{hkv}x{s}x{d} w={window} cap={cap}")
+        del q, k, v, got, want
+    for label, b, length, d in scan_shapes + [("ragged", 3, 37, 200)]:
+        x, r, i, lam = _scan_inputs(torch, gen, b, length, d)
+        y, h = rg.rglru_scan_cuda(x, r, i, lam, return_state=True)
+        want, hw = rg.rglru_scan_plain(x, r, i, lam, return_state=True)
+        torch.cuda.synchronize()
+        check("rglru_scan", y, want, bf, f"{label} y {b}x{length}x{d}")
+        check("rglru_scan", h, hw, torch.float32,
+              f"{label} fp32 carry {b}x{d}")
+    torch.cuda.empty_cache()
+    return errs
+
+
+def visible_pairs(s: int, window: int | None) -> int:
+    """(row, col) pairs a causal (windowed) self-attention over s
+    positions computes: sum over rows of min(row + 1, window)."""
+    w = s if window is None else min(window, s)
+    return w * (w + 1) // 2 + (s - w) * w
+
+
+def hybrid_serve_bounds(cfg, params, batch: int, prompt: int,
+                        kv_bytes: int) -> tuple[float, float]:
+    """(prefill bound ms, decode bound ms per token) of the hybrid serve.
+
+    Bytes: every weight once (the tied embedding is the LM head), plus the
+    decode caches at decode.  Operations: 2 per token and weight of every
+    layer tensor of two or more dims (projections, MLP, the block-diagonal
+    gates and the conv taps), attention's 4 * D per visible (row, col) pair
+    and q head, and the LM head on the last positions; the elementwise
+    scan is left out (tiny beside them)."""
+    from repro_torch.models import transformer
+    from repro_torch.models.model import param_bytes
+    d, v, hd, h = cfg.d_model, cfg.vocab_size, cfg.head_dim, cfg.n_heads
+    layer_w = n_attn = 0
+    for kind, p, *_ in transformer.layer_iter(params, cfg):
+        layer_w += sum(t.numel() for t in _leaves(p) if t.dim() >= 2)
+        n_attn += kind != "rec"
+    pbytes = param_bytes(params)
+    win = cfg.local_window
+    pre_ops = (2 * batch * prompt * layer_w + 2 * batch * d * v
+               + n_attn * 4 * hd * h * batch * visible_pairs(prompt, win))
+    pre = max(pre_ops / PEAK_BF16, pbytes / HBM_BW)
+    dec_ops = (2 * batch * (layer_w + d * v)
+               + n_attn * 4 * hd * h * batch * min(prompt + 1, win))
+    dec = max(dec_ops / PEAK_BF16, (pbytes + kv_bytes) / HBM_BW)
+    return pre * 1e3, dec * 1e3
+
+
+def _leaves(tree):
+    if isinstance(tree, (dict, list)):
+        for v in (tree.values() if isinstance(tree, dict) else tree):
+            yield from _leaves(v)
+    else:
+        yield tree
+
+
+def phase_serve_hybrid(torch, cfg):
+    """The third main path: recurrentgemma-9b at every published width and
+    all 38 layers, served through `serve(cfg=...)` at batch 4 x 128 and at
+    batch 1 x 3072."""
+    from repro_torch.core import skewmm
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve as serve_mod
+    from repro_torch.models.model import build_model, param_bytes
+    from repro_torch.serve import kvcache
+
+    t0 = time.perf_counter()
+    params = build_model(cfg, "cuda").init(0)
+    torch.cuda.synchronize()
+    pbytes = param_bytes(params)
+    n_params = sum(t.numel() for t in _leaves(params))
+    say(f"init {cfg.name}: {n_params} parameters, {pbytes / 1e9:.3f} GB "
+        f"of bf16 weights (a_param fp32) in {time.perf_counter() - t0:.1f} s")
+    kinds = [u for unit, n in cfg.stage_list() for _ in range(n) for u in unit]
+    n_rec, n_attn = kinds.count("rec"), len(kinds) - kinds.count("rec")
+    runs = ((4, 128, 16), (1, 3072, 4))
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    # ---- the main path: counts zeroed above, read right after it.
+    with skewmm.plan_capture() as log:
+        results = [serve_mod.serve(cfg=cfg, params=params, batch=b,
+                                   prompt_len=p, gen=g, seed=0)
+                   for b, p, g in runs]
+    counts = ops.launch_counts()
+    # ---- end of the main path.
+    peak = torch.cuda.max_memory_allocated()
+    bounds = []
+    for (b, p, g), res in zip(runs, results):
+        if not res["logits_finite"]:
+            fail(f"{cfg.name} serve b{b} p{p} produced non-finite logits")
+        kv = kvcache.cache_bytes(kvcache.init_cache(cfg, b, p + g, "meta"))
+        pre_b, dec_b = hybrid_serve_bounds(cfg, params, b, p, kv)
+        bounds.append((pre_b, dec_b))
+        say(f"serve {cfg.name} ({cfg.n_layers} layers) b{b} p{p} g{g}: "
+            f"prefill {res['prefill_s'] * 1e3:.1f} ms (bound {pre_b:.2f} "
+            f"ms), decode {res['decode_s_per_token'] * 1e3:.2f} ms/token "
+            f"(bound {dec_b:.2f} ms), caches {kv / 1e6:.1f} MB")
+    say(f"serve {cfg.name}: peak memory {peak / 2**30:.2f} GiB of "
+        f"{pbytes / 2**30:.2f} GiB weights")
+    seen = {}
+    for c in log:
+        seen.setdefault(plan_key(c), c)
+    for key, c in seen.items():
+        say(f"plan {key}: {c.explain()}")
+    say(f"launch counts on the {cfg.name} main path: {counts}")
+    want = {"rglru_scan": n_rec * len(runs),
+            "flash_attention": n_attn * len(runs)}
+    for name, n in want.items():
+        if counts[name] != n:
+            fail(f"{name} launched {counts[name]} times, expected {n} (one "
+                 f"per {'recurrent' if name == 'rglru_scan' else 'attention'}"
+                 f" layer of each of {len(runs)} prefills)")
+    say(f"K6 launches: {n_rec} per prefill, K7: {n_attn} per prefill "
+        f"({n_rec} rec + {n_attn} attn_local layers)")
+    for c in log:
+        if c.plan.schedule == "splitk":
+            name = "gemv_splitk_partial"
+        elif c.plan.batch_grid and c.dims.batch > 1:
+            name = "skew_matmul_batched"
+        else:
+            name = f"skew_matmul_{c.plan.schedule}"
+        if counts.get(name, 0) <= 0:
+            fail(f"kernel {name} was not launched on the {cfg.name} path")
+    return {"serve": results, "peak": peak, "bounds": bounds,
+            "params": params, "params_bytes": pbytes, "counts": counts}
+
+
+def sdpa_call(F, q, k, v):
+    """One `scaled_dot_product_attention` call computing causal GQA
+    attention on q, k, v (kv heads expanded beforehand where this PyTorch
+    has no `enable_gqa`)."""
+    try:
+        F.scaled_dot_product_attention(q[:, :, :1], k[:, :, :1], v[:, :, :1],
+                                       is_causal=True, enable_gqa=True)
+    except TypeError:
+        g = q.shape[1] // k.shape[1]
+        ke, ve = k.repeat_interleave(g, 1), v.repeat_interleave(g, 1)
+        return lambda: F.scaled_dot_product_attention(q, ke, ve,
+                                                      is_causal=True)
+    return lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True,
+                                                  enable_gqa=True)
+
+
+def phase_timings_seq(torch, fa_shapes, scan_shapes, counts,
+                      errs) -> list[dict]:
+    """K7 and K6, their plain versions and (K7, plain causal masks only)
+    `scaled_dot_product_attention`, at the main paths' shapes."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import rglru_scan as rg
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(97)
+    row = functools.partial(timing_row, torch, counts, errs)
+    bf = torch.bfloat16
+    rows = []
+    for label, b, hq, hkv, s, d, window, cap in fa_shapes:
+        q, k, v = _qkv(torch, gen, b, hq, hkv, s, d, bf)
+        lib = None
+        if cap == 0.0 and (window is None or window >= s):
+            lib = sdpa_call(F, q, k, v)
+        nbytes = 2 * (q.numel() * 2 + k.numel() + v.numel())
+        ops_ = 4 * d * hq * b * visible_pairs(s, window)
+        rows.append(row(
+            "flash_attention",
+            lambda q=q, k=k, v=v, w=window, c=cap: fa.flash_attention_cuda(
+                q, k, v, window=w, softcap=c),
+            lambda q=q, k=k, v=v, w=window, c=cap: fa.flash_attention_plain(
+                q, k, v, window=w, softcap=c),
+            lib, nbytes, ops_,
+            f"{label} {b}x{hq}/{hkv}x{s}x{d} w={window} cap={cap}"))
+        del q, k, v
+    for label, b, length, d in scan_shapes:
+        x, r, i, lam = _scan_inputs(torch, gen, b, length, d)
+        n = b * length * d
+        rows.append(row(
+            "rglru_scan",
+            lambda x=x, r=r, i=i, lam=lam: rg.rglru_scan_cuda(
+                x, r, i, lam, return_state=True),
+            lambda x=x, r=r, i=i, lam=lam: rg.rglru_scan_plain(
+                x, r, i, lam, return_state=True),
+            None, 4 * n * 2 + d * 4 + b * d * 4, RGLRU_OPS * n,
+            f"{label} {b}x{length}x{d} bf16 + fp32 carry", peak=PEAK_FP32))
+    torch.cuda.empty_cache()
     return rows
 
 
@@ -903,11 +1179,31 @@ def main() -> None:
     del params2
     torch.cuda.empty_cache()
 
+    hcfg = get_config("recurrentgemma-9b")
+    say(f"config: {hcfg.name} L={hcfg.n_layers} {hcfg.layer_pattern} "
+        f"d={hcfg.d_model} H={hcfg.n_heads}/{hcfg.n_kv_heads} "
+        f"hd={hcfg.head_dim} W={hcfg.lru_width} window={hcfg.local_window} "
+        f"ff={hcfg.d_ff} V={hcfg.vocab_size}")
+    fa_shapes, scan_shapes = seq_shapes(cfg, dcfg, hcfg)
+    errs.update(phase_parity_seq(torch, fa_shapes, scan_shapes))
+    hyb_path = phase_serve_hybrid(torch, hcfg)
+    if "--profile" in sys.argv[1:]:
+        profile_steps(torch, hcfg, hyb_path["params"])
+    params3 = first_layers(hyb_path.pop("params"), HYBRID_PARITY_UNITS)
+    torch.cuda.empty_cache()
+    n3 = HYBRID_PARITY_UNITS * len(hcfg.layer_pattern)
+    phase_path_parity(torch, dataclasses.replace(hcfg, n_layers=n3), params3)
+    del params3
+    torch.cuda.empty_cache()
+    rows += phase_timings_seq(torch, fa_shapes, scan_shapes,
+                              hyb_path["counts"], errs)
+
     # One entry per kernel for the contract line (the LM-head shape for
-    # K1-K4, the dbrx decode gate/up shape for K5); the other shapes are in
-    # the log above.  Launches: summed over the two main paths.
+    # K1-K4, the dbrx decode gate/up shape for K5, recurrentgemma's batch-4
+    # prefill for K6 and K7); the other shapes are in the log above.
+    # Launches: summed over the three main paths.
     launches = {n: phi4_counts.get(n, 0) + moe_path["counts"].get(n, 0)
-                for n in KERNELS}
+                + hyb_path["counts"].get(n, 0) for n in KERNELS}
     first = {}
     for r in rows:
         first.setdefault(r["name"], r)

@@ -5,16 +5,21 @@ The JAX LM stacks each stage's repeating units along a leading layer axis
 a list of per-layer unit dicts instead.  `params_from_numpy` takes the JAX
 parameter tree with its leaves already turned into numpy arrays (for
 example ``jax.tree.map(np.asarray, params)``) and returns the port's
-parameters on `device`, so both packages compute with the same weights.
+parameters on `device` (the card unless told otherwise), so both packages
+compute with the same weights.
 
 Every leaf keeps its dtype: an MoE block's ``(R, E, D, F)`` expert stacks
-become ``(E, D, F)`` per layer, and its router stays fp32 in a bf16 model.
+become ``(E, D, F)`` per layer, and its router stays fp32 in a bf16 model;
+a recurrent block's block-diagonal gates ``w_r`` / ``w_i`` become
+``(nb, bw, bw)`` per layer, and its ``a_param`` stays fp32.
 """
 
 from __future__ import annotations
 
 import numpy as np
 import torch
+
+from repro_torch import resolve_device
 
 
 def _tensor(x, device) -> torch.Tensor:
@@ -45,8 +50,10 @@ def _rows(tree) -> int:
     return np.asarray(tree).shape[0]
 
 
-def params_from_numpy(tree: dict, device="cpu") -> dict:
-    """JAX parameter tree (numpy leaves) -> the port's parameter dict."""
+def params_from_numpy(tree: dict, device=None) -> dict:
+    """JAX parameter tree (numpy leaves) -> the port's parameter dict, on
+    `device` (default: the card; raises when CUDA is absent)."""
+    device = resolve_device(device)
     out: dict = {}
     for key, value in tree.items():
         if key.startswith("stage"):

@@ -1,0 +1,213 @@
+"""Flash attention for prefill: Hopper kernel + plain version.
+
+Kernel (CUDA C++, `csrc/flash_attention.cu`):
+  K7 — online-softmax attention with a causal mask, a sliding window
+       (col > row - window), a tanh soft-cap after the scale, and GQA / MQA
+       through kv head = q head // (Hq / Hkv); one CTA per (q tile, head,
+       batch row) looping over the kv tiles that some row of the tile can
+       see (replaces `repro/kernels/flash_attention.py::flash_attention`).
+
+q (B, Hq, Sq, D) and k, v (B, Hkv, Skv, D) are read through their strides
+(the model's transposed views cost no copy); D must be a multiple of 16 up
+to 256 with a unit stride.  Rows and columns are indexed from 0, as in the
+TPU kernel: the prefill's positions.  Ragged Sq and Skv are masked, so no
+length has to divide a tile.  The kernel writes its output in (B, Sq, Hq,
+D) memory and returns the (B, Hq, Sq, D) view, so the model's transpose
+back to tokens is free.
+
+Tiles: `tiles(dtype, d)` is the largest of 64 x 64, 64 x 32, 32 x 32,
+16 x 16 (q rows x kv columns) whose shared memory fits a CTA (see the
+source note); the plain version walks the same tiles.
+
+`flash_attention` dispatches on the device of its input: a CUDA tensor
+always launches the kernel (or raises); a CPU tensor runs the plain
+version, which repeats the kernel's arithmetic — fp32 scores from the
+input-type operands, the online softmax per kv tile in the kernel's order,
+and P as the sum of its two input-type terms hi + lo, the kernel's
+tensor-core operands (P itself in fp32).
+
+The wrapper counts its launches in `LAUNCHES["flash_attention"]` (one per
+kernel launch, on the CUDA path only).
+"""
+
+from __future__ import annotations
+
+import collections
+import ctypes
+import functools
+
+import torch
+
+from repro_torch.kernels import build
+
+LAUNCHES: collections.Counter = collections.Counter()
+SMEM_MAX = 232_448
+NEG_INF = -1e30
+TILE_CHOICES = ((64, 64), (64, 32), (32, 32), (16, 16))
+
+
+def _align128(n: int) -> int:
+    return -(-n // 128) * 128
+
+
+def smem_bytes(dtype: torch.dtype, bq: int, bkv: int, d: int) -> int:
+    """Shared memory of one CTA (mirrors `fa_smem_bytes` in the source)."""
+    es = torch.empty((), dtype=dtype).element_size()
+    pad = 16 // es
+    p_terms = 2 if es == 2 else 1           # bf16 keeps P as hi + lo
+    return (_align128(bq * (d + pad) * es) + _align128(d * (bkv + pad) * es)
+            + _align128(bkv * (d + pad) * es) + _align128(bq * (bkv + 4) * 4)
+            + p_terms * _align128(bq * (bkv + pad) * es)
+            + _align128(bq * (d + 4) * 4) + 2 * _align128(bq * 4))
+
+
+def tiles(dtype: torch.dtype, d: int) -> tuple[int, int]:
+    """The kernel's (q rows, kv columns) per tile at head dim `d`."""
+    for bq, bkv in TILE_CHOICES:
+        if smem_bytes(dtype, bq, bkv, d) <= SMEM_MAX:
+            return bq, bkv
+    raise ValueError(f"no flash-attention tile fits head dim {d}")
+
+
+def _reachable(q0: int, rows: int, k0: int, bkv: int, causal: bool,
+               window: int | None) -> bool:
+    """Whether any row of the q tile [q0, q0 + rows) sees a column of the kv
+    tile [k0, k0 + bkv) (the TPU kernel's `reachable`)."""
+    if causal and k0 > q0 + rows - 1:
+        return False
+    return window is None or k0 + bkv - 1 > q0 - window
+
+
+# ------------------------------------------------------------ plain version
+def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                          *, causal: bool = True, window: int | None = None,
+                          softcap: float = 0.0, scale: float | None = None,
+                          bq: int | None = None,
+                          bkv: int | None = None) -> torch.Tensor:
+    """The blockwise online softmax over (bq, bkv) tiles in PyTorch: q
+    (B, Hq, Sq, D), k / v (B, Hkv, Skv, D) -> (B, Hq, Sq, D) in q's dtype.
+    Kv heads are broadcast over their q-head group, never repeated."""
+    b, hq, sq, d = q.shape
+    hkv, skv = k.shape[1], k.shape[2]
+    if hq % hkv:
+        raise ValueError(f"q heads {hq} not a multiple of kv heads {hkv}")
+    g = hq // hkv
+    dq, dkv = tiles(q.dtype, d)
+    bq, bkv = bq or dq, bkv or dkv
+    scale = scale if scale is not None else d ** -0.5
+    qg = q.reshape(b, hkv, g, sq, d)
+    out = torch.empty((b, hkv, g, sq, d), dtype=q.dtype, device=q.device)
+    for q0 in range(0, sq, bq):
+        rows = min(bq, sq - q0)
+        qi = qg[:, :, :, q0:q0 + rows].float()
+        row = torch.arange(q0, q0 + rows, device=q.device)[:, None]
+        m = torch.full((b, hkv, g, rows, 1), NEG_INF, device=q.device)
+        l = torch.zeros((b, hkv, g, rows, 1), device=q.device)
+        acc = torch.zeros((b, hkv, g, rows, d), device=q.device)
+        for k0 in range(0, skv, bkv):
+            if not _reachable(q0, rows, k0, bkv, causal, window):
+                continue
+            kj = k[:, :, k0:k0 + bkv].float()
+            vj = v[:, :, k0:k0 + bkv]
+            ncols = kj.shape[2]
+            col = torch.arange(k0, k0 + ncols, device=q.device)[None, :]
+            s = torch.einsum("bhgqd,bhkd->bhgqk", qi, kj) * scale
+            if softcap > 0.0:
+                s = softcap * torch.tanh(s / softcap)
+            mask = torch.ones((rows, ncols), dtype=torch.bool,
+                              device=q.device)
+            if causal:
+                mask = mask & (col <= row)
+            if window is not None:
+                mask = mask & (col > row - window)
+            s = torch.where(mask, s, NEG_INF)
+            m_new = torch.maximum(m, s.amax(-1, keepdim=True))
+            p = torch.where(mask, torch.exp(s - m_new), 0.0)
+            alpha = torch.exp(m - m_new)
+            l = l * alpha + p.sum(-1, keepdim=True)
+            hi = p.to(q.dtype).float()
+            p2 = hi + (p - hi).to(q.dtype).float()
+            pv = torch.einsum("bhgqk,bhkd->bhgqd", p2, vj.float())
+            acc = acc * alpha + pv
+            m = m_new
+        out[:, :, :, q0:q0 + rows] = (acc / torch.clamp(l, min=1e-30)
+                                      ).to(q.dtype)
+    return out.reshape(b, hq, sq, d)
+
+
+# ------------------------------------------------------------ CUDA launch
+@functools.lru_cache(maxsize=None)
+def _lib() -> ctypes.CDLL:
+    lib = build.load("flash_attention")
+    p, i, ll, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, \
+        ctypes.c_float
+    lib.rt_flash_attention.argtypes = [
+        i, p, ll, ll, ll, p, ll, ll, ll, p, ll, ll, ll, p, ll, ll, ll,
+        i, i, i, i, i, i, i, i, f, f, i, i, p]
+    lib.rt_flash_attention.restype = i
+    return lib
+
+
+def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         *, causal: bool = True, window: int | None = None,
+                         softcap: float = 0.0, scale: float | None = None,
+                         bq: int | None = None,
+                         bkv: int | None = None) -> torch.Tensor:
+    """K7 on the card, one launch; raises on what the kernel does not
+    take."""
+    if not (q.is_cuda and k.is_cuda and v.is_cuda):
+        raise ValueError("the CUDA kernel takes CUDA tensors only")
+    if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
+        raise ValueError("q, k, v must be 4-D (B, H, S, D)")
+    b, hq, sq, d = q.shape
+    hkv, skv = k.shape[1], k.shape[2]
+    if (tuple(v.shape) != tuple(k.shape) or k.shape[0] != b
+            or k.shape[3] != d):
+        raise ValueError(f"shapes q {tuple(q.shape)} k {tuple(k.shape)} "
+                         f"v {tuple(v.shape)} do not match")
+    if hq % hkv:
+        raise ValueError(f"q heads {hq} not a multiple of kv heads {hkv}")
+    if not (q.device == k.device == v.device):
+        raise ValueError("q, k, v must be on the same CUDA device")
+    if not (q.dtype == k.dtype == v.dtype) or q.dtype not in (
+            torch.bfloat16, torch.float32):
+        raise TypeError(f"q, k, v must share dtype bfloat16 or float32, got "
+                        f"{q.dtype}, {k.dtype}, {v.dtype}")
+    if d % 16 or d > 256:
+        raise ValueError(f"head dim {d} must be a multiple of 16 up to 256")
+    if any(t.stride(3) != 1 for t in (q, k, v)):
+        raise ValueError("q, k, v need a unit stride along the head dim")
+    if window is not None and window < 1:
+        raise ValueError(f"window must be >= 1, got {window}")
+    dq, dkv = tiles(q.dtype, d)
+    bq, bkv = bq or dq, bkv or dkv
+    if bq % 16 or bkv % 16 or smem_bytes(q.dtype, bq, bkv, d) > SMEM_MAX:
+        raise ValueError(f"tiles ({bq}, {bkv}) at head dim {d} are not "
+                         f"multiples of 16 or exceed shared memory")
+    scale = scale if scale is not None else d ** -0.5
+    out = torch.empty((b, sq, hq, d), dtype=q.dtype,
+                      device=q.device).transpose(1, 2)
+    if out.numel() == 0:
+        return out
+    sq_, sk_, sv_, so_ = q.stride(), k.stride(), v.stride(), out.stride()
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    err = _lib().rt_flash_attention(
+        int(q.dtype == torch.bfloat16), q.data_ptr(), sq_[0], sq_[1], sq_[2],
+        k.data_ptr(), sk_[0], sk_[1], sk_[2], v.data_ptr(), sv_[0], sv_[1],
+        sv_[2], out.data_ptr(), so_[0], so_[1], so_[2], b, hq, hq // hkv, sq,
+        skv, d, bq, bkv, float(scale), float(softcap), int(causal),
+        int(window or 0), stream)
+    build.check(err, "flash_attention")
+    LAUNCHES["flash_attention"] += 1
+    return out
+
+
+# ------------------------------------------------------------ dispatch
+def flash_attention(q, k, v, *, causal: bool = True,
+                    window: int | None = None, softcap: float = 0.0,
+                    scale: float | None = None, bq: int | None = None,
+                    bkv: int | None = None) -> torch.Tensor:
+    """The kernel for a CUDA tensor, the plain version for a CPU tensor."""
+    fn = flash_attention_cuda if q.is_cuda else flash_attention_plain
+    return fn(q, k, v, causal=causal, window=window, softcap=softcap,
+              scale=scale, bq=bq, bkv=bkv)

@@ -1,5 +1,5 @@
-"""Public wrappers for the planned-matmul kernels and the grouped expert
-GEMM.
+"""Public wrappers for the planned-matmul kernels, the grouped expert GEMM,
+flash attention and the RG-LRU scan.
 
 The wrappers take plans from the skew-aware planner when none is given
 (amp / chip resolve through the `mm_config` stack), clip the plan's blocks
@@ -22,9 +22,11 @@ from repro_torch.core import skewmm as _skewmm
 from repro_torch.core.costmodel import BlockPlan
 from repro_torch.core.epilogue import Epilogue
 from repro_torch.core.planner import plan_matmul
+from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import gemv_splitk as _gemv
 from repro_torch.kernels import grouped_matmul as _gmm
 from repro_torch.kernels import ref as _ref
+from repro_torch.kernels import rglru_scan as _rglru
 from repro_torch.kernels import skew_matmul as _mm
 from repro_torch.sparse.costmodel import SparseMatmulCost
 from repro_torch.sparse.planner import plan_grouped_matmul
@@ -135,20 +137,47 @@ def grouped_matmul(a: torch.Tensor, b: torch.Tensor, *,
                                epilogue=ep.spec, out_dtype=odt)
 
 
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, window: int | None = None,
+                    softcap: float = 0.0, scale: float | None = None,
+                    bq: int | None = None,
+                    bkv: int | None = None) -> torch.Tensor:
+    """Prefill attention.  q (B, Hq, S, D), k / v (B, Hkv, S, D) ->
+    (B, Hq, S, D): K7 on a CUDA tensor, its plain version on a CPU tensor.
+    Rows and columns are positions 0..S-1.  Tiles default to the kernel's
+    choice for the head dim (`flash_attention.tiles`); S need not divide
+    them."""
+    return _fa.flash_attention(q, k, v, causal=causal, window=window,
+                               softcap=softcap, scale=scale, bq=bq, bkv=bkv)
+
+
+def rglru_scan(x: torch.Tensor, r_gate: torch.Tensor, i_gate: torch.Tensor,
+               a_param: torch.Tensor, *, c: float = 8.0,
+               return_state: bool = False):
+    """The RG-LRU scan.  x, r_gate, i_gate (B, L, D) pre-sigmoid logits,
+    a_param (D,): K6 on a CUDA tensor, its plain version on a CPU tensor.
+    With ``return_state`` also the fp32 state after the last step."""
+    return _rglru.rglru_scan(x, r_gate, i_gate, a_param, c=c,
+                             return_state=return_state)
+
+
+def _counters() -> tuple:
+    return (_mm.LAUNCHES, _gemv.LAUNCHES, _gmm.LAUNCHES, _fa.LAUNCHES,
+            _rglru.LAUNCHES)
+
+
 def launch_counts() -> dict[str, int]:
     """Launches of every kernel since the last reset."""
     out = {f"skew_matmul_{s}": 0 for s in _mm.SCHEDULE_IDS}
-    out["skew_matmul_batched"] = 0
-    out["gemv_splitk_partial"] = 0
-    out["gemv_splitk_reduce"] = 0
-    out["grouped_matmul"] = 0
-    out.update(_mm.LAUNCHES)
-    out.update(_gemv.LAUNCHES)
-    out.update(_gmm.LAUNCHES)
+    for name in ("skew_matmul_batched", "gemv_splitk_partial",
+                 "gemv_splitk_reduce", "grouped_matmul", "flash_attention",
+                 "rglru_scan"):
+        out[name] = 0
+    for counter in _counters():
+        out.update(counter)
     return out
 
 
 def reset_launch_counts() -> None:
-    _mm.LAUNCHES.clear()
-    _gemv.LAUNCHES.clear()
-    _gmm.LAUNCHES.clear()
+    for counter in _counters():
+        counter.clear()

@@ -4,7 +4,8 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.core import skewmm
+from repro_torch.core import config, skewmm
+from repro_torch.kernels import ops
 from repro_torch.models import layers
 from repro_torch.models.layers import apply_rope, linear_init, rope_freqs
 
@@ -44,15 +45,34 @@ def gqa_project(x: torch.Tensor, p: dict, cfg, positions: torch.Tensor):
     return q, k, v
 
 
+def sequence_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                       cfg, *, window: int | None, positions: torch.Tensor,
+                       causal: bool = True) -> torch.Tensor:
+    """Attention of a whole sequence over itself: q (B, S, H, hd), k / v
+    (B, S, KV, hd) at positions 0..S-1 -> ctx (B, S, H * hd).
+
+    Under the "cuda" backend it runs `ops.flash_attention` (K7 on the
+    card), which indexes rows and columns from 0 — the JAX package names
+    its flash kernel as the runtime path here.  The "torch" backend keeps
+    `blockwise_attention` on `positions`, the reference rung."""
+    b, s = q.shape[:2]
+    qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+    if config.resolve().backend == "cuda":
+        ctx = ops.flash_attention(qt, kt, vt, causal=causal, window=window,
+                                  softcap=cfg.attn_softcap)
+    else:
+        ctx = layers.blockwise_attention(
+            qt, kt, vt, causal=causal, window=window,
+            softcap=cfg.attn_softcap, q_positions=positions,
+            kv_positions=positions)
+    return ctx.transpose(1, 2).reshape(b, s, cfg.n_heads * cfg.head_dim)
+
+
 def gqa_attn(x: torch.Tensor, p: dict, cfg, *, window: int | None,
              positions: torch.Tensor, causal: bool = True) -> torch.Tensor:
-    b, s, _ = x.shape
     q, k, v = gqa_project(x, p, cfg, positions)
-    ctx = layers.blockwise_attention(
-        q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
-        causal=causal, window=window, softcap=cfg.attn_softcap,
-        q_positions=positions, kv_positions=positions)
-    ctx = ctx.transpose(1, 2).reshape(b, s, cfg.n_heads * cfg.head_dim)
+    ctx = sequence_attention(q, k, v, cfg, window=window,
+                             positions=positions, causal=causal)
     return skewmm.matmul(ctx, p["wo"])
 
 

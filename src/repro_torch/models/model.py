@@ -25,12 +25,13 @@ class ModelBundle:
 
 
 def build_model(cfg: ModelConfig | str, device=None) -> ModelBundle:
-    """Bundle for a decoder LM, dense or MoE (without MLA).  `device`
+    """Bundle for a decoder LM: dense, MoE (without MLA) or the RG-LRU
+    hybrid.  `device`
     defaults to the card and raises when CUDA is absent (pass
     device="cpu" to run on the CPU)."""
     if isinstance(cfg, str):
         cfg = get_config(cfg)
-    if cfg.family not in ("dense", "moe"):
+    if cfg.family not in ("dense", "moe", "hybrid"):
         raise NotImplementedError(f"family {cfg.family!r} is not ported yet")
     if cfg.use_mla:
         raise NotImplementedError(f"{cfg.name}: MLA attention is not "

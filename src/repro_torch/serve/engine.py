@@ -1,11 +1,18 @@
 """Serving engine: prefill + single-token decode for the GQA archs, with a
-dense or an MoE FFN.
+dense or an MoE FFN, and for the RG-LRU hybrid (recurrent and local
+attention blocks).
 
-`prefill` runs the full-sequence forward while filling the KV cache;
+`prefill` runs the full-sequence forward while filling the cache;
 `decode_step` advances one token against it.  Unlike the JAX package's
 pure functions, the cache is **updated in place**: `decode_step` writes
-the new token's k/v into the cache tensors it is given (and returns the
-same dict), so no per-step copy of the cache is made.
+the new token's k/v (or a recurrent block's state and conv tail) into the
+cache tensors it is given (and returns the same dict), so no per-step copy
+of the cache is made.
+
+Prefill attention goes through `attention.sequence_attention` (K7 under
+the "cuda" backend) and the recurrent scan through `rglru.rec_mixer` (K6);
+decode attention stays `blockwise_attention` over the cache positions and
+the decode recurrence `rglru_decode_step`, as in the JAX package.
 
 Both follow the JAX engine op for op (the FFN's residual add is not fused
 in the serving path there, so it is not fused here either; the MoE aux
@@ -21,16 +28,17 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.core import config as mmcfg
 from repro_torch.core import skewmm
 from repro_torch.models import attention as attn_mod
-from repro_torch.models import blocks, layers, moe, transformer
+from repro_torch.models import blocks, layers, moe, rglru, transformer
 from repro_torch.models.layers import rmsnorm
 from repro_torch.serve import kvcache
 
 
 def _check(cfg: ModelConfig) -> None:
-    if (cfg.use_mla or cfg.family not in ("dense", "moe")
+    if (cfg.use_mla or cfg.family not in ("dense", "moe", "hybrid")
             or cfg.pos_embedding != "rope"):
         raise NotImplementedError(
-            f"{cfg.name}: only dense and MoE GQA archs with rope are ported")
+            f"{cfg.name}: only dense, MoE and RG-LRU hybrid GQA archs with "
+            f"rope are ported")
 
 
 def _attn_prefill(h, p, cfg, kind, positions, k_dst, v_dst):
@@ -38,13 +46,16 @@ def _attn_prefill(h, p, cfg, kind, positions, k_dst, v_dst):
     q, k, v = attn_mod.gqa_project(h, p, cfg, positions)
     kvcache.place_kv(k_dst, k)
     kvcache.place_kv(v_dst, v)
-    b, s, _ = h.shape
-    ctx = layers.blockwise_attention(
-        q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
-        causal=True, window=window, softcap=cfg.attn_softcap,
-        q_positions=positions, kv_positions=positions)
-    ctx = ctx.transpose(1, 2).reshape(b, s, cfg.n_heads * cfg.head_dim)
+    ctx = attn_mod.sequence_attention(q, k, v, cfg, window=window,
+                                      positions=positions)
     return skewmm.matmul(ctx, p["wo"])
+
+
+def _rec_prefill(h, p, cfg, lru_dst, conv_dst):
+    out, entry = rglru.rec_mixer(h, p, cfg, return_state=True)
+    lru_dst.copy_(entry["lru"])
+    conv_dst.copy_(entry["conv"])
+    return out
 
 
 def _ffn(x, p, cfg, kind):
@@ -77,8 +88,12 @@ def prefill(params, cfg: ModelConfig, tokens: torch.Tensor, *, max_len: int,
         for kind, p, si, r, i in transformer.layer_iter(params, cfg):
             entry = cache[f"stage{si}"][f"b{i}"]
             h = rmsnorm(x, p["ln1"], cfg.norm_eps)
-            h = _attn_prefill(h, p["attn"], cfg, kind, positions,
-                              entry["k"][r], entry["v"][r])
+            if kind == "rec":
+                h = _rec_prefill(h, p["mixer"], cfg, entry["lru"][r],
+                                 entry["conv"][r])
+            else:
+                h = _attn_prefill(h, p["attn"], cfg, kind, positions,
+                                  entry["k"][r], entry["v"][r])
             if cfg.use_post_norm:
                 h = rmsnorm(h, p["post_ln1"], cfg.norm_eps)
             x = _ffn(x + h, p, cfg, kind)
@@ -118,6 +133,17 @@ def _decode_gqa(h, p, cfg: ModelConfig, k_cache, v_cache, pos, window):
     return skewmm.matmul(ctx, p["wo"])
 
 
+def _decode_rec(h, p, cfg: ModelConfig, lru, conv):
+    """h (B, 1, D); lru (B, W) fp32 and conv (B, K-1, W), both written in
+    place."""
+    gate, xc, new_conv, r, i = rglru.rec_inputs(h, p, conv_state=conv)
+    y, new_lru = rglru.rglru_decode_step(lru, xc[:, 0], r[:, 0], i[:, 0],
+                                         p["a_param"], c=cfg.rglru_c)
+    lru.copy_(new_lru)
+    conv.copy_(new_conv)
+    return skewmm.matmul(y[:, None].to(h.dtype) * gate, p["proj_out"])
+
+
 @torch.no_grad()
 def decode_step(params, cfg: ModelConfig, cache, tokens: torch.Tensor, pos,
                 mm: mmcfg.MatmulConfig | None = None):
@@ -130,10 +156,14 @@ def decode_step(params, cfg: ModelConfig, cache, tokens: torch.Tensor, pos,
         pos = torch.as_tensor(pos, dtype=torch.int32, device=x.device)
         for kind, p, si, r, i in transformer.layer_iter(params, cfg):
             entry = cache[f"stage{si}"][f"b{i}"]
-            window = cfg.local_window if kind == "attn_local" else None
             h = rmsnorm(x, p["ln1"], cfg.norm_eps)
-            h = _decode_gqa(h, p["attn"], cfg, entry["k"][r], entry["v"][r],
-                            pos, window)
+            if kind == "rec":
+                h = _decode_rec(h, p["mixer"], cfg, entry["lru"][r],
+                                entry["conv"][r])
+            else:
+                window = cfg.local_window if kind == "attn_local" else None
+                h = _decode_gqa(h, p["attn"], cfg, entry["k"][r],
+                                entry["v"][r], pos, window)
             if cfg.use_post_norm:
                 h = rmsnorm(h, p["post_ln1"], cfg.norm_eps)
             x = _ffn(x + h, p, cfg, kind)

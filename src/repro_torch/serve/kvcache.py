@@ -1,10 +1,12 @@
-"""KV cache structures for the ported block kinds.
+"""Decode caches for the ported block kinds.
 
 GQA caches are full (L = max_len) or ring (L = window) k/v tensors shaped
 (R, B, L, KV, hd) per stage and unit slot, as in the JAX package:
 ``cache[f"stage{si}"][f"b{i}"]["k"]``.  Ring semantics: the token at
 absolute position p lives in slot p % L; slot validity is recovered
 arithmetically from the decode position (scalar, or (B,) per row).
+A recurrent (``rec``) block keeps its fp32 scan state ``lru`` (R, B, W)
+and its conv tail ``conv`` (R, B, K-1, W) of the last K-1 conv inputs.
 """
 
 from __future__ import annotations
@@ -45,21 +47,30 @@ def place_kv(dst: torch.Tensor, t: torch.Tensor) -> None:
     dst[:, slots] = t[:, s - cache_len:]
 
 
+def init_block_cache(cfg: ModelConfig, kind: str, batch: int, max_len: int,
+                     n_rep: int, device) -> dict:
+    """Zeroed cache entry of one unit slot, stacked over its n_rep
+    repeats."""
+    dtype = layers.dtype_of(cfg)
+
+    def z(*shape, dt=dtype):
+        return torch.zeros((n_rep, batch) + shape, dtype=dt, device=device)
+
+    if kind == "rec":
+        return {"lru": z(cfg.lru_width, dt=torch.float32),
+                "conv": z(cfg.conv_kernel - 1, cfg.lru_width)}
+    length = attn_cache_len(cfg, kind, max_len)
+    return {"k": z(length, cfg.n_kv_heads, cfg.head_dim),
+            "v": z(length, cfg.n_kv_heads, cfg.head_dim)}
+
+
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,
                device) -> dict:
-    """Zeroed GQA caches for every attention layer."""
-    dtype = layers.dtype_of(cfg)
-    cache: dict = {}
-    for si, (unit, n) in enumerate(cfg.stage_list()):
-        stage = {}
-        for i, kind in enumerate(unit):
-            length = attn_cache_len(cfg, kind, max_len)
-            shape = (n, batch, length, cfg.n_kv_heads, cfg.head_dim)
-            stage[f"b{i}"] = {
-                "k": torch.zeros(shape, dtype=dtype, device=device),
-                "v": torch.zeros(shape, dtype=dtype, device=device)}
-        cache[f"stage{si}"] = stage
-    return cache
+    """Zeroed caches for every layer."""
+    return {f"stage{si}": {f"b{i}": init_block_cache(cfg, kind, batch,
+                                                     max_len, n, device)
+                           for i, kind in enumerate(unit)}
+            for si, (unit, n) in enumerate(cfg.stage_list())}
 
 
 def cache_bytes(cache) -> int:

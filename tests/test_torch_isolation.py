@@ -6,11 +6,13 @@ import os
 import subprocess
 import sys
 
+import numpy as np
 import pytest
 import torch
 
 import repro_torch
 from repro_torch.configs.base import get_config
+from repro_torch.convert import params_from_numpy
 from repro_torch.launch import serve as serve_mod
 from repro_torch.models.model import build_model
 
@@ -65,3 +67,10 @@ def test_serve_launcher_defaults_to_the_card(no_cuda):
             "--prompt-len", "4", "--gen", "1"]
     with pytest.raises(RuntimeError, match="CUDA"):
         serve_mod.main(argv)
+
+
+def test_params_from_numpy_defaults_to_the_card(no_cuda):
+    tree = {"embed": np.zeros((4, 2), np.float32)}
+    with pytest.raises(RuntimeError, match="CUDA"):
+        params_from_numpy(tree)
+    assert params_from_numpy(tree, "cpu")["embed"].device.type == "cpu"

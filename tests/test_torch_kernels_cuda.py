@@ -12,7 +12,10 @@ skipping, so a run on the card cannot pass by skipping).
 Tolerances: fp32 runs true fp32 in both versions, only the summation order
 differs (rtol/atol 1e-4 at k <= 1024); bf16 outputs are compared after the
 kernel's single rounding to bf16 (rtol 2e-2, atol 2e-2 at unit-scale
-values: one bf16 ulp is 2**-8 relative).
+values: one bf16 ulp is 2**-8 relative).  Flash attention splits P into
+the same two bf16 terms in both versions, and the RG-LRU scan runs fp32 in
+both, so the same bounds hold there; the scan's fp32 carry is held at
+1e-4.
 """
 
 import os
@@ -21,8 +24,10 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.kernels import flash_attention as fa_mod
 from repro_torch.kernels import gemv_splitk as gk_mod
 from repro_torch.kernels import grouped_matmul as gmm_mod
+from repro_torch.kernels import rglru_scan as rg_mod
 from repro_torch.kernels import skew_matmul as mm_mod
 
 RNG = np.random.default_rng(11)
@@ -184,3 +189,82 @@ def test_grouped_refuses_bias_and_bad_blocks(dev):
                                     epilogue=(("bias", None),))
     with pytest.raises(ValueError, match="multiples of 16"):
         gmm_mod.grouped_matmul_cuda(a, b, bm=8, bk=64, bn=64)
+
+
+FA_CASES = {  # name: (Hq, Hkv, S, D, kwargs)
+    "gqa_d128_causal": (8, 2, 200, 128, dict()),
+    "mqa_d256_window": (4, 1, 300, 256, dict(window=100)),
+    "gqa_d128_window_softcap": (4, 2, 257, 128, dict(window=64,
+                                                     softcap=50.0)),
+    "mha_d64_full": (2, 2, 96, 64, dict(causal=False)),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", list(FA_CASES))
+def test_flash_attention_matches_plain(dev, dtype, case):
+    """K7 at ragged lengths (no S divides a tile) against its plain
+    version, read through the model's transposed (B, S, H, D) views."""
+    hq, hkv, s, d, kw = FA_CASES[case]
+    q = _t((2, s, hq, d), dtype, dev).transpose(1, 2)
+    k = _t((2, s, hkv, d), dtype, dev).transpose(1, 2)
+    v = _t((2, s, hkv, d), dtype, dev).transpose(1, 2)
+    fa_mod.LAUNCHES.clear()
+    got = fa_mod.flash_attention(q, k, v, **kw)
+    want = fa_mod.flash_attention_plain(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert fa_mod.LAUNCHES["flash_attention"] == 1
+    assert got.dtype == dtype and got.shape == q.shape
+    torch.testing.assert_close(got.float(), want.float(), **TOL[dtype])
+
+
+@pytest.mark.cuda
+def test_flash_attention_explicit_tiles_and_refusals(dev):
+    q = _t((1, 4, 130, 128), torch.bfloat16, dev)
+    k = _t((1, 1, 130, 128), torch.bfloat16, dev)
+    want = fa_mod.flash_attention_plain(q, k, k, window=50)
+    got = fa_mod.flash_attention_cuda(q, k, k, window=50, bq=32, bkv=16)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got.float(), want.float(),
+                               **TOL[torch.bfloat16])
+    with pytest.raises(ValueError, match="multiple of 16"):
+        fa_mod.flash_attention_cuda(q[..., :100], k[..., :100],
+                                    k[..., :100])
+    with pytest.raises(ValueError, match="shared memory"):
+        fa_mod.flash_attention_cuda(q, k, k, bq=256, bkv=256)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("length", [1, 37, 300])
+def test_rglru_scan_and_carry_match_plain(dev, dtype, length):
+    """K6 at ragged L (no chunk) with its fp32 carry, the gates read
+    through strided views of one (B, L, 3D) buffer."""
+    d = 200
+    xri = _t((3, length, 3 * d), dtype, dev)
+    x, r, i = xri[..., :d], xri[..., d:2 * d], xri[..., 2 * d:]
+    lam = _t((d,), torch.float32, dev)
+    rg_mod.LAUNCHES.clear()
+    y, h = rg_mod.rglru_scan(x, r, i, lam, c=8.0, return_state=True)
+    want, hw = rg_mod.rglru_scan_plain(x, r, i, lam, c=8.0,
+                                       return_state=True)
+    torch.cuda.synchronize()
+    assert rg_mod.LAUNCHES["rglru_scan"] == 1
+    assert y.dtype == dtype and h.dtype == torch.float32
+    torch.testing.assert_close(y.float(), want.float(), **TOL[dtype])
+    torch.testing.assert_close(h, hw, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.cuda
+def test_rglru_scan_strong_decay_stays_finite(dev):
+    """sigmoid(r) ~ 1 and softplus(4) ~ 4: a ~ e^-32, the regime that the
+    clamp under the square root keeps finite."""
+    x = _t((1, 128, 64), torch.float32, dev)
+    r = torch.full_like(x, 5.0)
+    lam = torch.full((64,), 4.0, device=dev)
+    y = rg_mod.rglru_scan_cuda(x, r, x, lam)
+    want = rg_mod.rglru_scan_plain(x, r, x, lam)
+    torch.cuda.synchronize()
+    assert torch.isfinite(y).all()
+    torch.testing.assert_close(y, want, rtol=1e-4, atol=1e-5)

@@ -53,7 +53,8 @@ def _configs(**overrides):
 
 def _moe_weights(jcfg, seed=4):
     jp = jmoe.init_moe(jax.random.PRNGKey(seed), jcfg)
-    return jp, params_from_numpy({"moe": jax.tree.map(np.asarray, jp)})["moe"]
+    tree = {"moe": jax.tree.map(np.asarray, jp)}
+    return jp, params_from_numpy(tree, "cpu")["moe"]
 
 
 def _x(shape, seed):
@@ -124,7 +125,7 @@ def test_forward_hidden_aux_matches_jax():
     """The whole MoE LM's forward: hidden states and the summed aux loss."""
     jcfg, cfg = _configs()
     jp = jbuild_model(jcfg).init(jax.random.PRNGKey(5))
-    tp = params_from_numpy(jax.tree.map(np.asarray, jp))
+    tp = params_from_numpy(jax.tree.map(np.asarray, jp), "cpu")
     toks = np.random.default_rng(14).integers(0, cfg.vocab_size, (2, 12))
     with jmm_config(backend="xla"):
         jh, jaux = jbuild_model(jcfg).hidden_fn(

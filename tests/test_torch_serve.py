@@ -50,7 +50,7 @@ def _configs(variant: str, dtype: str | None = None,
 
 def _weights(jcfg):
     jp = jbuild_model(jcfg).init(jax.random.PRNGKey(3))
-    return jp, params_from_numpy(jax.tree.map(np.asarray, jp))
+    return jp, params_from_numpy(jax.tree.map(np.asarray, jp), "cpu")
 
 
 def _np(x):
