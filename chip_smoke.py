@@ -56,7 +56,25 @@ then recurrentgemma-9b, after dbrx's weights are freed:
      attn) units), as in phase 5;
   6c. timings — K6 and K7, their plain versions and, for K7 where the mask
      is plain causal, `scaled_dot_product_attention`;
-  7. the `kernels` JSON line (K1-K7; launches summed over the three main
+then mamba2-2.7b, after recurrentgemma's weights are freed:
+  3d. K8 parity — the SSD chunked scan (with its fp32 state) against its
+     plain version in bf16 and fp32 at mamba2's batch-4 prefill (4 x 128,
+     one chunk), its long prompt (1 x 3000: 23 whole chunks and a 56-row
+     tail), a grouped ragged shape (16 heads, 4 groups, L 200) and a strong
+     decay whose y and state must stay finite; under the strong decay (fp32
+     inputs, chunk 128) K8's y is also held against the sequential
+     recurrence in fp64 and must come no further from it than the chunked
+     form with an fp32 torch.cumsum;
+  4d. serve mamba2-2.7b (the fourth main path) — every published width and
+     all 64 layers, seeded bf16 weights, batch 4 x prompt 128 + 16
+     generated tokens, then batch 1 x prompt 3000 + 4.  K8 must launch once
+     per layer of every prefill and never at decode.  Counts are zeroed
+     just before and read just after; then one prefill and one decode step
+     are counted apart (64 and 0);
+  5d. whole-path parity at full width and 8 layers, as in phase 5;
+  6d. timings — K8, its plain version and its bound at the 3d shapes (no
+     single PyTorch call computes the SSD scan);
+  7. the `kernels` JSON line (K1-K8; launches summed over the four main
      paths), then the device line.
 Phi4's and dbrx's prefills reach K7 too (phases 4, 4b).
 """
@@ -135,11 +153,14 @@ KERNELS = {
     "rglru_scan": (
         "src/repro_torch/csrc/rglru_scan.cu",
         "src/repro/kernels/rglru_scan.py:80"),
+    "ssd_scan": (
+        "src/repro_torch/csrc/ssd_scan.cu",
+        "src/repro/kernels/ssd_scan.py:96"),
 }
 # The dense kernels and K7 run on phi4's main path, K5 on dbrx's, K6 (and
-# K7) on recurrentgemma's.
+# K7) on recurrentgemma's, K8 on mamba2's.
 PHI4_KERNELS = tuple(n for n in KERNELS
-                     if n not in ("grouped_matmul", "rglru_scan"))
+                     if n not in ("grouped_matmul", "rglru_scan", "ssd_scan"))
 # dbrx-132b: 40 layers of 6.52 GB (bf16) do not fit one 80 GB card; the
 # serve keeps every width and cuts depth to 8 layers (54.6 GB), the
 # whole-path parity to 2 (an fp32 copy fits beside the bf16 one).
@@ -147,6 +168,9 @@ DBRX_LAYERS, DBRX_PARITY_LAYERS = 8, 2
 # recurrentgemma-9b: all 38 layers (~17 GB of bf16) fit; the whole-path
 # parity keeps 2 of its 12 whole (rec, rec, attn_local) units.
 HYBRID_PARITY_UNITS = 2
+# mamba2-2.7b: all 64 layers (5.40 GB of bf16) fit; the whole-path parity
+# keeps 8 of them.
+SSM_PARITY_LAYERS = 8
 
 
 def fail(msg: str) -> None:
@@ -966,10 +990,13 @@ def _leaves(tree):
         yield tree
 
 
-def phase_serve_hybrid(torch, cfg):
-    """The third main path: recurrentgemma-9b at every published width and
-    all 38 layers, served through `serve(cfg=...)` at batch 4 x 128 and at
-    batch 1 x 3072."""
+def serve_runs(torch, cfg, runs, bounds_fn) -> dict:
+    """Seeded weights for `cfg`, then one `serve(cfg=...)` per (batch,
+    prompt, gen) run: launch counts are zeroed just before the runs and
+    read just after them.  Prints each run's times beside its bounds
+    (`bounds_fn(cfg, params, batch, prompt, cache_bytes)`), the peak
+    memory and the plans, and fails if a run's logits are not finite or a
+    planned K1-K4 kernel never launched."""
     from repro_torch.core import skewmm
     from repro_torch.kernels import ops
     from repro_torch.launch import serve as serve_mod
@@ -980,12 +1007,11 @@ def phase_serve_hybrid(torch, cfg):
     params = build_model(cfg, "cuda").init(0)
     torch.cuda.synchronize()
     pbytes = param_bytes(params)
-    n_params = sum(t.numel() for t in _leaves(params))
-    say(f"init {cfg.name}: {n_params} parameters, {pbytes / 1e9:.3f} GB "
-        f"of bf16 weights (a_param fp32) in {time.perf_counter() - t0:.1f} s")
-    kinds = [u for unit, n in cfg.stage_list() for _ in range(n) for u in unit]
-    n_rec, n_attn = kinds.count("rec"), len(kinds) - kinds.count("rec")
-    runs = ((4, 128, 16), (1, 3072, 4))
+    leaves = list(_leaves(params))
+    f32 = sum(t.numel() * 4 for t in leaves if t.dtype == torch.float32)
+    say(f"init {cfg.name}: {sum(t.numel() for t in leaves)} parameters, "
+        f"{pbytes / 1e9:.3f} GB of weights ({f32 / 1e6:.2f} MB of them "
+        f"fp32) in {time.perf_counter() - t0:.1f} s")
     torch.cuda.reset_peak_memory_stats()
     ops.reset_launch_counts()
     # ---- the main path: counts zeroed above, read right after it.
@@ -1000,13 +1026,13 @@ def phase_serve_hybrid(torch, cfg):
     for (b, p, g), res in zip(runs, results):
         if not res["logits_finite"]:
             fail(f"{cfg.name} serve b{b} p{p} produced non-finite logits")
-        kv = kvcache.cache_bytes(kvcache.init_cache(cfg, b, p + g, "meta"))
-        pre_b, dec_b = hybrid_serve_bounds(cfg, params, b, p, kv)
+        cb = kvcache.cache_bytes(kvcache.init_cache(cfg, b, p + g, "meta"))
+        pre_b, dec_b = bounds_fn(cfg, params, b, p, cb)
         bounds.append((pre_b, dec_b))
         say(f"serve {cfg.name} ({cfg.n_layers} layers) b{b} p{p} g{g}: "
             f"prefill {res['prefill_s'] * 1e3:.1f} ms (bound {pre_b:.2f} "
             f"ms), decode {res['decode_s_per_token'] * 1e3:.2f} ms/token "
-            f"(bound {dec_b:.2f} ms), caches {kv / 1e6:.1f} MB")
+            f"(bound {dec_b:.2f} ms), caches {cb / 1e6:.1f} MB")
     say(f"serve {cfg.name}: peak memory {peak / 2**30:.2f} GiB of "
         f"{pbytes / 2**30:.2f} GiB weights")
     seen = {}
@@ -1015,15 +1041,6 @@ def phase_serve_hybrid(torch, cfg):
     for key, c in seen.items():
         say(f"plan {key}: {c.explain()}")
     say(f"launch counts on the {cfg.name} main path: {counts}")
-    want = {"rglru_scan": n_rec * len(runs),
-            "flash_attention": n_attn * len(runs)}
-    for name, n in want.items():
-        if counts[name] != n:
-            fail(f"{name} launched {counts[name]} times, expected {n} (one "
-                 f"per {'recurrent' if name == 'rglru_scan' else 'attention'}"
-                 f" layer of each of {len(runs)} prefills)")
-    say(f"K6 launches: {n_rec} per prefill, K7: {n_attn} per prefill "
-        f"({n_rec} rec + {n_attn} attn_local layers)")
     for c in log:
         if c.plan.schedule == "splitk":
             name = "gemv_splitk_partial"
@@ -1035,6 +1052,26 @@ def phase_serve_hybrid(torch, cfg):
             fail(f"kernel {name} was not launched on the {cfg.name} path")
     return {"serve": results, "peak": peak, "bounds": bounds,
             "params": params, "params_bytes": pbytes, "counts": counts}
+
+
+def phase_serve_hybrid(torch, cfg):
+    """The third main path: recurrentgemma-9b at every published width and
+    all 38 layers, served at batch 4 x 128 and at batch 1 x 3072."""
+    runs = ((4, 128, 16), (1, 3072, 4))
+    out = serve_runs(torch, cfg, runs, hybrid_serve_bounds)
+    counts = out["counts"]
+    kinds = [u for unit, n in cfg.stage_list() for _ in range(n) for u in unit]
+    n_rec, n_attn = kinds.count("rec"), len(kinds) - kinds.count("rec")
+    want = {"rglru_scan": n_rec * len(runs),
+            "flash_attention": n_attn * len(runs)}
+    for name, n in want.items():
+        if counts[name] != n:
+            fail(f"{name} launched {counts[name]} times, expected {n} (one "
+                 f"per {'recurrent' if name == 'rglru_scan' else 'attention'}"
+                 f" layer of each of {len(runs)} prefills)")
+    say(f"K6 launches: {n_rec} per prefill, K7: {n_attn} per prefill "
+        f"({n_rec} rec + {n_attn} attn_local layers)")
+    return out
 
 
 def sdpa_call(F, q, k, v):
@@ -1094,6 +1131,203 @@ def phase_timings_seq(torch, fa_shapes, scan_shapes, counts,
                 x, r, i, lam, return_state=True),
             None, 4 * n * 2 + d * 4 + b * d * 4, RGLRU_OPS * n,
             f"{label} {b}x{length}x{d} bf16 + fp32 carry", peak=PEAK_FP32))
+    torch.cuda.empty_cache()
+    return rows
+
+
+# ----------------------------------------------------------------- ssm
+def ssd_shapes(cfg) -> list:
+    """K8's shapes (label, B, L, H, P, G, S, strong decay): mamba2-2.7b's
+    batch-4 prefill (one chunk), its long prompt (23 whole chunks and a
+    56-row tail), a grouped ragged shape, and the same under a strong
+    decay."""
+    h, p, g, s = cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_groups, \
+        cfg.ssm_state
+    return [(f"{cfg.name} prefill", 4, 128, h, p, g, s, False),
+            (f"{cfg.name} long prefill", 1, 3000, h, p, g, s, False),
+            ("grouped ragged", 2, 200, 16, p, 4, 64, False),
+            ("strong decay", 2, 200, 16, p, 4, 64, True)]
+
+
+def _ssd_inputs(torch, gen, b, length, h, p, g, s, strong, dtype):
+    """x, dt, a_log, B, C as the mixer hands them to K8 (dt fp32 and
+    positive; B, C shared per group)."""
+    def rnd(shape, scale=1.0):
+        return (torch.randn(shape, generator=gen, device="cuda")
+                * scale).to(dtype)
+    x = rnd((b, length, h, p))
+    dt = torch.rand((b, length, h), generator=gen, device="cuda") * 0.2 \
+        + 0.001
+    a_log = torch.rand((h,), generator=gen, device="cuda") * 1.5 - 0.5
+    if strong:      # A = -e^3, dt up to 5: a step decays by up to e^-100
+        dt, a_log = dt * 25.0, torch.full_like(a_log, 3.0)
+    return x, dt, a_log, rnd((b, length, g, s), 0.5), \
+        rnd((b, length, g, s), 0.5)
+
+
+def ssd_ops(b: int, length: int, h: int, p: int, s: int,
+            chunk: int) -> tuple[int, int]:
+    """Operations the SSD scan needs over (b, length) and h heads, as (C B^T,
+    the rest): per chunk of n rows, 2 S per causal (row, col) pair for
+    C B^T, whose operands are the inputs; then 2 P per pair for the scores
+    times x dt, 2 n S P for the carried state's readout (none in the first
+    chunk, whose state is zero) and 2 n S P for the state update, each with
+    an fp32 operand."""
+    cb = rest = 0
+    for c0 in range(0, length, chunk):
+        n = min(chunk, length - c0)
+        pairs = n * (n + 1) // 2
+        cb += pairs * 2 * s
+        rest += pairs * 2 * p + 2 * n * s * p * (2 if c0 else 1)
+    return b * h * cb, b * h * rest
+
+
+def ssd_fp32_ops(cb: int, rest: int) -> float:
+    """The SSD scan's operations with bf16 inputs in fp32-rate units: C B^T
+    could run exactly on the tensor cores at the bf16 rate, the rest needs
+    the fp32 rate, so the least time is cb / PEAK_BF16 + rest / PEAK_FP32."""
+    return cb * PEAK_FP32 / PEAK_BF16 + rest
+
+
+def ssd_exact_check(torch, args, y, chunk: int, label: str) -> None:
+    """K8's y against the sequential recurrence in fp64 (`ref.ssd_ref`),
+    beside the chunked form with an fp32 torch.cumsum on the same inputs;
+    K8 (fp64 prefix sum) must come no further from the exact answer."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import ssd_scan as ssd
+
+    exact = ref.ssd_ref(*(t.double() for t in args))
+    y32 = ssd.ssd_scan_plain(*args, chunk=chunk, cum_dtype=torch.float32)
+    scale = exact.abs().max()
+    err = ((y.double() - exact).abs().max() / scale).item()
+    err32 = ((y32.double() - exact).abs().max() / scale).item()
+    ok = err <= err32
+    say(f"exact  ssd_scan {label} chunk {chunk} vs fp64 recurrence: K8 "
+        f"rel_err={err:.3e}, fp32-cumsum chunked form rel_err={err32:.3e} "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        fail(f"ssd_scan: K8 is further from the fp64 recurrence than an "
+             f"fp32 cumsum at {label}")
+
+
+def phase_parity_ssd(torch, shapes, chunk: int) -> dict:
+    """K8 against its plain version on the card, y and the fp32 state."""
+    from repro_torch.kernels import ssd_scan as ssd
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(1357)
+    errs: dict = {}
+    check = functools.partial(check_kernel, torch, errs)
+    for label, b, length, h, p, g, s, strong in shapes:
+        for dtype in (torch.bfloat16, torch.float32):
+            args = _ssd_inputs(torch, gen, b, length, h, p, g, s, strong,
+                               dtype)
+            y, st = ssd.ssd_scan_cuda(*args, chunk=chunk, return_state=True)
+            want, st_want = ssd.ssd_scan_plain(*args, chunk=chunk,
+                                               return_state=True)
+            torch.cuda.synchronize()
+            if not (bool(torch.isfinite(y).all())
+                    and bool(torch.isfinite(st).all())):
+                fail(f"ssd_scan: non-finite output at {label}")
+            dn = str(dtype).split(".")[-1]
+            shape = f"{b}x{length}x{h}x{p} G{g} S{s}"
+            check("ssd_scan", y, want, dtype, f"{label} {dn} y {shape}")
+            check("ssd_scan", st, st_want, torch.float32,
+                  f"{label} {dn} fp32 state")
+            if strong and dtype == torch.float32:
+                ssd_exact_check(torch, args, y, chunk, label)
+            del args, y, st, want, st_want
+    torch.cuda.empty_cache()
+    return errs
+
+
+def ssm_serve_bounds(cfg, params, batch: int, prompt: int,
+                     cache_bytes: int) -> tuple[float, float]:
+    """(prefill bound ms, decode bound ms per token) of the mamba2 serve.
+
+    Bytes: every weight once (the tied embedding is the LM head); at decode
+    also the caches (fp32 SSD states and conv tails), read and written
+    again.  Operations: 2 per token and weight of every layer tensor of two
+    or more dims (the five input projections, the conv taps, the output
+    projection), the SSD scan's (`ssd_ops`) at prefill and its 4 S P per
+    head and token at decode, and the LM head on the last positions; all
+    at the bf16 rate, the least the card could take."""
+    from repro_torch.models import transformer
+    from repro_torch.models.model import param_bytes
+    d, v = cfg.d_model, cfg.vocab_size
+    h, p, s = cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state
+    layer_w = sum(t.numel() for _, lp, *_ in transformer.layer_iter(
+        params, cfg) for t in _leaves(lp) if t.dim() >= 2)
+    pbytes = param_bytes(params)
+    pre_ops = (2 * batch * prompt * layer_w + 2 * batch * d * v
+               + cfg.n_layers * sum(ssd_ops(batch, prompt, h, p, s,
+                                            cfg.ssm_chunk)))
+    pre = max(pre_ops / PEAK_BF16, pbytes / HBM_BW)
+    dec_ops = (2 * batch * (layer_w + d * v)
+               + cfg.n_layers * batch * h * 4 * s * p)
+    dec = max(dec_ops / PEAK_BF16, (pbytes + 2 * cache_bytes) / HBM_BW)
+    return pre * 1e3, dec * 1e3
+
+
+def phase_serve_ssm(torch, cfg):
+    """The fourth main path: mamba2-2.7b at every published width and all
+    64 layers, served at batch 4 x 128 and at batch 1 x 3000; then one
+    prefill and one decode step with K8's launches counted apart."""
+    import numpy as np
+
+    from repro_torch.kernels import ops
+    from repro_torch.serve import engine
+
+    runs = ((4, 128, 16), (1, 3000, 4))
+    out = serve_runs(torch, cfg, runs, ssm_serve_bounds)
+    counts, params = out["counts"], out["params"]
+    if counts["ssd_scan"] != cfg.n_layers * len(runs):
+        fail(f"ssd_scan launched {counts['ssd_scan']} times, expected "
+             f"{cfg.n_layers * len(runs)} (one per layer of each of "
+             f"{len(runs)} prefills, none at decode)")
+    toks = torch.tensor(np.random.default_rng(1).integers(
+        0, cfg.vocab_size, (4, 128)), dtype=torch.long, device="cuda")
+    ops.reset_launch_counts()
+    cache, logits = engine.prefill(params, cfg, toks, max_len=129)
+    torch.cuda.synchronize()
+    per_prefill = ops.launch_counts()["ssd_scan"]
+    ops.reset_launch_counts()
+    engine.decode_step(params, cfg, cache, torch.argmax(logits, -1), 128)
+    torch.cuda.synchronize()
+    per_decode = ops.launch_counts()["ssd_scan"]
+    if per_prefill != cfg.n_layers or per_decode != 0:
+        fail(f"K8 launched {per_prefill} times in a prefill and "
+             f"{per_decode} in a decode step, expected {cfg.n_layers} and 0")
+    say(f"K8 launches: {per_prefill} per prefill ({cfg.n_layers} ssm "
+        f"layers), {per_decode} per decode step")
+    return out
+
+
+def phase_timings_ssd(torch, shapes, chunk: int, counts,
+                      errs) -> list[dict]:
+    """K8 and its plain version at the 3d shapes, bf16 in, with the fp32
+    state; no single PyTorch call computes the SSD scan."""
+    from repro_torch.kernels import ssd_scan as ssd
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(96)
+    row = functools.partial(timing_row, torch, counts, errs)
+    rows = []
+    for label, b, length, h, p, g, s, strong in shapes:
+        args = _ssd_inputs(torch, gen, b, length, h, p, g, s, strong,
+                           torch.bfloat16)
+        nbytes = (2 * b * length * h * p * 2 + b * length * h * 4
+                  + 2 * b * length * g * s * 2 + h * 4 + b * h * s * p * 4)
+        rows.append(row(
+            "ssd_scan",
+            lambda args=args: ssd.ssd_scan_cuda(*args, chunk=chunk,
+                                                return_state=True),
+            lambda args=args: ssd.ssd_scan_plain(*args, chunk=chunk,
+                                                 return_state=True),
+            None, nbytes, ssd_fp32_ops(*ssd_ops(b, length, h, p, s, chunk)),
+            f"{label} {b}x{length}x{h}x{p} G{g} S{s} bf16 + fp32 state",
+            peak=PEAK_FP32))
+        del args
     torch.cuda.empty_cache()
     return rows
 
@@ -1197,13 +1431,34 @@ def main() -> None:
     torch.cuda.empty_cache()
     rows += phase_timings_seq(torch, fa_shapes, scan_shapes,
                               hyb_path["counts"], errs)
+    torch.cuda.empty_cache()
+
+    scfg = get_config("mamba2-2.7b")
+    say(f"config: {scfg.name} L={scfg.n_layers} d={scfg.d_model} "
+        f"d_inner={scfg.d_inner} H={scfg.ssm_heads} P={scfg.ssm_head_dim} "
+        f"G={scfg.ssm_groups} S={scfg.ssm_state} chunk={scfg.ssm_chunk} "
+        f"V={scfg.vocab_size}")
+    shapes = ssd_shapes(scfg)
+    errs.update(phase_parity_ssd(torch, shapes, scfg.ssm_chunk))
+    ssm_path = phase_serve_ssm(torch, scfg)
+    if "--profile" in sys.argv[1:]:
+        profile_steps(torch, scfg, ssm_path["params"])
+    params4 = first_layers(ssm_path.pop("params"), SSM_PARITY_LAYERS)
+    torch.cuda.empty_cache()
+    phase_path_parity(torch, dataclasses.replace(
+        scfg, n_layers=SSM_PARITY_LAYERS), params4)
+    del params4
+    torch.cuda.empty_cache()
+    rows += phase_timings_ssd(torch, shapes, scfg.ssm_chunk,
+                              ssm_path["counts"], errs)
 
     # One entry per kernel for the contract line (the LM-head shape for
     # K1-K4, the dbrx decode gate/up shape for K5, recurrentgemma's batch-4
-    # prefill for K6 and K7); the other shapes are in the log above.
-    # Launches: summed over the three main paths.
-    launches = {n: phi4_counts.get(n, 0) + moe_path["counts"].get(n, 0)
-                + hyb_path["counts"].get(n, 0) for n in KERNELS}
+    # prefill for K6 and K7, mamba2's for K8); the other shapes are in the
+    # log above.  Launches: summed over the four main paths.
+    launches = {n: sum(c.get(n, 0) for c in (
+        phi4_counts, moe_path["counts"], hyb_path["counts"],
+        ssm_path["counts"])) for n in KERNELS}
     first = {}
     for r in rows:
         first.setdefault(r["name"], r)

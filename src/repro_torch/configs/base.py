@@ -4,9 +4,9 @@ One `ModelConfig` describes any member of the zoo (dense / MoE / SSM / hybrid
 / enc-dec / VLM).  Each ported architecture gets a module under
 `repro_torch.configs` registering its exact published config; `reduced()`
 derives the same-family smoke-test config.  The port registers the archs
-it can run (dense GQA, MoE without MLA, and the RG-LRU hybrid); the
-dataclass keeps every field so configs stay field-for-field comparable
-with the JAX package's.
+it can run (dense GQA, MoE without MLA, the RG-LRU hybrid and the
+Mamba-2 SSM); the dataclass keeps every field so configs stay
+field-for-field comparable with the JAX package's.
 """
 
 from __future__ import annotations
@@ -17,12 +17,14 @@ from typing import Callable
 
 _REGISTRY: dict[str, Callable[[], "ModelConfig"]] = {}
 
-ARCH_IDS = ["phi4-mini-3.8b", "dbrx-132b", "recurrentgemma-9b"]
+ARCH_IDS = ["phi4-mini-3.8b", "dbrx-132b", "recurrentgemma-9b",
+            "mamba2-2.7b"]
 
 _MODULE_FOR = {
     "phi4-mini-3.8b": "phi4_mini_3p8b",
     "dbrx-132b": "dbrx_132b",
     "recurrentgemma-9b": "recurrentgemma_9b",
+    "mamba2-2.7b": "mamba2_2p7b",
 }
 
 

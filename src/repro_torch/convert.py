@@ -11,7 +11,9 @@ compute with the same weights.
 Every leaf keeps its dtype: an MoE block's ``(R, E, D, F)`` expert stacks
 become ``(E, D, F)`` per layer, and its router stays fp32 in a bf16 model;
 a recurrent block's block-diagonal gates ``w_r`` / ``w_i`` become
-``(nb, bw, bw)`` per layer, and its ``a_param`` stays fp32.
+``(nb, bw, bw)`` per layer, and its ``a_param`` stays fp32; a Mamba-2
+mixer's conv taps ``conv_x`` / ``conv_b`` / ``conv_c`` become ``(K, ch)``
+per layer, and its ``a_log``, ``dt_bias`` and ``d_skip`` stay fp32.
 """
 
 from __future__ import annotations

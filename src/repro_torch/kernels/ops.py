@@ -1,5 +1,5 @@
 """Public wrappers for the planned-matmul kernels, the grouped expert GEMM,
-flash attention and the RG-LRU scan.
+flash attention, the RG-LRU scan and the Mamba-2 SSD scan.
 
 The wrappers take plans from the skew-aware planner when none is given
 (amp / chip resolve through the `mm_config` stack), clip the plan's blocks
@@ -28,6 +28,7 @@ from repro_torch.kernels import grouped_matmul as _gmm
 from repro_torch.kernels import ref as _ref
 from repro_torch.kernels import rglru_scan as _rglru
 from repro_torch.kernels import skew_matmul as _mm
+from repro_torch.kernels import ssd_scan as _ssd
 from repro_torch.sparse.costmodel import SparseMatmulCost
 from repro_torch.sparse.planner import plan_grouped_matmul
 
@@ -161,9 +162,20 @@ def rglru_scan(x: torch.Tensor, r_gate: torch.Tensor, i_gate: torch.Tensor,
                              return_state=return_state)
 
 
+def ssd_scan(x: torch.Tensor, dt: torch.Tensor, a_log: torch.Tensor,
+             b_mat: torch.Tensor, c_mat: torch.Tensor, *, chunk: int = 128,
+             return_state: bool = False):
+    """The Mamba-2 SSD scan.  x (B, L, H, P), dt (B, L, H) fp32, a_log
+    (H,), B / C (B, L, G, S): K8 on a CUDA tensor, its plain version on a
+    CPU tensor.  Any L; with ``return_state`` also the fp32 state after the
+    last position, (B, H, S, P)."""
+    return _ssd.ssd_scan(x, dt, a_log, b_mat, c_mat, chunk=chunk,
+                         return_state=return_state)
+
+
 def _counters() -> tuple:
     return (_mm.LAUNCHES, _gemv.LAUNCHES, _gmm.LAUNCHES, _fa.LAUNCHES,
-            _rglru.LAUNCHES)
+            _rglru.LAUNCHES, _ssd.LAUNCHES)
 
 
 def launch_counts() -> dict[str, int]:
@@ -171,7 +183,7 @@ def launch_counts() -> dict[str, int]:
     out = {f"skew_matmul_{s}": 0 for s in _mm.SCHEDULE_IDS}
     for name in ("skew_matmul_batched", "gemv_splitk_partial",
                  "gemv_splitk_reduce", "grouped_matmul", "flash_attention",
-                 "rglru_scan"):
+                 "rglru_scan", "ssd_scan"):
         out[name] = 0
     for counter in _counters():
         out.update(counter)

@@ -91,3 +91,38 @@ def rglru_ref(x: torch.Tensor, r_gate: torch.Tensor, i_gate: torch.Tensor,
     if return_state:
         return y, h
     return y
+
+
+def ssd_ref(x: torch.Tensor, dt: torch.Tensor, a_log: torch.Tensor,
+            b_mat: torch.Tensor, c_mat: torch.Tensor, *,
+            init_state: torch.Tensor | None = None,
+            return_state: bool = False):
+    """Oracle for the Mamba-2 SSD scan: the sequential recurrence in fp32
+    (in fp64 for fp64 inputs, the exact answer the kernel is held to).
+
+    x (B, L, H, P), dt (B, L, H) positive, a_log (H,) with A = -exp(a_log),
+    b_mat / c_mat (B, L, G, S) with H % G == 0.  Returns y (B, L, H, P) in
+    x's dtype [, the state after the last step (fp32, or fp64 for fp64
+    inputs), laid out (B, H, P, S) as in the JAX package's oracle —
+    `ssd_chunked` and the decode cache use (B, H, S, P)]."""
+    bsz, length, h, p = x.shape
+    rep = h // b_mat.shape[2]
+    work = torch.promote_types(x.dtype, torch.float32)
+    a = -torch.exp(a_log.to(work))                              # (H,)
+    bm = b_mat.repeat_interleave(rep, dim=2).to(work)           # (B,L,H,S)
+    cm = c_mat.repeat_interleave(rep, dim=2).to(work)
+    xf, dtf = x.to(work), dt.to(work)
+    state = (torch.zeros((bsz, h, p, b_mat.shape[3]), dtype=work,
+                         device=x.device)
+             if init_state is None else init_state.to(work))
+    ys = []
+    for t in range(length):
+        decay = torch.exp(dtf[:, t] * a[None, :])               # (B, H)
+        dx = xf[:, t] * dtf[:, t, :, None]                      # (B, H, P)
+        state = state * decay[..., None, None] + \
+            torch.einsum("bhp,bhs->bhps", dx, bm[:, t])
+        ys.append(torch.einsum("bhps,bhs->bhp", state, cm[:, t]))
+    y = torch.stack(ys, dim=1).to(x.dtype)
+    if return_state:
+        return y, state
+    return y

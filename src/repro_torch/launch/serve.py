@@ -3,6 +3,9 @@
   PYTHONPATH=src python -m repro_torch.launch.serve --arch phi4-mini-3.8b \
       --batch 4 --prompt-len 128 --gen 16
 
+``--arch`` takes every ported config: phi4-mini-3.8b, dbrx-132b,
+recurrentgemma-9b and mamba2-2.7b (``--reduced`` for the small config).
+
 Runs on the CUDA card unless ``--device cpu`` is given.  The published
 weights are not in the repository: weights are drawn from ``--seed``.
 """

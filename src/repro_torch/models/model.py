@@ -25,13 +25,12 @@ class ModelBundle:
 
 
 def build_model(cfg: ModelConfig | str, device=None) -> ModelBundle:
-    """Bundle for a decoder LM: dense, MoE (without MLA) or the RG-LRU
-    hybrid.  `device`
-    defaults to the card and raises when CUDA is absent (pass
-    device="cpu" to run on the CPU)."""
+    """Bundle for a decoder LM: dense, MoE (without MLA), the RG-LRU hybrid
+    or the Mamba-2 SSM.  `device` defaults to the card and raises when CUDA
+    is absent (pass device="cpu" to run on the CPU)."""
     if isinstance(cfg, str):
         cfg = get_config(cfg)
-    if cfg.family not in ("dense", "moe", "hybrid"):
+    if cfg.family not in ("dense", "moe", "hybrid", "ssm"):
         raise NotImplementedError(f"family {cfg.family!r} is not ported yet")
     if cfg.use_mla:
         raise NotImplementedError(f"{cfg.name}: MLA attention is not "

@@ -1,18 +1,20 @@
 """Serving engine: prefill + single-token decode for the GQA archs, with a
-dense or an MoE FFN, and for the RG-LRU hybrid (recurrent and local
-attention blocks).
+dense or an MoE FFN, for the RG-LRU hybrid (recurrent and local attention
+blocks) and for the Mamba-2 SSM (mixer-only blocks, no FFN).
 
 `prefill` runs the full-sequence forward while filling the cache;
 `decode_step` advances one token against it.  Unlike the JAX package's
 pure functions, the cache is **updated in place**: `decode_step` writes
-the new token's k/v (or a recurrent block's state and conv tail) into the
-cache tensors it is given (and returns the same dict), so no per-step copy
-of the cache is made.
+the new token's k/v (or a recurrent or SSM block's state and conv tails)
+into the cache tensors it is given (and returns the same dict), so no
+per-step copy of the cache is made.
 
 Prefill attention goes through `attention.sequence_attention` (K7 under
-the "cuda" backend) and the recurrent scan through `rglru.rec_mixer` (K6);
-decode attention stays `blockwise_attention` over the cache positions and
-the decode recurrence `rglru_decode_step`, as in the JAX package.
+the "cuda" backend), the recurrent scan through `rglru.rec_mixer` (K6) and
+the SSD scan through `ssm.ssm_mixer` (K8, which also returns the fp32
+state for decode); decode attention stays `blockwise_attention` over the
+cache positions, and the decode recurrences `rglru_decode_step` and
+`ssd_decode_step`, as in the JAX package.
 
 Both follow the JAX engine op for op (the FFN's residual add is not fused
 in the serving path there, so it is not fused here either; the MoE aux
@@ -28,17 +30,17 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.core import config as mmcfg
 from repro_torch.core import skewmm
 from repro_torch.models import attention as attn_mod
-from repro_torch.models import blocks, layers, moe, rglru, transformer
+from repro_torch.models import blocks, layers, moe, rglru, ssm, transformer
 from repro_torch.models.layers import rmsnorm
 from repro_torch.serve import kvcache
 
 
 def _check(cfg: ModelConfig) -> None:
-    if (cfg.use_mla or cfg.family not in ("dense", "moe", "hybrid")
+    if (cfg.use_mla or cfg.family not in ("dense", "moe", "hybrid", "ssm")
             or cfg.pos_embedding != "rope"):
         raise NotImplementedError(
             f"{cfg.name}: only dense, MoE and RG-LRU hybrid GQA archs with "
-            f"rope are ported")
+            f"rope, and the Mamba-2 SSM, are ported")
 
 
 def _attn_prefill(h, p, cfg, kind, positions, k_dst, v_dst):
@@ -58,7 +60,21 @@ def _rec_prefill(h, p, cfg, lru_dst, conv_dst):
     return out
 
 
+def _ssm_entry(entry, r: int) -> dict:
+    """Row r of an ssm cache entry: views that the engine writes in place."""
+    return {key: t[r] for key, t in entry.items()}
+
+
+def _ssm_prefill(h, p, cfg, dst):
+    out, entry = ssm.ssm_mixer(h, p, cfg, return_state=True)
+    for key, t in dst.items():
+        t.copy_(entry[key])
+    return out
+
+
 def _ffn(x, p, cfg, kind):
+    if not blocks.has_ffn(kind):
+        return x
     h = rmsnorm(x, p["ln2"], cfg.norm_eps)
     if blocks.ffn_is_moe(kind):
         h, _ = moe.moe_mlp(h, p["moe"], cfg)
@@ -91,6 +107,8 @@ def prefill(params, cfg: ModelConfig, tokens: torch.Tensor, *, max_len: int,
             if kind == "rec":
                 h = _rec_prefill(h, p["mixer"], cfg, entry["lru"][r],
                                  entry["conv"][r])
+            elif kind == "ssm":
+                h = _ssm_prefill(h, p["mixer"], cfg, _ssm_entry(entry, r))
             else:
                 h = _attn_prefill(h, p["attn"], cfg, kind, positions,
                                   entry["k"][r], entry["v"][r])
@@ -144,6 +162,23 @@ def _decode_rec(h, p, cfg: ModelConfig, lru, conv):
     return skewmm.matmul(y[:, None].to(h.dtype) * gate, p["proj_out"])
 
 
+def _decode_ssm(h, p, cfg: ModelConfig, entry):
+    """h (B, 1, D); entry {state (B, H, S, P) fp32, cx, cb, cc (B, K-1,
+    ch)}, every tensor written in place."""
+    b = h.shape[0]
+    nh, hp = cfg.ssm_heads, cfg.ssm_head_dim
+    g, s = cfg.ssm_groups, cfg.ssm_state
+    z, xs, b_mat, c_mat, dt, conv = ssm.ssm_project(h, p, cfg,
+                                                    conv_state=entry)
+    y, state = ssm.ssd_decode_step(
+        entry["state"], xs[:, 0].reshape(b, nh, hp), dt[:, 0], p["a_log"],
+        b_mat[:, 0].reshape(b, g, s), c_mat[:, 0].reshape(b, g, s))
+    entry["state"].copy_(state)
+    for key, t in conv.items():
+        entry[key].copy_(t)
+    return ssm.ssm_out(y[:, None], xs, z, p, cfg)
+
+
 @torch.no_grad()
 def decode_step(params, cfg: ModelConfig, cache, tokens: torch.Tensor, pos,
                 mm: mmcfg.MatmulConfig | None = None):
@@ -160,6 +195,8 @@ def decode_step(params, cfg: ModelConfig, cache, tokens: torch.Tensor, pos,
             if kind == "rec":
                 h = _decode_rec(h, p["mixer"], cfg, entry["lru"][r],
                                 entry["conv"][r])
+            elif kind == "ssm":
+                h = _decode_ssm(h, p["mixer"], cfg, _ssm_entry(entry, r))
             else:
                 window = cfg.local_window if kind == "attn_local" else None
                 h = _decode_gqa(h, p["attn"], cfg, entry["k"][r],

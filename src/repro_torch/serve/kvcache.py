@@ -7,6 +7,9 @@ absolute position p lives in slot p % L; slot validity is recovered
 arithmetically from the decode position (scalar, or (B,) per row).
 A recurrent (``rec``) block keeps its fp32 scan state ``lru`` (R, B, W)
 and its conv tail ``conv`` (R, B, K-1, W) of the last K-1 conv inputs.
+A Mamba-2 (``ssm``) block keeps its fp32 SSD state ``state`` (R, B, H, S,
+P) and the conv tails of its three segments: ``cx`` (R, B, K-1, d_inner),
+``cb`` and ``cc`` (R, B, K-1, G * S).
 """
 
 from __future__ import annotations
@@ -59,6 +62,13 @@ def init_block_cache(cfg: ModelConfig, kind: str, batch: int, max_len: int,
     if kind == "rec":
         return {"lru": z(cfg.lru_width, dt=torch.float32),
                 "conv": z(cfg.conv_kernel - 1, cfg.lru_width)}
+    if kind == "ssm":
+        gs = cfg.ssm_groups * cfg.ssm_state
+        return {"state": z(cfg.ssm_heads, cfg.ssm_state, cfg.ssm_head_dim,
+                           dt=torch.float32),
+                "cx": z(cfg.conv_kernel - 1, cfg.d_inner),
+                "cb": z(cfg.conv_kernel - 1, gs),
+                "cc": z(cfg.conv_kernel - 1, gs)}
     length = attn_cache_len(cfg, kind, max_len)
     return {"k": z(length, cfg.n_kv_heads, cfg.head_dim),
             "v": z(length, cfg.n_kv_heads, cfg.head_dim)}

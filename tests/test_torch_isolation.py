@@ -74,3 +74,18 @@ def test_params_from_numpy_defaults_to_the_card(no_cuda):
     with pytest.raises(RuntimeError, match="CUDA"):
         params_from_numpy(tree)
     assert params_from_numpy(tree, "cpu")["embed"].device.type == "cpu"
+
+
+def test_mamba2_serve_defaults_to_the_card(no_cuda):
+    """The SSM slice's entry point refuses the CPU unless asked, like the
+    others; `ops.ssd_scan` on a CPU tensor is the plain version, counted
+    as no launch."""
+    from repro_torch.kernels import ops
+    with pytest.raises(RuntimeError, match="CUDA"):
+        serve_mod.serve(arch="mamba2-2.7b", reduced=True, batch=1,
+                        prompt_len=4, gen=1)
+    ops.reset_launch_counts()
+    x = torch.zeros((1, 3, 2, 4))
+    y = ops.ssd_scan(x, torch.ones((1, 3, 2)), torch.zeros(2),
+                     torch.zeros((1, 3, 1, 4)), torch.zeros((1, 3, 1, 4)))
+    assert y.shape == x.shape and ops.launch_counts()["ssd_scan"] == 0

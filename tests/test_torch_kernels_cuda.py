@@ -15,7 +15,11 @@ kernel's single rounding to bf16 (rtol 2e-2, atol 2e-2 at unit-scale
 values: one bf16 ulp is 2**-8 relative).  Flash attention splits P into
 the same two bf16 terms in both versions, and the RG-LRU scan runs fp32 in
 both, so the same bounds hold there; the scan's fp32 carry is held at
-1e-4.
+1e-4.  The SSD scan takes the same fp64 log-decay prefix sum and fp32
+products in both versions and rounds y once, so the same bounds hold for
+y; its fp32 state is held at 1e-4.  Under a strong decay it is also held
+against the sequential recurrence in fp64: within 1e-6 of the largest |y|,
+and no further than the chunked form with an fp32 prefix sum.
 """
 
 import os
@@ -28,7 +32,9 @@ from repro_torch.kernels import flash_attention as fa_mod
 from repro_torch.kernels import gemv_splitk as gk_mod
 from repro_torch.kernels import grouped_matmul as gmm_mod
 from repro_torch.kernels import rglru_scan as rg_mod
+from repro_torch.kernels import ref
 from repro_torch.kernels import skew_matmul as mm_mod
+from repro_torch.kernels import ssd_scan as ssd_mod
 
 RNG = np.random.default_rng(11)
 TOL = {torch.float32: dict(rtol=1e-4, atol=1e-4),
@@ -268,3 +274,127 @@ def test_rglru_scan_strong_decay_stays_finite(dev):
     torch.cuda.synchronize()
     assert torch.isfinite(y).all()
     torch.testing.assert_close(y, want, rtol=1e-4, atol=1e-5)
+
+
+# (B, L, H, P, G, S, chunk): mamba2-2.7b's batch-4 prefill (one chunk), its
+# long prompt (23 whole chunks and a 56-row tail), a grouped ragged shape,
+# and odd sizes under the kernel's limits.
+SSD_CASES = {
+    "mamba2_b4_p128": (4, 128, 80, 64, 1, 128, 128),
+    "mamba2_b1_p3000": (1, 3000, 80, 64, 1, 128, 128),
+    "grouped_ragged": (2, 200, 16, 64, 4, 64, 128),
+    "odd_sizes": (3, 77, 6, 40, 3, 72, 48),
+}
+
+
+def _ssd_inputs(case, dtype, dev, strong_decay=False):
+    b, length, h, p, g, s, _ = SSD_CASES[case]
+    x = _t((b, length, h, p), dtype, dev)
+    dt = torch.tensor(RNG.uniform(0.001, 0.2, size=(b, length, h)),
+                      dtype=torch.float32).to(dev)
+    a_log = torch.tensor(RNG.uniform(-0.5, 1.0, size=(h,)),
+                         dtype=torch.float32).to(dev)
+    if strong_decay:        # A ~ -e^3, dt ~ 5: each step decays by ~e^-100
+        dt, a_log = dt * 25.0, torch.full_like(a_log, 3.0)
+    bm = _t((b, length, g, s), dtype, dev, 0.5)
+    cm = _t((b, length, g, s), dtype, dev, 0.5)
+    return x, dt, a_log, bm, cm
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", list(SSD_CASES))
+def test_ssd_scan_and_state_match_plain(dev, dtype, case):
+    """K8 with its fp32 state against the plain chunk math, at any L (the
+    tail of the last chunk masked) and B / C shared per group."""
+    chunk = SSD_CASES[case][-1]
+    x, dt, a_log, bm, cm = _ssd_inputs(case, dtype, dev)
+    ssd_mod.LAUNCHES.clear()
+    y, st = ssd_mod.ssd_scan(x, dt, a_log, bm, cm, chunk=chunk,
+                             return_state=True)
+    want, st_want = ssd_mod.ssd_scan_plain(x, dt, a_log, bm, cm, chunk=chunk,
+                                           return_state=True)
+    torch.cuda.synchronize()
+    assert ssd_mod.LAUNCHES["ssd_scan"] == 1
+    assert y.dtype == dtype and y.shape == x.shape
+    assert st.dtype == torch.float32 and st.shape == st_want.shape
+    torch.testing.assert_close(y.float(), want.float(), **TOL[dtype])
+    torch.testing.assert_close(st, st_want, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ssd_scan_reads_strided_views(dev, dtype):
+    """x, B and C as column slices of one (B, L, H P + 2 G S) buffer and dt
+    as a slice of a wider one, as a fused in-projection would hand them
+    over: K8 reads them in place."""
+    b, length, h, p, g, s = 2, 150, 8, 32, 2, 48
+    xbc = _t((b, length, h * p + 2 * g * s), dtype, dev, 0.5)
+    x = xbc[..., :h * p].unflatten(-1, (h, p))
+    bm = xbc[..., h * p:h * p + g * s].unflatten(-1, (g, s))
+    cm = xbc[..., h * p + g * s:].unflatten(-1, (g, s))
+    dt = torch.tensor(RNG.uniform(0.001, 0.2, size=(b, length, 2 * h)),
+                      dtype=torch.float32).to(dev)[..., :h]
+    a_log = torch.tensor(RNG.uniform(-0.5, 1.0, size=(h,)),
+                         dtype=torch.float32).to(dev)
+    assert not x.is_contiguous() and not dt.is_contiguous()
+    y, st = ssd_mod.ssd_scan_cuda(x, dt, a_log, bm, cm, chunk=64,
+                                  return_state=True)
+    want, st_want = ssd_mod.ssd_scan_plain(x.contiguous(), dt.contiguous(),
+                                           a_log, bm.contiguous(),
+                                           cm.contiguous(), chunk=64,
+                                           return_state=True)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(y.float(), want.float(), **TOL[dtype])
+    torch.testing.assert_close(st, st_want, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.cuda
+def test_ssd_scan_strong_decay_stays_finite(dev):
+    """exp(cum_i - cum_j) overflows for j > i here: those entries must be
+    selected away, not multiplied by a mask."""
+    x, dt, a_log, bm, cm = _ssd_inputs("grouped_ragged", torch.float32, dev,
+                                       strong_decay=True)
+    y, st = ssd_mod.ssd_scan_cuda(x, dt, a_log, bm, cm, return_state=True)
+    want, st_want = ssd_mod.ssd_scan_plain(x, dt, a_log, bm, cm,
+                                           return_state=True)
+    torch.cuda.synchronize()
+    assert torch.isfinite(y).all() and torch.isfinite(st).all()
+    torch.testing.assert_close(y, want, rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(st, st_want, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.cuda
+def test_ssd_scan_is_nearer_the_exact_answer_than_an_fp32_cumsum(dev):
+    """At the served chunk of 128 under a strong decay |cum| reaches
+    thousands: K8 (fp64 prefix sum and differences) must come at least as
+    near the sequential recurrence in fp64 (`ref.ssd_ref`) as the same
+    chunked form with torch.cumsum in fp32 does."""
+    x, dt, a_log, bm, cm = _ssd_inputs("grouped_ragged", torch.float32, dev,
+                                       strong_decay=True)
+    exact = ref.ssd_ref(x.double(), dt.double(), a_log.double(),
+                        bm.double(), cm.double())
+    y = ssd_mod.ssd_scan_cuda(x, dt, a_log, bm, cm, chunk=128)
+    y32 = ssd_mod.ssd_scan_plain(x, dt, a_log, bm, cm, chunk=128,
+                                 cum_dtype=torch.float32)
+    scale = exact.abs().max()
+    err = ((y.double() - exact).abs().max() / scale).item()
+    err32 = ((y32.double() - exact).abs().max() / scale).item()
+    assert err <= err32 and err < 1e-6, (err, err32)
+
+
+@pytest.mark.cuda
+def test_ssd_scan_refuses_what_it_does_not_take(dev):
+    x, dt, a_log, bm, cm = _ssd_inputs("grouped_ragged", torch.bfloat16, dev)
+    with pytest.raises(ValueError, match="P <= 64"):
+        ssd_mod.ssd_scan_cuda(torch.cat([x, x], -1), dt, a_log, bm, cm)
+    with pytest.raises(ValueError, match="chunk"):
+        ssd_mod.ssd_scan_cuda(x, dt, a_log, bm, cm, chunk=256)
+    with pytest.raises(ValueError, match="H % G"):
+        ssd_mod.ssd_scan_cuda(x, dt, a_log, bm[:, :, :3], cm[:, :, :3])
+    with pytest.raises(TypeError, match="float32"):
+        ssd_mod.ssd_scan_cuda(x, dt.bfloat16(), a_log, bm, cm)
+    with pytest.raises(TypeError, match="share dtype"):
+        ssd_mod.ssd_scan_cuda(x, dt, a_log, bm.float(), cm)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        ssd_mod.ssd_scan_cuda(x.cpu(), dt, a_log, bm, cm)
