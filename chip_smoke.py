@@ -74,7 +74,28 @@ then mamba2-2.7b, after recurrentgemma's weights are freed:
   5d. whole-path parity at full width and 8 layers, as in phase 5;
   6d. timings — K8, its plain version and its bound at the 3d shapes (no
      single PyTorch call computes the SSD scan);
-  7. the `kernels` JSON line (K1-K8; launches summed over the four main
+then the measured autotuner and the block-sparse matmul:
+  3e. K9 parity — the block-sparse matmul against its plain version, every
+     schedule, bf16 and fp32, the bias_silu and residual epilogues,
+     densities 0.05 / 0.25 / 0.5 / 1.0, blocks (32, 128), (64, 64) and
+     (128, 128), a shape ragged in m, k and n and a layout with empty row
+     blocks; at density 1.0 K9 must be bitwise equal to K1 at the same
+     plan; then 4096^2 at every plan the tuner times;
+  4e. the tune path (the fifth main path) — `repro_torch.launch.tune`'s
+     `main` in process for the sparse, fig5 and decode suites at --total
+     4096 (--iters 3 --repeats 5, a cache under build/), then `tune_sparse`
+     with the wall-clock measurer on the JAX tuned suite's (128, 128)
+     summaries at d 0.1 / 0.4 (the fail-over plan), b_resident by an
+     explicit plan, and two `plan_mode="tuned"` lookups through `ops` that
+     must hit the reloaded cache (2 hits, 0 misses) and match the plain
+     versions.  K9 must launch for every sparse candidate timed.  Counts
+     are zeroed just before and read just after; the entries (measured and
+     modeled us, agreement, speedup) and the calibration fit are printed;
+  6e. timings — K9 at the tuner's 4096^2 (32, 128) layouts, d 0.25 / 0.5
+     and 1.0, n 4096, each schedule the planner offers (b_resident at
+     0.25), its plain version, its bound and `torch.matmul` of the
+     pre-masked dense A; K1 at the dense planner's 4096^3 plan beside it;
+  7. the `kernels` JSON line (K1-K9; launches summed over the five main
      paths), then the device line.
 Phi4's and dbrx's prefills reach K7 too (phases 4, 4b).
 """
@@ -156,11 +177,21 @@ KERNELS = {
     "ssd_scan": (
         "src/repro_torch/csrc/ssd_scan.cu",
         "src/repro/kernels/ssd_scan.py:96"),
+    "block_sparse_matmul_k_inner": (
+        "src/repro_torch/csrc/block_sparse_matmul.cu",
+        "src/repro/sparse/kernels.py:223"),
+    "block_sparse_matmul_a_resident": (
+        "src/repro_torch/csrc/block_sparse_matmul.cu",
+        "src/repro/sparse/kernels.py:271"),
+    "block_sparse_matmul_b_resident": (
+        "src/repro_torch/csrc/block_sparse_matmul.cu",
+        "src/repro/sparse/kernels.py:271"),
 }
 # The dense kernels and K7 run on phi4's main path, K5 on dbrx's, K6 (and
-# K7) on recurrentgemma's, K8 on mamba2's.
-PHI4_KERNELS = tuple(n for n in KERNELS
-                     if n not in ("grouped_matmul", "rglru_scan", "ssd_scan"))
+# K7) on recurrentgemma's, K8 on mamba2's, K9 on the tuner's.
+BSR_KERNELS = tuple(n for n in KERNELS if n.startswith("block_sparse"))
+PHI4_KERNELS = tuple(n for n in KERNELS if n not in (
+    "grouped_matmul", "rglru_scan", "ssd_scan") + BSR_KERNELS)
 # dbrx-132b: 40 layers of 6.52 GB (bf16) do not fit one 80 GB card; the
 # serve keeps every width and cuts depth to 8 layers (54.6 GB), the
 # whole-path parity to 2 (an fp32 copy fits beside the bf16 one).
@@ -1332,6 +1363,316 @@ def phase_timings_ssd(torch, shapes, chunk: int, counts,
     return rows
 
 
+# ----------------------------------------------------------------- tune
+# The tuner's shapes: the paper's 4096^2 problem scale, n = 4096.  The
+# `sparse` suite's layouts (block (32, 128), densities 0.25 / 0.5, seed 0)
+# and the JAX package's tuned suite's (128, 128) summaries at 0.1 / 0.4,
+# which no gpu_h100 plan fits, so the planner fails over to k_inner
+# (128, 128, 64).
+TUNE_TOTAL, TUNE_ITERS, TUNE_REPEATS = 4096, 3, 5
+TUNED_SUITE_DENSITIES = (0.1, 0.4)
+BSR_BN = 64
+
+
+def _bsr_operands(torch, gen, m, k, n, dtype):
+    a = (torch.randn((m, k), generator=gen, device="cuda")).to(dtype)
+    b = (torch.randn((k, n), generator=gen, device="cuda")
+         * k ** -0.5).to(dtype)
+    bias = torch.randn((n,), generator=gen, device="cuda").to(dtype)
+    res = torch.randn((m, n), generator=gen, device="cuda").to(dtype)
+    return a, b, bias, res
+
+
+def phase_parity_bsr(torch) -> dict:
+    """K9 against its plain version: every schedule, bf16 and fp32, the
+    bias_silu and residual epilogues, densities 0.05 / 0.25 / 0.5 / 1.0,
+    blocks (32, 128), (64, 64), (128, 128), on a shape ragged in m, k and
+    n and on a layout with empty row blocks; at density 1.0 K9 must equal
+    K1 bit for bit at the same plan.  Then the main path's shapes: 4096^2
+    at every candidate plan the tuner times."""
+    from repro_torch.core import epilogue as ep_mod
+    from repro_torch.kernels import block_sparse_matmul as bsr
+    from repro_torch.kernels import skew_matmul as mm
+    from repro_torch.sparse import planner
+    from repro_torch.sparse.layout import BlockSparseLayout
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(95)
+    errs: dict = {}
+    check = functools.partial(check_kernel, torch, errs)
+    m, k, n = 1000, 1500, 700              # ragged against every block
+    specs = (("bias_silu", True, False), ("residual", False, True))
+    bitwise = 0
+    for dtype in (torch.bfloat16, torch.float32):
+        dn = str(dtype).split(".")[-1]
+        a, b, bias, res = _bsr_operands(torch, gen, m, k, n, dtype)
+        for block in ((32, 128), (64, 64), (128, 128)):
+            for d in (0.05, 0.25, 0.5, 1.0):
+                lay = (BlockSparseLayout.dense(m, k, block) if d == 1.0
+                       else BlockSparseLayout.random(m, k, block, d, seed=5))
+                for spec, use_bias, use_res in specs:
+                    tokens = ep_mod.normalize_spec(spec)
+                    bi = bias if use_bias else None
+                    rs = res if use_res else None
+                    want = bsr.block_sparse_matmul_plain(
+                        a, b, lay, bi, rs, epilogue=tokens, out_dtype=dtype)
+                    for sched in bsr.SCHEDULE_IDS:
+                        got = bsr.block_sparse_matmul_cuda(
+                            a, b, lay, bi, rs, bn=BSR_BN, schedule=sched,
+                            epilogue=tokens, out_dtype=dtype)
+                        torch.cuda.synchronize()
+                        check(f"block_sparse_matmul_{sched}", got, want,
+                              dtype, f"{dn} {m}x{k}x{n} {block} d={d} {spec}")
+                        if d == 1.0:
+                            k1 = mm.skew_matmul_cuda(
+                                a, b, bi, rs, bm=block[0], bk=block[1],
+                                bn=BSR_BN, schedule=sched, epilogue=tokens,
+                                out_dtype=dtype)
+                            torch.cuda.synchronize()
+                            if not torch.equal(got, k1):
+                                fail(f"K9 {sched} at density 1.0 is not "
+                                     f"bitwise equal to K1 ({dn} {block} "
+                                     f"{spec})")
+                            bitwise += 1
+        # empty row blocks: every third row block holds nothing
+        mask = BlockSparseLayout.random(m, k, (32, 128), 0.5,
+                                        seed=6).block_mask()
+        mask[::3] = False
+        lay = BlockSparseLayout.from_block_mask(mask, (32, 128),
+                                                shape=(m, k))
+        for spec, use_bias, use_res in specs:
+            tokens = ep_mod.normalize_spec(spec)
+            bi = bias if use_bias else None
+            rs = res if use_res else None
+            want = bsr.block_sparse_matmul_plain(a, b, lay, bi, rs,
+                                                 epilogue=tokens,
+                                                 out_dtype=dtype)
+            for sched in bsr.SCHEDULE_IDS:
+                got = bsr.block_sparse_matmul_cuda(
+                    a, b, lay, bi, rs, bn=BSR_BN, schedule=sched,
+                    epilogue=tokens, out_dtype=dtype)
+                torch.cuda.synchronize()
+                check(f"block_sparse_matmul_{sched}", got, want, dtype,
+                      f"{dn} {m}x{k}x{n} empty row blocks {spec}")
+        del a, b, bias, res
+    say(f"parity K9 bitwise equal to K1 at density 1.0 in {bitwise} cases")
+
+    # the main path's shapes, bf16 in and out, at each candidate plan
+    t = TUNE_TOTAL
+    a, b, _, _ = _bsr_operands(torch, gen, t, t, t, torch.bfloat16)
+    layouts = [BlockSparseLayout.random(t, t, (32, 128), d)
+               for d in (0.25, 0.5)]
+    layouts += [BlockSparseLayout.random(t, t, (128, 128), d)
+                for d in TUNED_SUITE_DENSITIES]
+    for lay in layouts:
+        plans = {c.plan for c in planner.enumerate_sparse_plans(
+            lay.summary(), t, chip="gpu_h100")}
+        want = bsr.block_sparse_matmul_plain(a, b, lay,
+                                             out_dtype=torch.bfloat16)
+        for p in sorted(plans, key=lambda p: p.schedule):
+            got = bsr.block_sparse_matmul_cuda(a, b, lay, bn=p.bn,
+                                               schedule=p.schedule,
+                                               out_dtype=torch.bfloat16)
+            torch.cuda.synchronize()
+            check(f"block_sparse_matmul_{p.schedule}", got, want,
+                  torch.bfloat16, f"bf16 {t}^3 {lay.block_shape} "
+                  f"d={lay.density:.3f} bn={p.bn}")
+    del a, b
+    torch.cuda.empty_cache()
+    return errs
+
+
+def phase_tune(torch) -> dict:
+    """The tuner's main path: `repro_torch.launch.tune` (in process) for the
+    sparse, fig5 and decode suites at --total 4096, then `tune_sparse` with
+    the wall-clock measurer on the JAX tuned suite's (128, 128) summaries
+    (the fail-over plan), then the explicit b_resident plan the planner
+    never picks, and two `plan_mode="tuned"` lookups through `ops` that
+    must hit the cache.  Counts are zeroed just before and read just
+    after."""
+    from repro_torch.core.config import mm_config
+    from repro_torch.core.costmodel import BlockPlan
+    from repro_torch.guard import health
+    from repro_torch.kernels import block_sparse_matmul as bsr
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import skew_matmul as mm
+    from repro_torch.launch import tune as tune_cli
+    from repro_torch.sparse import planner
+    from repro_torch.sparse.layout import BlockSparseLayout, LayoutSummary
+    from repro_torch.tune import calibrate, runtime, tuner
+    from repro_torch.tune.cache import TuneCache
+
+    t = TUNE_TOTAL
+    path = ROOT / "build" / "tune" / "smoke_tune_cache.json"
+    if path.exists():
+        path.unlink()
+    argv = ["--total", str(t), "--iters", str(TUNE_ITERS), "--repeats",
+            str(TUNE_REPEATS), "--update-cache", "--cache", str(path),
+            "--budget-s", "600"]
+    t0 = time.perf_counter()
+    ops.reset_launch_counts()
+    # ---- the main path: counts zeroed above, read after the last drive.
+    for suite in ("sparse", "fig5", "decode"):
+        if tune_cli.main(["--suite", suite] + argv) != 0:
+            fail(f"launch.tune --suite {suite} failed")
+    cache = TuneCache.load(str(path))
+    tuned_suite = []
+    for d in TUNED_SUITE_DENSITIES:
+        summary = LayoutSummary.balanced(t, t, (128, 128), d)
+        e = tuner.tune_sparse(summary, t, iters=TUNE_ITERS,
+                              repeats=TUNE_REPEATS)
+        cache.put(e)
+        tuned_suite.append(e)
+    cache.save(str(path))
+    t_tune = time.perf_counter() - t0
+    sparse_counts = ops.launch_counts()
+    # every sparse candidate timed ran K9 once per call (one warm-up call
+    # and iters x repeats timed ones)
+    per = 1 + TUNE_ITERS * TUNE_REPEATS
+    expect = dict.fromkeys(BSR_KERNELS, 0)
+    sparse_entries = [e for e in cache.entries.values() if e.kind == "sparse"]
+    for d in (0.25, 0.5):
+        s = BlockSparseLayout.random(t, t, (32, 128), d).summary()
+        for c in planner.enumerate_sparse_plans(s, t, top=4):
+            expect[f"block_sparse_matmul_{c.plan.schedule}"] += per
+    for d in TUNED_SUITE_DENSITIES:
+        s = LayoutSummary.balanced(t, t, (128, 128), d)
+        for c in planner.enumerate_sparse_plans(s, t):
+            expect[f"block_sparse_matmul_{c.plan.schedule}"] += per
+    got = {n: sparse_counts[n] for n in BSR_KERNELS}
+    if got != expect:
+        fail(f"K9 launches in the tuner {got}, expected {expect}")
+    if len(sparse_entries) != 4 or len(cache.entries) != 4 + 5 + 3:
+        fail(f"the cache holds {len(cache.entries)} entries "
+             f"({len(sparse_entries)} sparse), expected 12 (4 sparse)")
+
+    # b_resident: ported for parity, never planned; an explicit plan
+    lay = BlockSparseLayout.random(t, t, (32, 128), 0.25)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(94)
+    a, b, _, _ = _bsr_operands(torch, gen, t, t, t, torch.bfloat16)
+    y = ops.sparse_matmul(a, b, lay, plan=BlockPlan(32, 128, BSR_BN,
+                                                    "b_resident"))
+    torch.cuda.synchronize()
+    if not bool(torch.isfinite(y).all()):
+        fail("b_resident: non-finite output")
+
+    # tuned lookups: one tuned layout, one fig5 shape
+    runtime.set_active_cache(TuneCache.load(str(path)))
+    m5, k5, n5 = tune_cli.fig5_shapes(t)[0]
+    a5 = torch.randn((m5, k5), generator=gen, device="cuda").to(
+        torch.bfloat16)
+    b5 = (torch.randn((k5, n5), generator=gen, device="cuda")
+          * k5 ** -0.5).to(torch.bfloat16)
+    health.reset()
+    with mm_config(plan_mode="tuned"):
+        ys = ops.sparse_matmul(a, b, lay)
+        yd = ops.skew_matmul(a5, b5)
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    # ---- end of the main path.
+    hits, misses = health.get("tuned_hits"), health.get("tuned_misses")
+    runtime.set_active_cache(None)
+    if (hits, misses) != (2, 0):
+        fail(f"tuned lookups: {hits} hits, {misses} misses (want 2, 0)")
+    sp_entry = cache.get(next(k for k in cache.entries
+                              if k.startswith("sparse")
+                              and f"nnz{lay.nnz_total}s" in k))
+    dn_entry = cache.get(next(k for k in cache.entries
+                              if k.endswith(f"m{m5}k{k5}n{n5}b1")))
+    errs: dict = {}
+    check_kernel(torch, errs, f"block_sparse_matmul_{sp_entry.schedule}",
+                 ys, bsr.block_sparse_matmul_plain(
+                     a, b, lay, out_dtype=torch.bfloat16),
+                 torch.bfloat16, f"tuned hit {sp_entry.key}")
+    check_kernel(torch, errs, f"skew_matmul_{dn_entry.schedule}", yd,
+                 mm.skew_matmul_plain(a5, b5, bk=dn_entry.blocks[1],
+                                      out_dtype=torch.bfloat16),
+                 torch.bfloat16, f"tuned hit {dn_entry.key}")
+    say(f"tuned lookups: {hits} hits, {misses} misses; the sparse hit ran "
+        f"{sp_entry.schedule} {sp_entry.blocks}, the fig5 hit "
+        f"{dn_entry.schedule} {dn_entry.blocks}")
+
+    entries = sorted(cache.entries.values(), key=lambda e: e.key)
+    for e in entries:
+        say(f"tune {e.key}: measured {e.measured_us:.1f} us, modeled "
+            f"{e.modeled_us:.1f} us ({e.measured_us / e.modeled_us:.2f}x), "
+            f"{e.schedule} {e.blocks}, agree={e.agreement} "
+            f"speedup={e.speedup:.3f}")
+    agree = sum(e.agreement for e in entries)
+    corr = calibrate.fit_corrections(entries, "gpu_h100")
+    say(f"tune: {len(entries)} entries in {t_tune:.1f} s, agreement "
+        f"{agree}/{len(entries)}; calibration gpu_h100 time_frac="
+        f"{corr.time_frac:.6g} sparse_gather_frac={corr.sparse_gather_frac} "
+        f"log_spread={corr.log_spread:.3f} "
+        f"{'accepted' if corr.accepted else 'rejected'} "
+        f"(n_dense={corr.n_dense} n_sparse={corr.n_sparse})")
+    say(f"K9 launches on the tune path: "
+        f"{ {n: counts[n] for n in BSR_KERNELS} }")
+    for name in BSR_KERNELS:
+        if counts.get(name, 0) <= 0:
+            fail(f"kernel {name} was not launched on the tune path")
+    del a, b, a5, b5
+    torch.cuda.empty_cache()
+    return {"counts": counts, "errs": errs, "entries": entries,
+            "corrections": corr}
+
+
+def phase_timings_bsr(torch, counts, errs) -> list[dict]:
+    """K9 at the tuner's sparse shapes (4096^2, (32, 128), d 0.25 / 0.5,
+    n 4096) and at density 1.0: each schedule the planner offers (and
+    b_resident by an explicit plan at d 0.25), the plain version, the
+    bound, and `torch.matmul` of the pre-masked dense A (the dense work K9
+    avoids; never on the port's path).  At density 1.0 K1 at the dense
+    planner's plan shows where the card's crossover lies."""
+    from repro_torch.core.planner import plan_matmul
+    from repro_torch.kernels import block_sparse_matmul as bsr
+    from repro_torch.kernels import skew_matmul as mm
+    from repro_torch.sparse import planner
+    from repro_torch.sparse.layout import BlockSparseLayout
+
+    t = TUNE_TOTAL
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(93)
+    a, b, _, _ = _bsr_operands(torch, gen, t, t, t, torch.bfloat16)
+    row = functools.partial(timing_row, torch, counts, errs)
+    rows = []
+    dense = plan_matmul(t, t, t, chip="gpu_h100").plan
+    k1_ms = time_ms(torch, lambda: mm.skew_matmul_cuda(
+        a, b, bm=dense.bm, bk=dense.bk, bn=dense.bn, schedule=dense.schedule,
+        out_dtype=torch.bfloat16))
+    say(f"time K1 {dense.schedule} {(dense.bm, dense.bk, dense.bn)} "
+        f"{t}^3 bf16 (the dense planner's plan): {k1_ms:.4f} ms")
+    for d in (0.25, 0.5, 1.0):
+        lay = (BlockSparseLayout.random(t, t, (32, 128), d) if d < 1.0
+               else BlockSparseLayout.dense(t, t, (32, 128)))
+        s = lay.summary()
+        masked = a * torch.as_tensor(lay.element_mask(), device="cuda").to(
+            a.dtype)
+        nbytes = 2 * (s.nnz_elems + t * t + t * t)
+        flops = 2 * s.nnz_elems * t
+        scheds = {c.plan.schedule: c.plan.bn for c in
+                  planner.enumerate_sparse_plans(s, t, chip="gpu_h100")}
+        if d == 0.25:
+            scheds["b_resident"] = BSR_BN
+        for sched, bn in scheds.items():
+            rows.append(row(
+                f"block_sparse_matmul_{sched}",
+                lambda lay=lay, sched=sched, bn=bn:
+                    bsr.block_sparse_matmul_cuda(a, b, lay, bn=bn,
+                                                 schedule=sched,
+                                                 out_dtype=torch.bfloat16),
+                lambda lay=lay: bsr.block_sparse_matmul_plain(
+                    a, b, lay, out_dtype=torch.bfloat16),
+                lambda masked=masked: torch.matmul(masked, b),
+                nbytes, flops,
+                f"{t}^3 (32,128) d={lay.density:.3f} bn={bn}"))
+        del masked
+    del a, b
+    torch.cuda.empty_cache()
+    return rows
+
+
 # ----------------------------------------------------------------- --profile
 def profile_steps(torch, cfg, params) -> None:
     """torch.profiler over one prefill and one decode step (batch 4): device
@@ -1451,14 +1792,24 @@ def main() -> None:
     torch.cuda.empty_cache()
     rows += phase_timings_ssd(torch, shapes, scfg.ssm_chunk,
                               ssm_path["counts"], errs)
+    torch.cuda.empty_cache()
+
+    say(f"tune: block-sparse matmul (K9) and the measured autotuner at "
+        f"{TUNE_TOTAL}^2, n {TUNE_TOTAL}")
+    errs.update(phase_parity_bsr(torch))
+    tune_path = phase_tune(torch)
+    for name, err in tune_path["errs"].items():
+        errs[name] = max(errs.get(name, 0.0), err)
+    rows += phase_timings_bsr(torch, tune_path["counts"], errs)
 
     # One entry per kernel for the contract line (the LM-head shape for
     # K1-K4, the dbrx decode gate/up shape for K5, recurrentgemma's batch-4
-    # prefill for K6 and K7, mamba2's for K8); the other shapes are in the
-    # log above.  Launches: summed over the four main paths.
+    # prefill for K6 and K7, mamba2's for K8, the tuner's 4096^2 (32, 128)
+    # d 0.25 layout for K9); the other shapes are in the log above.
+    # Launches: summed over the five main paths.
     launches = {n: sum(c.get(n, 0) for c in (
         phi4_counts, moe_path["counts"], hyb_path["counts"],
-        ssm_path["counts"])) for n in KERNELS}
+        ssm_path["counts"], tune_path["counts"])) for n in KERNELS}
     first = {}
     for r in rows:
         first.setdefault(r["name"], r)

@@ -31,7 +31,7 @@ from typing import Any, Iterator
 from repro_torch.core import hw
 
 BACKENDS = ("torch", "cuda")
-PLAN_MODES = ("skew_aware", "dense", "k_inner", "naive")
+PLAN_MODES = ("skew_aware", "dense", "k_inner", "naive", "tuned")
 
 _ENV_BACKEND = "REPRO_TORCH_MM_BACKEND"
 

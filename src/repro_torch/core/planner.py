@@ -12,7 +12,9 @@ The port of the JAX package's planner, single-chip modes only:
 
 Plans are memoized per (dims, chip, amp, mode): PyTorch runs eagerly and
 plans on every call of every step, so the cache is what keeps host time
-down.  Tuned and sharded planning are not ported yet.
+down.  The "tuned" mode reads the measured autotuner's active cache
+(`repro_torch.tune.runtime`) outside that memo.  Sharded planning is not
+ported yet.
 """
 
 from __future__ import annotations
@@ -115,6 +117,33 @@ def _plan_order(c: MatmulCost) -> tuple:
             ALL_SCHEDULES.index(p.schedule), p.bm, p.bk, p.bn)
 
 
+def enumerate_plans(m: int, k: int, n: int, *, dtype_bytes: int = 2,
+                    amp: float | None = None,
+                    chip: hw.ChipSpec | str | None = None,
+                    batch: int = 1, top: int = 8) -> list[MatmulCost]:
+    """The modeled top-`top` candidate plans, best first: the measured
+    autotuner's candidate set.  Covers the skew-aware search space (the
+    schedule family, the batch-grid variant when batch > 1, split-K at
+    decode shapes); the first element is the ``plan_matmul(mode=
+    "skew_aware")`` plan.  Falls back to the minimum-granule plan when no
+    aligned candidate fits, so the list is never empty."""
+    cfg = config.resolve(amp=amp, chip=chip)
+    chip = cfg.chip_spec
+    d = MatmulDims(m=m, k=k, n=n, dtype_bytes=dtype_bytes, batch=batch)
+    budget = int(cfg.amp * chip.vmem_bytes)
+    costs = list(_feasible_costs(d, chip, budget, SCHEDULES))
+    if batch > 1:
+        costs.extend(
+            _feasible_costs(d, chip, budget, ("k_inner",), batch_grid=True))
+    if gemv_applicable(m, batch, chip):
+        costs.extend(_gemv_costs(d, chip, budget))
+    if not costs:
+        costs = [cost_matmul(d, BlockPlan(chip.mxu_sublanes, chip.mxu_lanes,
+                                          chip.mxu_lanes), chip)]
+    costs.sort(key=_plan_order)
+    return costs[:top]
+
+
 def plan_matmul(m: int, k: int, n: int, *, dtype_bytes: int = 2,
                 amp: float | None = None, chip: hw.ChipSpec | str | None = None,
                 mode: str | None = None, batch: int = 1) -> MatmulCost:
@@ -131,11 +160,39 @@ def plan_matmul(m: int, k: int, n: int, *, dtype_bytes: int = 2,
       "dense"      — the search without the GEMV family.
       "k_inner"    — the search restricted to the K-innermost schedule.
       "naive"      — fixed 512^3 blocks clipped to the problem.
+      "tuned"      — the measured autotuner's cache for this shape class:
+                     a hit returns the measured winner costed on the actual
+                     dims; a miss, or a cached plan that no longer fits the
+                     budget, falls back to "skew_aware".
     """
     cfg = config.resolve(amp=amp, chip=chip, plan_mode=mode)
+    if cfg.plan_mode == "tuned":
+        # The active tune cache is mutable state: resolved outside the lru
+        # cache, which memoizes only the modeled fallback.
+        return _plan_matmul_tuned(m, k, n, dtype_bytes=dtype_bytes,
+                                  amp=cfg.amp, chip=cfg.chip_spec,
+                                  batch=batch)
     return _plan_matmul_cached(m, k, n, dtype_bytes=dtype_bytes,
                                amp=cfg.amp, chip=cfg.chip_spec,
                                mode=cfg.plan_mode, batch=batch)
+
+
+def _plan_matmul_tuned(m: int, k: int, n: int, *, dtype_bytes: int,
+                       amp: float, chip: hw.ChipSpec,
+                       batch: int) -> MatmulCost:
+    from repro_torch.tune import runtime as tune_runtime  # planner <- tune
+
+    plan = tune_runtime.lookup_dense(m, k, n, batch=batch,
+                                     dtype_bytes=dtype_bytes, amp=amp,
+                                     chip=chip)
+    if plan is not None:
+        d = MatmulDims(m=m, k=k, n=n, dtype_bytes=dtype_bytes, batch=batch)
+        # Measured on the bucket representative; the actual dims can be up
+        # to 2x larger per axis, so the budget is checked again.
+        if plan.vmem_bytes(d) <= int(amp * chip.vmem_bytes):
+            return cost_matmul(d, plan, chip)
+    return _plan_matmul_cached(m, k, n, dtype_bytes=dtype_bytes, amp=amp,
+                               chip=chip, mode="skew_aware", batch=batch)
 
 
 @functools.lru_cache(maxsize=4096)

@@ -26,7 +26,6 @@ import torch
 from repro_torch.core import config, epilogue as epilogue_mod, hw
 from repro_torch.core.epilogue import Epilogue
 from repro_torch.core.planner import plan_matmul
-from repro_torch.kernels import ops
 
 _ACTIVE_LOGS: list[list] = []
 
@@ -86,6 +85,10 @@ def matmul(a: torch.Tensor, b: torch.Tensor, *, backend: str | None = None,
     odt = cfg.out_dtype or a.dtype
 
     if cfg.backend == "cuda":
+        # Imported here: kernels.ops -> sparse -> core would otherwise make
+        # `import repro_torch.sparse` (before core) a cycle.
+        from repro_torch.kernels import ops
+
         kw = dict(plan=cost.plan, out_dtype=odt, chip=cfg.chip_spec)
         res = ep.residual
         if cost.plan.batch_grid and lead:

@@ -63,32 +63,6 @@ k_inner_kernel(const T* __restrict__ A, long long sa_b, long long sa_m, long lon
   }
 }
 
-// Fold one partial tile into the output: gk == 1 writes the epilogue
-// directly; otherwise the first k block writes the fp32 workspace, middle
-// blocks add to it, and the last adds, applies the epilogue and casts.
-// Each element is always handled by the same thread, so the workspace
-// read-modify-write needs no synchronisation.
-template <typename O>
-__device__ void combine(const float* sc, int ldc, float* ws, O* out, int kk, int gk,
-                        int i0, int j0, int bm, int bn, int m, int n, const Epi& e) {
-  for (int idx = threadIdx.x; idx < bm * bn; idx += blockDim.x) {
-    const int r = idx / bn, c = idx - r * bn;
-    const int gr = i0 + r, gc = j0 + c;
-    if (gr >= m || gc >= n) continue;
-    const long long g = (long long)gr * n + gc;
-    const float p = sc[r * ldc + c];
-    if (gk == 1) {
-      out[g] = from_f<O>(apply_epi(p, e, 0, gr, gc));
-    } else if (kk == 0) {
-      ws[g] = p;
-    } else if (kk < gk - 1) {
-      ws[g] = ws[g] + p;
-    } else {
-      out[g] = from_f<O>(apply_epi(ws[g] + p, e, 0, gr, gc));
-    }
-  }
-}
-
 template <typename T, typename O>
 __global__ void __launch_bounds__(kThreads)
 a_resident_kernel(const T* __restrict__ A, long long sa_m, long long sa_k,

@@ -23,7 +23,7 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 SOURCES = ("skew_matmul", "gemv_splitk", "grouped_matmul", "flash_attention",
-           "rglru_scan", "ssd_scan")
+           "rglru_scan", "ssd_scan", "block_sparse_matmul")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

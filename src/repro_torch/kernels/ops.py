@@ -1,5 +1,6 @@
-"""Public wrappers for the planned-matmul kernels, the grouped expert GEMM,
-flash attention, the RG-LRU scan and the Mamba-2 SSD scan.
+"""Public wrappers for the planned-matmul kernels, the block-sparse matmul,
+the grouped expert GEMM, flash attention, the RG-LRU scan and the Mamba-2
+SSD scan.
 
 The wrappers take plans from the skew-aware planner when none is given
 (amp / chip resolve through the `mm_config` stack), clip the plan's blocks
@@ -22,6 +23,7 @@ from repro_torch.core import skewmm as _skewmm
 from repro_torch.core.costmodel import BlockPlan
 from repro_torch.core.epilogue import Epilogue
 from repro_torch.core.planner import plan_matmul
+from repro_torch.kernels import block_sparse_matmul as _bsr
 from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import gemv_splitk as _gemv
 from repro_torch.kernels import grouped_matmul as _gmm
@@ -30,7 +32,7 @@ from repro_torch.kernels import rglru_scan as _rglru
 from repro_torch.kernels import skew_matmul as _mm
 from repro_torch.kernels import ssd_scan as _ssd
 from repro_torch.sparse.costmodel import SparseMatmulCost
-from repro_torch.sparse.planner import plan_grouped_matmul
+from repro_torch.sparse.planner import plan_grouped_matmul, plan_sparse_matmul
 
 
 def _round_up(a: int, b: int) -> int:
@@ -95,6 +97,49 @@ def skew_matmul_batched(a: torch.Tensor, b: torch.Tensor, *,
     bm, bk, bn = clip_blocks(plan, m, k, n, cfg.chip_spec)
     return _mm.skew_matmul_batched(a, b, ep.bias, ep.residual, bm=bm, bk=bk,
                                    bn=bn, epilogue=ep.spec, out_dtype=odt)
+
+
+def sparse_matmul(a: torch.Tensor, b: torch.Tensor, layout, *,
+                  plan: BlockPlan | SparseMatmulCost | None = None,
+                  amp: float | None = None, chip=None,
+                  epilogue: Epilogue | str | None = None,
+                  bias: torch.Tensor | None = None,
+                  residual: torch.Tensor | None = None,
+                  out_dtype=None) -> torch.Tensor:
+    """Planned block-sparse matmul.  sparse(a (m, k)) @ b (k, n) -> (m, n).
+
+    `layout` is a `BlockSparseLayout` over `a`: blocks absent from it are
+    exact zeros (never read).  The kernel tiles on the layout's block
+    shape; without a plan the sparsity-aware planner chooses (schedule,
+    bn) under the `mm_config`-resolved budget and mode, and the plan is
+    recorded into `plan_capture()`.  An explicit plan whose (bm, bk)
+    differ from the layout block raises.  K9 on a CUDA tensor, its plain
+    version on a CPU tensor.
+    """
+    m, k = a.shape
+    n = b.shape[1]
+    if tuple(layout.shape) != (m, k):
+        raise ValueError(f"layout shape {layout.shape} != lhs shape "
+                         f"{(m, k)}")
+    cfg = config.resolve(amp=amp, chip=chip)
+    ep = Epilogue.parse(epilogue, bias=bias, residual=residual)
+    bm, bk = layout.block_shape
+    odt = out_dtype or a.dtype
+    if isinstance(plan, SparseMatmulCost):
+        plan = plan.plan
+    if plan is not None and (plan.bm, plan.bk) != (bm, bk):
+        raise ValueError(f"plan blocks ({plan.bm}, {plan.bk}) must match "
+                         f"the layout block shape ({bm}, {bk})")
+    if plan is None:
+        cost = plan_sparse_matmul(layout.summary(), n,
+                                  dtype_bytes=a.element_size(), amp=cfg.amp,
+                                  chip=cfg.chip_spec)
+        _skewmm.record_plan(cost)
+        plan = cost.plan
+    bn = min(plan.bn, _round_up(n, cfg.chip_spec.mxu_lanes))
+    return _bsr.block_sparse_matmul(a, b, layout, ep.bias, ep.residual,
+                                    bn=bn, schedule=plan.schedule,
+                                    epilogue=ep.spec, out_dtype=odt)
 
 
 def grouped_matmul(a: torch.Tensor, b: torch.Tensor, *,
@@ -175,12 +220,13 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, a_log: torch.Tensor,
 
 def _counters() -> tuple:
     return (_mm.LAUNCHES, _gemv.LAUNCHES, _gmm.LAUNCHES, _fa.LAUNCHES,
-            _rglru.LAUNCHES, _ssd.LAUNCHES)
+            _rglru.LAUNCHES, _ssd.LAUNCHES, _bsr.LAUNCHES)
 
 
 def launch_counts() -> dict[str, int]:
     """Launches of every kernel since the last reset."""
     out = {f"skew_matmul_{s}": 0 for s in _mm.SCHEDULE_IDS}
+    out.update({f"block_sparse_matmul_{s}": 0 for s in _bsr.SCHEDULE_IDS})
     for name in ("skew_matmul_batched", "gemv_splitk_partial",
                  "gemv_splitk_reduce", "grouped_matmul", "flash_attention",
                  "rglru_scan", "ssd_scan"):

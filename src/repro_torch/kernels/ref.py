@@ -19,6 +19,18 @@ def matmul_epilogue_ref(a: torch.Tensor, b: torch.Tensor, *, bias=None,
     return z.to(out_dtype or a.dtype)
 
 
+def block_sparse_matmul_ref(a: torch.Tensor, b: torch.Tensor, layout, *,
+                            bias=None, residual=None, epilogue=None,
+                            out_dtype=None) -> torch.Tensor:
+    """Oracle for the block-sparse matmul: blocks absent from `layout` (a
+    `BlockSparseLayout`, or anything with an `element_mask()`) are exact
+    zeros whatever A holds there, then the fused-epilogue matmul."""
+    mask = torch.as_tensor(layout.element_mask(), device=a.device)
+    return matmul_epilogue_ref(a * mask.to(a.dtype), b, bias=bias,
+                               residual=residual, epilogue=epilogue,
+                               out_dtype=out_dtype)
+
+
 def grouped_matmul_ref(a: torch.Tensor, b: torch.Tensor, *, residual=None,
                        epilogue=None, out_dtype=None) -> torch.Tensor:
     """Oracle for the grouped (per-group rhs) matmul:

@@ -33,7 +33,10 @@ from repro_torch.core import hw
 from repro_torch.core.costmodel import BlockPlan, _ceil_div, _round_up
 from repro_torch.sparse.layout import LayoutSummary
 
+# Schedules the sparse kernel implements; the planner searches only the
+# first two (b_resident is dominated under CSR structure).
 SPARSE_SCHEDULES = ("k_inner", "a_resident", "b_resident")
+PLANNED_SPARSE_SCHEDULES = ("k_inner", "a_resident")
 
 
 @dataclasses.dataclass(frozen=True)

@@ -89,3 +89,45 @@ def test_mamba2_serve_defaults_to_the_card(no_cuda):
     y = ops.ssd_scan(x, torch.ones((1, 3, 2)), torch.zeros(2),
                      torch.zeros((1, 3, 1, 4)), torch.zeros((1, 3, 1, 4)))
     assert y.shape == x.shape and ops.launch_counts()["ssd_scan"] == 0
+
+
+def test_tuner_modules_load_without_jax():
+    """The tuner, the timing helper, the health counters and the
+    block-sparse path load without JAX, and `repro_torch.sparse` can be
+    the first module a process imports (no import cycle through core)."""
+    env = dict(os.environ)
+    src = os.path.join(os.path.dirname(__file__), os.pardir, "src")
+    env["PYTHONPATH"] = os.path.abspath(src)
+    code = (
+        "import sys\n"
+        "from repro_torch.sparse.layout import BlockSparseLayout\n"
+        "import repro_torch.launch.tune, repro_torch.tune.calibrate\n"
+        "import repro_torch.bench.timing, repro_torch.guard.health\n"
+        "import repro_torch.kernels.block_sparse_matmul\n"
+        "bad = [m for m in sys.modules if m == 'jax' or m == 'repro'\n"
+        "       or m.startswith(('jax.', 'jaxlib', 'repro.'))]\n"
+        "assert not bad, bad\n")
+    proc = subprocess.run([sys.executable, "-c", code], env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def test_tune_launcher_and_benches_default_to_the_card(no_cuda, tmp_path):
+    """`launch.tune` and the wall-clock benches of every `tune_*` run on the
+    card unless told otherwise, and raise without one."""
+    from repro_torch.launch import tune as tune_cli
+    from repro_torch.sparse.layout import BlockSparseLayout
+    from repro_torch.tune import tuner
+    path = str(tmp_path / "c.json")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        tune_cli.main(["--suite", "decode", "--total", "64", "--cache", path])
+    lay = BlockSparseLayout.random(64, 256, (32, 128), 0.5)
+    for call in (lambda **kw: tuner.tune_dense(64, 64, 64, **kw),
+                 lambda **kw: tuner.tune_decode(64, 64, **kw),
+                 lambda **kw: tuner.tune_sparse(lay, 64, **kw),
+                 lambda **kw: tuner.tune_grouped(2, 64, 64, 64, **kw)):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            call(top=1)
+        entry = call(top=1, device="cpu")
+        first = entry[0] if isinstance(entry, list) else entry
+        assert first.measured_us > 0

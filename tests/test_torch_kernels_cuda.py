@@ -19,7 +19,10 @@ both, so the same bounds hold there; the scan's fp32 carry is held at
 products in both versions and rounds y once, so the same bounds hold for
 y; its fp32 state is held at 1e-4.  Under a strong decay it is also held
 against the sequential recurrence in fp64: within 1e-6 of the largest |y|,
-and no further than the chunked form with an fp32 prefix sum.
+and no further than the chunked form with an fp32 prefix sum.  The
+block-sparse matmul (K9) sums the same fp32 products as its plain version
+in another order, so the dense bounds hold; at density 1.0 it is held
+bitwise equal to K1.
 """
 
 import os
@@ -398,3 +401,113 @@ def test_ssd_scan_refuses_what_it_does_not_take(dev):
         ssd_mod.ssd_scan_cuda(x, dt, a_log, bm.float(), cm)
     with pytest.raises(ValueError, match="CUDA tensors"):
         ssd_mod.ssd_scan_cuda(x.cpu(), dt, a_log, bm, cm)
+
+
+# ------------------------------------------------------------------ K9
+BSR_CASES = {  # (m, k, n, block, density, bn)
+    "ragged_d0.25": (100, 520, 200, (32, 128), 0.25, 64),
+    "ragged_d0.5_64x64": (150, 300, 90, (64, 64), 0.5, 64),
+    "d0.05_128": (256, 1024, 192, (128, 128), 0.05, 64),
+}
+
+
+def _bsr_layout(m, k, block, density, empty_rows=True):
+    from repro_torch.sparse.layout import BlockSparseLayout
+    lay = BlockSparseLayout.random(m, k, block, density, seed=3)
+    if not empty_rows:
+        return lay
+    mask = lay.block_mask()
+    mask[0] = False                     # an empty row block: epilogue(0)
+    return BlockSparseLayout.from_block_mask(mask, block, shape=(m, k))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("schedule", ["k_inner", "a_resident", "b_resident"])
+@pytest.mark.parametrize("case", list(BSR_CASES))
+def test_block_sparse_matches_plain(dev, dtype, schedule, case):
+    from repro_torch.kernels import block_sparse_matmul as bsr_mod
+    m, k, n, block, density, bn = BSR_CASES[case]
+    lay = _bsr_layout(m, k, block, density)
+    a, b = _t((m, k), dtype, dev, 0.2), _t((k, n), dtype, dev, 0.2)
+    for spec in (None, "bias_silu", "residual"):
+        tokens, bias, res = _operands(spec, m, n, dtype, dev)
+        for out_dtype in (dtype, torch.float32):
+            got = bsr_mod.block_sparse_matmul_cuda(
+                a, b, lay, bias, res, bn=bn, schedule=schedule,
+                epilogue=tokens, out_dtype=out_dtype)
+            want = bsr_mod.block_sparse_matmul_plain(
+                a, b, lay, bias, res, epilogue=tokens, out_dtype=out_dtype)
+            torch.cuda.synchronize()
+            torch.testing.assert_close(got.float(), want.float(),
+                                       **TOL[out_dtype])
+    # rows of the empty row block hold epilogue(0) exactly: bias / residual
+    tokens, bias, res = _operands("residual", m, n, dtype, dev)
+    got = bsr_mod.block_sparse_matmul_cuda(a, b, lay, None, res, bn=bn,
+                                           schedule=schedule, epilogue=tokens,
+                                           out_dtype=torch.float32)
+    torch.cuda.synchronize()
+    assert torch.equal(got[:block[0]], res[:block[0]].float())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("schedule", ["k_inner", "a_resident", "b_resident"])
+def test_block_sparse_dense_layout_bitwise_equals_k1(dev, dtype, schedule):
+    """At density 1.0 K9 visits every k block in order with K1's device
+    code, so its output equals K1's bit for bit."""
+    from repro_torch.kernels import block_sparse_matmul as bsr_mod
+    from repro_torch.sparse.layout import BlockSparseLayout
+    m, k, n = 200, 700, 300
+    for block, bn in (((64, 128), 128), ((32, 128), 64)):
+        lay = BlockSparseLayout.dense(m, k, block)
+        a, b = _t((m, k), dtype, dev, 0.2), _t((k, n), dtype, dev, 0.2)
+        tokens, bias, res = _operands("bias_gelu", m, n, dtype, dev)
+        got = bsr_mod.block_sparse_matmul_cuda(a, b, lay, bias, res, bn=bn,
+                                               schedule=schedule,
+                                               epilogue=tokens,
+                                               out_dtype=dtype)
+        want = mm_mod.skew_matmul_cuda(a, b, bias, res, bm=block[0],
+                                       bk=block[1], bn=bn, schedule=schedule,
+                                       epilogue=tokens, out_dtype=dtype)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+def test_block_sparse_index_tables_upload_once(dev):
+    """The layout keeps its (cols, nnz) tensors per device: a second call
+    reuses the same storage, so a timing loop copies nothing host to
+    device."""
+    from repro_torch.kernels import block_sparse_matmul as bsr_mod
+    lay = _bsr_layout(128, 512, (32, 128), 0.5, empty_rows=False)
+    first = lay.device_tensors(dev)
+    assert lay.device_tensors("cuda") is first
+    assert first[0].dtype == torch.int32 and first[0].is_cuda
+    a = _t((128, 512), torch.bfloat16, dev)
+    b = _t((512, 64), torch.bfloat16, dev)
+    bsr_mod.block_sparse_matmul_cuda(a, b, lay, bn=64)
+    cols, nnz = lay.device_tensors(a.device)
+    assert cols.data_ptr() == first[0].data_ptr()
+    assert nnz.data_ptr() == first[1].data_ptr()
+    cpu = lay.device_tensors("cpu")
+    assert cpu[0].device.type == "cpu"
+
+
+@pytest.mark.cuda
+def test_block_sparse_refuses_what_it_does_not_take(dev):
+    from repro_torch.core.costmodel import BlockPlan
+    from repro_torch.kernels import block_sparse_matmul as bsr_mod
+    from repro_torch.kernels import ops
+    lay = _bsr_layout(128, 512, (40, 128), 0.5, empty_rows=False)
+    a = _t((128, 512), torch.bfloat16, dev)
+    b = _t((512, 64), torch.bfloat16, dev)
+    with pytest.raises(ValueError, match="multiples of 16"):
+        bsr_mod.block_sparse_matmul_cuda(a, b, lay, bn=64)
+    lay = _bsr_layout(128, 512, (32, 128), 0.5, empty_rows=False)
+    with pytest.raises(ValueError, match="layout block shape"):
+        ops.sparse_matmul(a, b, lay, plan=BlockPlan(64, 128, 64))
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        bsr_mod.block_sparse_matmul_cuda(a.cpu(), b, lay, bn=64)
+    with pytest.raises(TypeError, match="dtypes differ"):
+        bsr_mod.block_sparse_matmul_cuda(a, b.float(), lay, bn=64)
