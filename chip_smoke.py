@@ -13,7 +13,9 @@ nonzero and prints no result:
   3. kernel parity — each dense kernel (K1-K4) against its plain PyTorch
      version on the card at phi4-mini-3.8b's shapes, bf16 and fp32, every
      schedule and epilogue on the path, plus split-K bitwise stability
-     across split counts for integer-valued inputs;
+     across split counts for integer-valued inputs, and K4 bitwise equal
+     to the plain `tree_sum` reduce on random fp32 slabs of depth 7 to
+     14600;
   4. serve at full width (the first main path) — phi4-mini-3.8b, bf16,
      seeded weights, batch 4 x prompt 128 + 16 generated tokens through
      `repro_torch.launch.serve.serve`; then, because the gpu_h100 planner
@@ -25,7 +27,8 @@ nonzero and prints no result:
      backend against the "torch" backend on the same weights;
   6. timings — each kernel, its plain version and one PyTorch call
      computing the same function (the yardstick; never on the port's path),
-     with CUDA events, at the main path's shapes;
+     with CUDA events, at the main path's shapes; K4 also at slab depths
+     84 (dbrx's k 10752 at bk 128) and 101;
 then dbrx-132b's MoE layers, after phi4's weights are freed:
   3b. K5 parity — the grouped expert GEMM against its plain version at the
      dbrx decode shapes (16 experts x 8 capacity rows, gate/up and down),
@@ -406,7 +409,31 @@ def phase_parity(torch, cfg) -> dict:
             fail(f"split-K not bitwise stable at bk={bk}")
     say("parity split-K bitwise equal to the exact product across bk "
         "64..384 (gk 48..8)")
+
+    # K4 folds in `tree_sum`'s order: with no epilogue it equals the plain
+    # reduce bit for bit on any fp32 slab, at every depth (gk 2000 stages
+    # a 28-wide strip; 14600 folds two levels through a scratch first)
+    for gkn, m, n in K4_BITWISE_SLABS:
+        slab = torch.randn((gkn, m, n), generator=gen, device=dev)
+        for odt in (torch.float32, torch.bfloat16):
+            got = gk.gemv_splitk_reduce_cuda(slab, out_dtype=odt)
+            want = gk.gemv_splitk_reduce_plain(slab, out_dtype=odt)
+            torch.cuda.synchronize()
+            if not torch.equal(got, want):
+                fail(f"K4 is not bitwise equal to the plain tree_sum reduce "
+                     f"at slab {(gkn, m, n)} -> {odt}")
+        del slab
+    say(f"parity K4 bitwise equal to the plain reduce at slabs "
+        f"{[s[0] for s in K4_BITWISE_SLABS]} (fp32 and bf16 out)")
     return errs
+
+
+# K4's bitwise check (phase 3): the phi4 LM-head slab, dbrx's down
+# projection (k 10752 at bk 128: gk 84), an odd depth above 100, a depth
+# past the 1816 that keeps a 32-wide strip, one past the 14528 at which
+# not even 4 columns fit, and m * n not a multiple of 4 (scalar staging).
+K4_BITWISE_SLABS = ((24, 4, 200064), (84, 4, 6144), (101, 4, 200064),
+                    (2000, 4, 8192), (14600, 1, 24), (7, 3, 333))
 
 
 # ----------------------------------------------------------------- phase 4
@@ -698,6 +725,21 @@ def phase_timings(torch, cfg, params, counts, errs) -> list[dict]:
         lambda: torch.sum(slab, dim=0),
         gk_n * 4 * v * 4 + 4 * v * 4, (gk_n - 1) * 4 * v,
         f"LM head slab {gk_n}x4x{v} fp32"))
+    del slab
+    # K4 at two more depths: dbrx's down projection at bk 128 (k 10752,
+    # gk 84, n = d_model 6144) and an odd gk above 100 at the LM head
+    for gkn, n in ((84, 6144), (101, v)):
+        slab = torch.randn((gkn, 4, n), generator=gen, device="cuda")
+        rows.append(row(
+            "gemv_splitk_reduce",
+            lambda slab=slab: gk.gemv_splitk_reduce_cuda(
+                slab, out_dtype=torch.float32),
+            lambda slab=slab: gk.gemv_splitk_reduce_plain(
+                slab, out_dtype=torch.float32),
+            lambda slab=slab: torch.sum(slab, dim=0),
+            gkn * 4 * n * 4 + 4 * n * 4, (gkn - 1) * 4 * n,
+            f"slab {gkn}x4x{n} fp32"))
+        del slab
     return rows
 
 

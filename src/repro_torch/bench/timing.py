@@ -2,13 +2,18 @@
 
 `measure(fn, *args)` times ``fn(*args)``: one untimed warm-up call (it
 builds a kernel on first use), then ``repeats`` repeats of ``iters``
-calls each.  Iterations never overlap:
+calls each.  Iterations never overlap, and every call is timed to the end
+of its work, as the reference's `block_until_ready` on the output does:
 
-* when any argument is a CUDA tensor, each call is bracketed by a pair of
-  CUDA events on the current stream, and the host waits for the end event
-  before the next call, so a repeat is the sum of device-timed calls;
-* otherwise (CPU tensors, whose operations return when done) the host
-  clock times each call.
+* when a CUDA tensor is found in the arguments or in the warm-up call's
+  result (at any depth of dicts, lists, tuples and dataclass fields), each
+  call is bracketed by a pair of CUDA events on that tensor's device's
+  current stream, and the host waits for the end event before the next
+  call, so a repeat is the sum of device-timed calls;
+* otherwise the host clock times each call, and when CUDA is initialised
+  the host synchronizes the current device before it stops the clock, so
+  a closure that launches CUDA work and returns nothing of it is still
+  timed to its end.
 
 Each repeat contributes elapsed / iters.  Repeats are screened with
 one-sided MAD outlier rejection (a repeat slower than the median by more
@@ -59,11 +64,33 @@ def reject_outliers(samples: list[float]) -> list[int]:
     return [i for i, x in enumerate(samples) if x <= cutoff]
 
 
-def _cuda_device(args) -> torch.device | None:
-    for a in args:
-        if isinstance(a, torch.Tensor) and a.is_cuda:
-            return a.device
+def iter_tensors(obj):
+    """Every tensor in `obj`, descending into dicts, lists, tuples and
+    dataclass instances."""
+    if isinstance(obj, torch.Tensor):
+        yield obj
+    elif isinstance(obj, dict):
+        for v in obj.values():
+            yield from iter_tensors(v)
+    elif isinstance(obj, (list, tuple)):
+        for v in obj:
+            yield from iter_tensors(v)
+    elif dataclasses.is_dataclass(obj) and not isinstance(obj, type):
+        for f in dataclasses.fields(obj):
+            yield from iter_tensors(getattr(obj, f.name))
+
+
+def cuda_device(*objs) -> torch.device | None:
+    """The device of the first CUDA tensor found in `objs`, or None."""
+    for t in iter_tensors(objs):
+        if t.is_cuda:
+            return t.device
     return None
+
+
+def _wait_host() -> None:
+    if torch.cuda.is_initialized():
+        torch.cuda.synchronize()
 
 
 def measure(fn: Callable[..., Any], *args: Any, iters: int = 3,
@@ -72,9 +99,12 @@ def measure(fn: Callable[..., Any], *args: Any, iters: int = 3,
     if iters < 1 or repeats < 1:
         raise ValueError(f"iters and repeats must be >= 1, got "
                          f"{iters}/{repeats}")
-    dev = _cuda_device(args)
-    fn(*args)
-    if dev is not None:
+    out = fn(*args)
+    dev = cuda_device(args, out)
+    del out
+    if dev is None:
+        _wait_host()
+    else:
         torch.cuda.synchronize(dev)
         stream = torch.cuda.current_stream(dev)
         start = torch.cuda.Event(enable_timing=True)
@@ -86,6 +116,7 @@ def measure(fn: Callable[..., Any], *args: Any, iters: int = 3,
             if dev is None:
                 t0 = time.perf_counter()
                 fn(*args)
+                _wait_host()
                 total_us += (time.perf_counter() - t0) * 1e6
             else:
                 start.record(stream)

@@ -7,8 +7,9 @@
 // modeled working set (which counts double buffers this kernel does not use).
 //
 // Products: bf16 operands go through warp-level tensor-core MMA (WMMA
-// 16x16x16, fp32 accumulate); fp32 operands run a plain fp32 FMA loop —
-// true IEEE fp32, never TF32.
+// 16x16x16, fp32 accumulate; `strip_mma` issues the same m16n8k16 HMMA
+// through ldmatrix + mma.sync with register-resident sums); fp32 operands
+// run a plain fp32 FMA loop — true IEEE fp32, never TF32.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -241,6 +242,163 @@ __device__ void combine(const float* sc, int ldc, float* ws, O* out, int kk, int
     } else {
       out[g] = from_f<O>(apply_epi(ws[g] + p, e, 0, gr, gc));
     }
+  }
+}
+
+// ---- register-resident accumulators (K9 a_resident) -------------------
+// One warp's 16 x 16 fp32 accumulator, 8 floats a lane.  For bf16
+// operands (AccMma) it is two m16n8 halves of `mma.sync.m16n8k16`:
+// x[4h .. 4h + 3] hold columns 8h .. 8h + 7, with x[4h], x[4h + 1] at row
+// lane / 4, columns 8h + 2 (lane % 4) + {0, 1}, and x[4h + 2], x[4h + 3]
+// eight rows below.  For fp32 operands (AccF32) lane l holds column l % 16
+// of rows l / 16 + 2 e (e < 8).  Two of the same kind add element by
+// element, since element e of both is the same (row, column).
+struct AccMma {
+  float x[8];
+};
+struct AccF32 {
+  float x[8];
+};
+template <typename T> struct AccFrag;
+template <> struct AccFrag<bf16> {
+  using type = AccMma;
+};
+template <> struct AccFrag<float> {
+  using type = AccF32;
+};
+
+template <typename A>
+__device__ __forceinline__ void acc_zero(A& a) {
+#pragma unroll
+  for (int e = 0; e < 8; ++e) a.x[e] = 0.0f;
+}
+
+__device__ __forceinline__ void ldsm_x4(unsigned (&r)[4], const void* p) {
+  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(a));
+}
+__device__ __forceinline__ void ldsm_x4_trans(unsigned (&r)[4], const void* p) {
+  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(a));
+}
+// d (4 floats at x[o]) += A (16 x 16, row-major) @ B (16 x 8, col-major).
+__device__ __forceinline__ void mma_16816(float* d, const unsigned (&a)[4], unsigned b0,
+                                          unsigned b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// acc[r] += sA[16 r .. 16 r + 16, 0 .. K) @ sB[0 .. K, 0 .. 16) for r < nrf,
+// in 16-deep steps in k order.  bf16: ldmatrix fragments and two
+// m16n8k16 HMMAs a step, the instruction WMMA 16x16x16 lowers to on
+// sm_90, so a sum started from zero equals mma_block's bit for bit; fp32:
+// mma_block's fmaf chain.  sA and sB rows are 16-byte aligned.
+template <int MR>
+__device__ __forceinline__ void strip_mma(AccMma (&acc)[MR], const bf16* sA, int lda,
+                                          const bf16* sB, int ldb, int K, int nrf) {
+  const int lane = threadIdx.x % 32;
+  const bf16* pa = sA + (lane % 16) * lda + (lane / 16) * 8;
+  const bf16* pb = sB + (lane % 16) * ldb + (lane / 16) * 8;
+  for (int kk = 0; kk < K; kk += 16) {
+    unsigned b[4];
+    ldsm_x4_trans(b, pb + kk * ldb);
+#pragma unroll
+    for (int r = 0; r < MR; ++r) {
+      if (r >= nrf) break;
+      unsigned a[4];
+      ldsm_x4(a, pa + 16 * r * lda + kk);
+      mma_16816(acc[r].x, a, b[0], b[1]);
+      mma_16816(acc[r].x + 4, a, b[2], b[3]);
+    }
+  }
+}
+template <int MR>
+__device__ __forceinline__ void strip_mma(AccF32 (&acc)[MR], const float* sA, int lda,
+                                          const float* sB, int ldb, int K, int nrf) {
+  const int lane = threadIdx.x % 32, c = lane % 16, h = lane / 16;
+  for (int k = 0; k < K; ++k) {
+    const float bv = sB[k * ldb + c];
+#pragma unroll
+    for (int r = 0; r < MR; ++r) {
+      if (r >= nrf) break;
+#pragma unroll
+      for (int e = 0; e < 8; ++e)
+        acc[r].x[e] = fmaf(sA[(16 * r + h + 2 * e) * lda + k], bv, acc[r].x[e]);
+    }
+  }
+}
+
+// Write one warp's 16 x 16 accumulator at (gr0, gc0) of the (m, n) output
+// through the epilogue, masked at the edges.  Not inlined: a kernel holds
+// up to 8 accumulators a lane, and 8 inlined epilogues each would
+// multiply its code (and its build time) for work done once per output.
+template <typename O>
+__device__ __forceinline__ void store_one(O* out, int gr, int gc, int m, int n, float v,
+                                          const Epi& e) {
+  if (gr < m && gc < n) out[(long long)gr * n + gc] = from_f<O>(apply_epi(v, e, 0, gr, gc));
+}
+template <typename O>
+__device__ __noinline__ void store_acc(const AccMma a, O* out, int gr0, int gc0, int m,
+                                       int n, const Epi e) {
+  const int lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
+#pragma unroll
+  for (int x = 0; x < 8; ++x)
+    store_one(out, gr0 + g + 8 * ((x >> 1) & 1), gc0 + 8 * (x >> 2) + 2 * t + (x & 1), m, n,
+              a.x[x], e);
+}
+template <typename O>
+__device__ __noinline__ void store_acc(const AccF32 a, O* out, int gr0, int gc0, int m,
+                                       int n, const Epi e) {
+  const int lane = threadIdx.x % 32;
+#pragma unroll
+  for (int x = 0; x < 8; ++x)
+    store_one(out, gr0 + lane / 16 + 2 * x, gc0 + lane % 16, m, n, a.x[x], e);
+}
+
+// cp.async (sm_80+): a 16-byte global -> shared copy that bypasses the
+// registers; `src_bytes` < 16 reads that many bytes and zero-fills the
+// rest (0 reads nothing: `src` need only be a valid address).
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, int src_bytes) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d), "l"(src),
+               "r"(src_bytes));
+}
+// Wait until every cp.async this thread issued has landed (commit and
+// wait in one).
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::);
+}
+
+// Start copying the (R x C) tile at (r0, c0) of a strided (nr x nc) matrix
+// into shared memory (row-major, leading dim ld), zero-filling past the
+// edge.  With a unit-stride row whose starts are 16-byte aligned the copy
+// is asynchronous (cp.async, part of the caller's next commit group);
+// otherwise it falls back to `load_tile`'s synchronous loads.  Either way
+// the data is visible after the caller's cp_async_wait_all + __syncthreads.
+// C and c0 are multiples of 16 bytes' worth of T.
+template <typename T>
+__device__ void load_tile_async(T* s, int ld, const T* g, long long s_r, long long s_c,
+                                int r0, int c0, int R, int C, int nr, int nc) {
+  constexpr int V = 16 / (int)sizeof(T);
+  const bool vec = s_c == 1 && s_r % V == 0 && (reinterpret_cast<uintptr_t>(g) & 15) == 0;
+  if (!vec) {
+    load_tile(s, ld, g, s_r, s_c, r0, c0, R, C, nr, nc);
+    return;
+  }
+  const int cv = C / V;
+  for (int idx = threadIdx.x; idx < R * cv; idx += blockDim.x) {
+    const int r = idx / cv, c = (idx - r * cv) * V;
+    const int gr = r0 + r, gc = c0 + c;
+    const int valid = gr < nr ? max(0, min(V, nc - gc)) : 0;
+    const T* src = valid ? g + (long long)gr * s_r + gc : g;
+    cp_async16(s + r * ld + c, src, valid * (int)sizeof(T));
   }
 }
 

@@ -10,16 +10,29 @@
 // Bound on the H100: bytes.  At decode m is a handful of rows, so pass 1
 // streams B once (k x n weights) for 2*m*k*n operations — far below the
 // card's ~295 FLOP/byte ridge — plus one fp32 write and one read of the
-// slab.  The design keeps B's read coalesced (16-byte loads on its
-// unit-stride axis, strided views read in place), spreads K over the grid
-// so a narrow n still fills the card, skips the MMA for padded rows, and
-// the reduce streams the slab from device memory (one coalesced read per
-// split per output element) rather than staging it in shared memory.
+// slab.  Pass 1 keeps B's read coalesced (16-byte loads on its unit-stride
+// axis, strided views read in place), spreads K over the grid so a narrow
+// n still fills the card, and skips the MMA for padded rows.
+//
+// Pass 2 (splitk_reduce_kernel) is a pure stream: gk*m*n fp32 in, m*n
+// out.  Each CTA stages a strip of W flat output elements of every split
+// (gk x W fp32) in shared memory with 16-byte cp.async copies (all in
+// flight at once), so the slab is read from device memory exactly once
+// and coalesced; then thread c folds column c of the strip level by level
+// in place — v[i] += v[i + h] for i < h, an odd tail carried — with no
+// barrier (a thread touches only its own column), no recursion and no
+// local-memory array, applies the epilogue once and writes once.  W is
+// the largest multiple of 4 up to 256 with gk * W * 4 bytes within the
+// 227 KB a block may use (`reduce_strip`): W >= 32 up to gk = 1816, W >= 4
+// up to gk = 14528.  Above that the host first folds whole levels of the
+// slab through an fp32 scratch in device memory (splitk_fold_level_kernel,
+// the same pairwise order) until one strip of 4 fits.
 //
 // Determinism: pass 2 folds the partials in exactly the order of the JAX
 // package's `tree_sum` — halves added pairwise, an odd tail carried
-// unchanged to the next level — so for integer-valued inputs the output is
-// bitwise identical across split counts.
+// unchanged to the next level — so with no epilogue its output equals the
+// plain `tree_sum` bit for bit for any fp32 slab, and for integer-valued
+// inputs the output is bitwise identical across split counts.
 #include "common.cuh"
 
 namespace rt {
@@ -45,33 +58,66 @@ splitk_partial_kernel(const T* __restrict__ A, long long sa_m, long long sa_k,
   }
 }
 
-// Value at index i of fold level `level` of the tree (level 0 = the raw
-// partials, stride `st` apart).  lens[l] is the length at level l.
-__device__ float tree_at(const float* p, long long st, const int* lens, int level, int i) {
-  if (level == 0) return p[i * st];
-  const int h = lens[level - 1] / 2;
-  if (i < h)
-    return tree_at(p, st, lens, level - 1, i) + tree_at(p, st, lens, level - 1, i + h);
-  return tree_at(p, st, lens, level - 1, 2 * h);
+// Strip width of the staged reduce: the largest multiple of 4 up to 256
+// with gk * W * 4 bytes of shared memory within kSmemMax; 0 above gk =
+// 14528 (mirrored by `reduce_strip` in kernels/gemv_splitk.py).
+constexpr int kReduceMaxW = 256;
+__host__ __device__ inline int reduce_strip(int gk) {
+  long long w = (long long)kSmemMax / (4LL * gk);
+  if (w > kReduceMaxW) w = kReduceMaxW;
+  return (int)(w / 4 * 4);
+}
+
+// One level of tree_sum over whole (len, mn) fp32 planes: dst[i] = src[i]
+// + src[i + h] for i < h = len / 2, dst[h] = src[2h] when len is odd.  One
+// thread owns one element across the planes and walks i upwards, so dst
+// may alias src (row i is written only after rows i and i + h were read,
+// and no later read touches a row below h).
+__global__ void __launch_bounds__(kThreads)
+splitk_fold_level_kernel(const float* src, float* dst, int len, long long mn) {
+  const long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (idx >= mn) return;
+  const int h = len / 2;
+  for (int i = 0; i < h; ++i)
+    dst[i * mn + idx] = src[i * mn + idx] + src[(i + h) * mn + idx];
+  if (len & 1) dst[h * mn + idx] = src[2LL * h * mn + idx];
 }
 
 template <typename O>
 __global__ void __launch_bounds__(kThreads)
-splitk_reduce_kernel(const float* __restrict__ slab, O* __restrict__ out, int gk, int m,
-                     int n, Epi e) {
-  const long long mn = (long long)m * n;
-  const long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (idx >= mn) return;
-  int lens[32];
-  int depth = 0;
-  lens[0] = gk;
-  while (lens[depth] > 1) {
-    lens[depth + 1] = lens[depth] / 2 + lens[depth] % 2;
-    ++depth;
+splitk_reduce_kernel(const float* __restrict__ slab, O* __restrict__ out, int gk,
+                     long long mn, int n, int W, int vec, Epi e) {
+  extern __shared__ __align__(16) float sv[];  // gk x W
+  const long long e0 = (long long)blockIdx.x * W;
+  const int w = (int)min((long long)W, mn - e0);
+  if (vec) {
+    const int wv = W / 4;
+    for (int q = threadIdx.x; q < gk * wv; q += blockDim.x) {
+      const int g = q / wv, c = (q - g * wv) * 4;
+      const int valid = max(0, min(4, w - c));
+      const float* src = valid ? slab + g * mn + e0 + c : slab;
+      cp_async16(sv + g * W + c, src, valid * 4);
+    }
+    cp_async_wait_all();
+  } else {
+    for (int q = threadIdx.x; q < gk * W; q += blockDim.x) {
+      const int g = q / W, c = q - g * W;
+      if (c < w) sv[q] = slab[g * mn + e0 + c];
+    }
   }
-  const float z = tree_at(slab + idx, mn, lens, depth, 0);
-  const long long r = idx / n, c = idx - r * n;
-  out[idx] = from_f<O>(apply_epi(z, e, 0, r, c));
+  __syncthreads();
+  const int c = threadIdx.x;
+  if (c >= w) return;
+  float* v = sv + c;
+  for (int len = gk; len > 1;) {
+    const int h = len >> 1;
+    for (int i = 0; i < h; ++i) v[i * W] = v[i * W] + v[(i + h) * W];
+    if (len & 1) v[h * W] = v[2 * h * W];
+    len = h + (len & 1);
+  }
+  const long long idx = e0 + c;
+  const long long r = idx / n, col = idx - r * n;
+  out[idx] = from_f<O>(apply_epi(v[0], e, 0, r, col));
 }
 
 }  // namespace rt
@@ -105,21 +151,47 @@ extern "C" int rt_splitk_partial(int in_bf16, const void* A, long long sa_m, lon
   return (int)cudaGetLastError();
 }
 
-// Pass 2.  `out` is a contiguous (m, n) tensor.
-extern "C" int rt_splitk_reduce(int out_bf16, const void* slab, void* out, int gk, int m,
-                                int n, float scale, int has_scale, const void* bias,
-                                int bias_bf16, int act, const void* res, int res_bf16,
-                                long long rs_m, long long rs_n, void* stream) {
+// Pass 2.  `out` is a contiguous (m, n) tensor.  `scratch` is an fp32
+// ((gk + 1) / 2, m, n) tensor when reduce_strip(gk) == 0, else null.
+extern "C" int rt_splitk_reduce(int out_bf16, const void* slab, void* out, void* scratch,
+                                int gk, int m, int n, float scale, int has_scale,
+                                const void* bias, int bias_bf16, int act, const void* res,
+                                int res_bf16, long long rs_m, long long rs_n, void* stream) {
   rt::Epi e{scale, has_scale, bias, bias_bf16, act, res, res_bf16, 0, rs_m, rs_n};
   const long long mn = (long long)m * n;
-  const unsigned blocks = (unsigned)((mn + rt::kThreads - 1) / rt::kThreads);
+  if (mn == 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* p = static_cast<const float*>(slab);
-  if (out_bf16)
-    rt::splitk_reduce_kernel<rt::bf16><<<blocks, rt::kThreads, 0, s>>>(
-        p, static_cast<rt::bf16*>(out), gk, m, n, e);
-  else
-    rt::splitk_reduce_kernel<float><<<blocks, rt::kThreads, 0, s>>>(
-        p, static_cast<float*>(out), gk, m, n, e);
+  int len = gk;
+  if (rt::reduce_strip(len) == 0) {
+    if (scratch == nullptr) return (int)cudaErrorInvalidValue;
+    float* w = static_cast<float*>(scratch);
+    const unsigned blocks = (unsigned)((mn + rt::kThreads - 1) / rt::kThreads);
+    while (rt::reduce_strip(len) == 0) {
+      rt::splitk_fold_level_kernel<<<blocks, rt::kThreads, 0, s>>>(p, w, len, mn);
+      const cudaError_t err = cudaGetLastError();
+      if (err != cudaSuccess) return (int)err;
+      p = w;
+      len = len / 2 + len % 2;
+    }
+  }
+  const int W = rt::reduce_strip(len);
+  const long long smem = (long long)len * W * 4;
+  const int vec = mn % 4 == 0 && (reinterpret_cast<uintptr_t>(p) & 15) == 0;
+  const unsigned blocks = (unsigned)((mn + W - 1) / W);
+  cudaError_t err;
+  if (out_bf16) {
+    err = cudaFuncSetAttribute(rt::splitk_reduce_kernel<rt::bf16>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+    rt::splitk_reduce_kernel<rt::bf16><<<blocks, rt::kThreads, smem, s>>>(
+        p, static_cast<rt::bf16*>(out), len, mn, n, W, vec, e);
+  } else {
+    err = cudaFuncSetAttribute(rt::splitk_reduce_kernel<float>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+    rt::splitk_reduce_kernel<float><<<blocks, rt::kThreads, smem, s>>>(
+        p, static_cast<float*>(out), len, mn, n, W, vec, e);
+  }
   return (int)cudaGetLastError();
 }

@@ -18,6 +18,11 @@ always launches the kernel (or raises); a CPU tensor runs the plain
 version, which loops over (row block, nonzero block) with fp32 products
 in the layout's order and applies the epilogue once.
 
+a_resident keeps the fp32 sums of its CTA's columns in registers (no
+workspace); `a_resident_config` gives the kernel's warp layout and
+shared memory at a block shape, `a_resident_chunk` the columns one CTA
+holds.
+
 `LAUNCHES` counts kernel launches per schedule, on the CUDA path only.
 """
 
@@ -25,6 +30,7 @@ from __future__ import annotations
 
 import collections
 import ctypes
+import dataclasses
 import functools
 
 import torch
@@ -35,6 +41,75 @@ from repro_torch.kernels import skew_matmul as _mm
 
 SCHEDULE_IDS = {"k_inner": 0, "a_resident": 1, "b_resident": 2}
 LAUNCHES: collections.Counter = collections.Counter()
+# fp32 sums one lane of a_resident may hold for its CTA's columns (the
+# same again holds the block being formed).
+AR_SUMS_PER_LANE = 64
+
+
+@dataclasses.dataclass(frozen=True)
+class ARConfig:
+    """a_resident's shape on the card (mirrors `ar_config` in
+    csrc/block_sparse_matmul.cu).  The 8 warps form a wr x wc grid; a warp
+    owns 16 * mr rows of the block and a 16-column strip of every
+    tile_w = 16 * wc wide column tile; B streams in ks x tile_w slices
+    (ks the deepest slice of bk that fits, up to 128) through two
+    shared-memory slots, beside two A buffers; `smem` is -1 when no shape
+    fits the 227 KB a block may use."""
+
+    wr: int
+    wc: int
+    tile_w: int
+    mr: int
+    ks: int
+    smem: int
+
+    @property
+    def max_tiles(self) -> int:
+        """Column tiles a CTA may hold: 8 / mr, so a lane keeps
+        `AR_SUMS_PER_LANE` sums (8 per 16 x 16 accumulator)."""
+        return 8 // self.mr
+
+
+def a_resident_config(bm: int, bk: int, dtype: torch.dtype) -> ARConfig:
+    size = 2 if dtype == torch.bfloat16 else 4
+    pad = 16 // size
+    bm16 = -(-bm // 16)
+    wr = 1
+    while wr < 8 and -(-bm16 // wr) > 8:
+        wr *= 2
+    need = -(-bm16 // wr)
+    mr = 1
+    while mr < need:
+        mr *= 2
+    wc = 8 // wr
+    tw = 16 * wc
+    if mr > 8:
+        return ARConfig(wr, wc, tw, mr, 0, -1)
+    a = _mm._round_up(bm * (bk + pad) * size, 128)
+    ks = 128
+    while ks >= 16:
+        if bk % ks == 0:
+            b = _mm._round_up(ks * (tw + pad) * size, 128)
+            total = 2 * a + 2 * b
+            if total <= _mm.SMEM_MAX:
+                return ARConfig(wr, wc, tw, mr, ks, total)
+        ks //= 2
+    return ARConfig(wr, wc, tw, mr, 0, -1)
+
+
+def a_resident_chunk(gm: int, n: int, bm: int, bk: int, dtype: torch.dtype,
+                     sms: int) -> int:
+    """Column tiles (each `a_resident_config(...).tile_w` wide) one
+    a_resident CTA holds: as many as its registers allow (`max_tiles`:
+    512 columns at bm 32, 256 at bm 64, 128 at bm 128), fewer where that
+    would leave under 2 x `sms` CTAs and more chunks can be had.  The
+    chunks tile the columns [0, n) in order, the last one ragged."""
+    cfg = a_resident_config(bm, bk, dtype)
+    tiles = max(1, -(-n // cfg.tile_w))
+    per = min(cfg.max_tiles, tiles)
+    while per > 1 and gm * -(-tiles // per) < 2 * sms:
+        per -= 1
+    return per
 
 
 # ------------------------------------------------------------ plain version
@@ -115,12 +190,16 @@ def block_sparse_matmul_cuda(a, b, layout, bias=None, residual=None, *,
     out = torch.empty((m, n), dtype=out_dtype, device=a.device)
     ws = None
     chunks = 1
-    if sid:
+    if sid == 1:
+        if a_resident_config(bm, bk, a.dtype).smem < 0:
+            raise ValueError(f"a_resident cannot take blocks {(bm, bk)} of "
+                             f"{a.dtype}: no pipeline fits the {_mm.SMEM_MAX}"
+                             f" bytes of shared memory a CTA may use")
+        chunks = a_resident_chunk(gm, n, bm, bk, a.dtype,
+                                  _mm._sm_count(a.device.index or 0))
+    elif sid == 2:
         sms = _mm._sm_count(a.device.index or 0)
-        if sid == 1:
-            chunks = max(1, min(gn, -(-2 * sms // gm)))
-        else:
-            chunks = max(1, min(gm, -(-2 * sms // gn)))
+        chunks = max(1, min(gm, -(-2 * sms // gn)))
         if layout.s_max > 1:
             ws = torch.empty((m, n), dtype=torch.float32, device=a.device)
     stream = torch.cuda.current_stream(a.device).cuda_stream

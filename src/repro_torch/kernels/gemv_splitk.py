@@ -5,8 +5,11 @@ Kernels (CUDA C++, `csrc/gemv_splitk.cu`), replacing
 `repro/kernels/gemv_splitk.py::gemv_splitk_padded`:
   K3 — pass 1, grid (n-tiles, k-splits): fp32 partial products into a
        (gk, m, n) slab; m is never blocked;
-  K4 — pass 2: folds the gk partials per output element in the static
-       pairwise order of `tree_sum`, applies the epilogue once, casts.
+  K4 — pass 2: stages a strip of W output elements of every split in
+       shared memory (`reduce_strip`), folds each element's gk partials
+       in place in the static pairwise order of `tree_sum`, applies the
+       epilogue once, casts; with no epilogue it equals the plain reduce
+       bit for bit.
 
 `gemv_splitk` dispatches on the input's device: a CUDA tensor launches
 both kernels (or raises); a CPU tensor runs the plain versions.  For
@@ -28,6 +31,19 @@ from repro_torch.kernels.skew_matmul import (_dtype_flag, check_blocks,
                                              epilogue_args)
 
 LAUNCHES: collections.Counter = collections.Counter()
+SMEM_MAX = 232_448
+REDUCE_MAX_W = 256
+
+
+def reduce_strip(gk: int) -> int:
+    """K4's strip width: the largest multiple of 4 up to 256 output
+    elements whose gk x W fp32 partials fit the 227 KB of shared memory a
+    block may use; 0 when not even 4 fit (gk > 14528), where the slab is
+    first folded level by level through a scratch in device memory
+    (mirrors `reduce_strip` in csrc/gemv_splitk.cu)."""
+    if gk < 1:
+        raise ValueError(f"gk must be >= 1, got {gk}")
+    return min(REDUCE_MAX_W, SMEM_MAX // (4 * gk)) // 4 * 4
 
 
 def tree_sum(parts: torch.Tensor) -> torch.Tensor:
@@ -70,8 +86,8 @@ def _lib() -> ctypes.CDLL:
     lib.rt_splitk_partial.argtypes = [i, p, ll, ll, p, ll, ll, p, i, i, i,
                                       i, i, i, p]
     lib.rt_splitk_partial.restype = i
-    lib.rt_splitk_reduce.argtypes = [i, p, p, i, i, i, f, i, p, i, i, p, i,
-                                     ll, ll, p]
+    lib.rt_splitk_reduce.argtypes = [i, p, p, p, i, i, i, f, i, p, i, i, p,
+                                     i, ll, ll, p]
     lib.rt_splitk_reduce.restype = i
     return lib
 
@@ -123,17 +139,22 @@ def gemv_splitk_reduce_cuda(slab: torch.Tensor, bias=None, residual=None, *,
     (scale, has_scale, bias_ptr, bias_bf16, act, res_ptr, res_bf16,
      rst, keep) = epilogue_args(epilogue, bias, residual, slab.device, n)
     out = torch.empty((m, n), dtype=out_dtype, device=slab.device)
+    scratch = None
+    if reduce_strip(gk) == 0:
+        scratch = torch.empty(((gk + 1) // 2, m, n), dtype=torch.float32,
+                              device=slab.device)
     stream = torch.cuda.current_stream(slab.device).cuda_stream
     err = _lib().rt_splitk_reduce(
-        out_bf16, slab.data_ptr(), out.data_ptr(), gk, m, n, scale,
+        out_bf16, slab.data_ptr(), out.data_ptr(),
+        None if scratch is None else scratch.data_ptr(), gk, m, n, scale,
         has_scale, bias_ptr, bias_bf16, act, res_ptr, res_bf16, rst[1],
         rst[2], stream)
     build.check(err, "gemv_splitk_reduce")
     LAUNCHES["gemv_splitk_reduce"] += 1
-    # `keep` (a contiguous bias copy) may be freed once the launch is
-    # enqueued: the caching allocator reuses it only for later work on
-    # this stream.
-    del keep
+    # `keep` (a contiguous bias copy) and the scratch may be freed once
+    # the launch is enqueued: the caching allocator reuses them only for
+    # later work on this stream.
+    del keep, scratch
     return out
 
 

@@ -149,6 +149,50 @@ def test_splitk_bitwise_across_split_counts(dev):
         assert torch.equal(got, want), bk
 
 
+# K4 at many slab depths: odd and even levels, a depth past the 1816 that
+# keeps a 32-wide strip, and one past the 14528 at which not even 4
+# columns fit (folded level by level through a scratch first); n is
+# ragged against the strip, with m * n a multiple of 4 (16-byte cp.async
+# staging) and not (scalar staging).
+SPLITK_REDUCE_GKS = [1, 2, 3, 5, 7, 8, 24, 33, 64, 65, 84, 2000, 14600]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("gk", SPLITK_REDUCE_GKS)
+@pytest.mark.parametrize("n", [340, 333])
+def test_splitk_reduce_bitwise_equals_plain(dev, gk, n):
+    m = 3 if gk < 1000 else 1
+    slab = _t((gk, m, n), torch.float32, dev) * torch.tensor(
+        10.0 ** RNG.integers(-3, 4, size=(gk, 1, n)), dtype=torch.float32,
+        device=dev)
+    keep = slab.clone()
+    want = gk_mod.gemv_splitk_reduce_plain(slab, out_dtype=torch.float32)
+    got = gk_mod.gemv_splitk_reduce_cuda(slab, out_dtype=torch.float32)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    assert torch.equal(slab, keep)              # the input is not folded
+    got16 = gk_mod.gemv_splitk_reduce_cuda(slab, out_dtype=torch.bfloat16)
+    assert torch.equal(got16, want.to(torch.bfloat16))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("spec", EPILOGUES)
+@pytest.mark.parametrize("gk", [1, 24, 84, 101])
+def test_splitk_reduce_epilogues_match_plain(dev, spec, gk):
+    m, n = 4, 1001
+    slab = _t((gk, m, n), torch.float32, dev, 0.2)
+    tokens, bias, res = _operands(spec, m, n, torch.float32, dev)
+    for out_dtype in (torch.float32, torch.bfloat16):
+        got = gk_mod.gemv_splitk_reduce_cuda(slab, bias, res, epilogue=tokens,
+                                             out_dtype=out_dtype)
+        want = gk_mod.gemv_splitk_reduce_plain(slab, bias, res,
+                                               epilogue=tokens,
+                                               out_dtype=out_dtype)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got.float(), want.float(),
+                                   **TOL[out_dtype])
+
+
 GROUPED_EPILOGUES = [None, "gelu", "scale", "residual", "silu_residual"]
 
 
@@ -450,16 +494,71 @@ def test_block_sparse_matches_plain(dev, dtype, schedule, case):
     assert torch.equal(got[:block[0]], res[:block[0]].float())
 
 
+# A shape at which a_resident's CTA holds more than one column tile at
+# (32, 128) blocks on a 132-SM card (2 tiles of 128 columns, 100 row
+# blocks), with a ragged last chunk (one tile, 88 of its columns real).
+AR_CHUNKED = (3200, 520, 600)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("block", [(32, 128), (64, 64), (128, 128)])
+def test_block_sparse_a_resident_chunked_matches_plain(dev, dtype, block):
+    from repro_torch.kernels import block_sparse_matmul as bsr_mod
+    m, k, n = AR_CHUNKED
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    per = bsr_mod.a_resident_chunk(-(-m // block[0]), n, *block, dtype, sms)
+    if block == (32, 128) and sms >= 114:
+        assert per > 1
+    a, b = _t((m, k), dtype, dev, 0.2), _t((k, n), dtype, dev, 0.2)
+    for density in (0.05, 0.25, 0.5, 1.0):
+        lay = _bsr_layout(m, k, block, density, empty_rows=density < 1.0)
+        for spec in (None, "bias_silu", "residual"):
+            tokens, bias, res = _operands(spec, m, n, dtype, dev)
+            got = bsr_mod.block_sparse_matmul_cuda(
+                a, b, lay, bias, res, bn=64, schedule="a_resident",
+                epilogue=tokens, out_dtype=dtype)
+            want = bsr_mod.block_sparse_matmul_plain(
+                a, b, lay, bias, res, epilogue=tokens, out_dtype=dtype)
+            torch.cuda.synchronize()
+            torch.testing.assert_close(got.float(), want.float(),
+                                       **TOL[dtype])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_block_sparse_a_resident_allocates_only_its_output(dev, dtype):
+    from repro_torch.kernels import block_sparse_matmul as bsr_mod
+    m, k, n = 1024, 1024, 1024
+    lay = _bsr_layout(m, k, (32, 128), 0.5, empty_rows=False)
+    a, b = _t((m, k), dtype, dev, 0.2), _t((k, n), dtype, dev, 0.2)
+    bsr_mod.block_sparse_matmul_cuda(a, b, lay, bn=64,
+                                     schedule="a_resident")   # tables, build
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    out = bsr_mod.block_sparse_matmul_cuda(a, b, lay, bn=64,
+                                           schedule="a_resident",
+                                           out_dtype=dtype)
+    torch.cuda.synchronize()
+    grown = torch.cuda.max_memory_allocated(dev) - before
+    assert grown == -(-out.numel() * out.element_size() // 512) * 512
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("schedule", ["k_inner", "a_resident", "b_resident"])
 def test_block_sparse_dense_layout_bitwise_equals_k1(dev, dtype, schedule):
-    """At density 1.0 K9 visits every k block in order with K1's device
-    code, so its output equals K1's bit for bit."""
+    """At density 1.0 K9 visits every k block in order with K1's MMAs and
+    K1's fold of the block partials, so its output equals K1's bit for
+    bit, on a chunked shape and at (128, 128) blocks too."""
     from repro_torch.kernels import block_sparse_matmul as bsr_mod
     from repro_torch.sparse.layout import BlockSparseLayout
-    m, k, n = 200, 700, 300
-    for block, bn in (((64, 128), 128), ((32, 128), 64)):
+    for (m, k, n), block, bn in (((200, 700, 300), (64, 128), 128),
+                                 ((200, 700, 300), (32, 128), 64),
+                                 ((200, 700, 300), (128, 128), 64),
+                                 (AR_CHUNKED, (32, 128), 64),
+                                 (AR_CHUNKED, (128, 128), 64)):
         lay = BlockSparseLayout.dense(m, k, block)
         a, b = _t((m, k), dtype, dev, 0.2), _t((k, n), dtype, dev, 0.2)
         tokens, bias, res = _operands("bias_gelu", m, n, dtype, dev)
