@@ -12,7 +12,8 @@ nonzero and prints no result:
      per source, in parallel);
   3. kernel parity — each dense kernel (K1-K4) against its plain PyTorch
      version on the card at phi4-mini-3.8b's shapes, bf16 and fp32, every
-     schedule and epilogue on the path, plus split-K bitwise stability
+     schedule and epilogue on the path, K2 bitwise equal to one K1 call
+     per batch slice, plus split-K bitwise stability
      across split counts for integer-valued inputs, and K4 bitwise equal
      to the plain `tree_sum` reduce on random fp32 slabs of depth 7 to
      14600;
@@ -27,8 +28,10 @@ nonzero and prints no result:
      backend against the "torch" backend on the same weights;
   6. timings — each kernel, its plain version and one PyTorch call
      computing the same function (the yardstick; never on the port's path),
-     with CUDA events, at the main path's shapes; K4 also at slab depths
-     84 (dbrx's k 10752 at bk 128) and 101;
+     with CUDA events, at the main path's shapes: K1 k_inner at the LM
+     head, the prefill and the decode gate/up, down and o projections, K2
+     at the LM head and the o projection (4 x 1 rows); K4 also at slab
+     depths 84 (dbrx's k 10752 at bk 128) and 101;
 then dbrx-132b's MoE layers, after phi4's weights are freed:
   3b. K5 parity — the grouped expert GEMM against its plain version at the
      dbrx decode shapes (16 experts x 8 capacity rows, gate/up and down),
@@ -95,9 +98,9 @@ then the measured autotuner and the block-sparse matmul:
      are zeroed just before and read just after; the entries (measured and
      modeled us, agreement, speedup) and the calibration fit are printed;
   6e. timings — K9 at the tuner's 4096^2 (32, 128) layouts, d 0.25 / 0.5
-     and 1.0, n 4096, each schedule the planner offers (b_resident at
-     0.25), its plain version, its bound and `torch.matmul` of the
-     pre-masked dense A; K1 at the dense planner's 4096^3 plan beside it;
+     and 1.0, n 4096, each schedule the planner offers and b_resident, its
+     plain version, its bound and `torch.matmul` of the pre-masked dense
+     A; K1 at the dense planner's 4096^3 plan beside it;
   7. the `kernels` JSON line (K1-K9; launches summed over the five main
      paths), then the device line.
 Phi4's and dbrx's prefills reach K7 too (phases 4, 4b).
@@ -187,7 +190,7 @@ KERNELS = {
         "src/repro_torch/csrc/block_sparse_matmul.cu",
         "src/repro/sparse/kernels.py:271"),
     "block_sparse_matmul_b_resident": (
-        "src/repro_torch/csrc/block_sparse_matmul.cu",
+        "src/repro_torch/csrc/block_sparse_b_resident.cu",
         "src/repro/sparse/kernels.py:271"),
 }
 # The dense kernels and K7 run on phi4's main path, K5 on dbrx's, K6 (and
@@ -254,12 +257,20 @@ def rel_err(torch, got, want) -> tuple[float, float]:
     return diff, diff / scale
 
 
+# Cycles of `torch.cuda._sleep` queued before a timed run (~5 ms at the
+# H100's clocks): the host enqueues the timed calls while the card sleeps,
+# so a kernel shorter than its wrapper's host time is timed on the device,
+# not at the rate the host launches it.
+SLEEP_CYCLES = 10_000_000
+
+
 def time_ms(torch, fn, iters: int = 20, warmup: int = 3) -> float:
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(SLEEP_CYCLES)
     start.record()
     for _ in range(iters):
         fn()
@@ -379,6 +390,16 @@ def phase_parity(torch, cfg) -> dict:
                         a3, b, None, r3, bk=64, epilogue=spec, out_dtype=odt)
                     check("skew_matmul_batched", got, want3, odt,
                           f"{dn} {nb}x{mm_}x{k}x{n} {[t for t, _ in spec]}")
+                    # K2 stacks the slices' rows: each equals K1 on its own
+                    for i in range(nb):
+                        k1 = mm.skew_matmul_cuda(
+                            a3[i], b, None, None if r3 is None else r3[i],
+                            bm=64, bk=64, bn=128, epilogue=spec,
+                            out_dtype=odt)
+                        torch.cuda.synchronize()
+                        if not torch.equal(got[i], k1):
+                            fail(f"K2 slice {i} is not bitwise equal to K1 "
+                                 f"({dn} {nb}x{mm_}x{k}x{n})")
             if m == 4:
                 # split-K at the planner's best split-K blocks for the shape
                 sk = splitk_plan(m, k, n, a.element_size())
@@ -675,9 +696,11 @@ def phase_timings(torch, cfg, params, counts, errs) -> list[dict]:
                                          out_dtype=torch.float32),
             lambda: torch.matmul(h4, emb_t),
             lm_bytes, lm_flops, f"LM head 4x{d}x{v} bf16->fp32"))
-    # k_inner at the other serving shapes, for the record
+    # k_inner at the other serving shapes: prefill gate/up and down, decode
+    # gate/up, down and the o projection
     for m, k, n, spec in ((512, d, f, (("silu", None),)), (512, f, d, ()),
-                          (4, d, f, (("silu", None),)), (4, f, d, ())):
+                          (4, d, f, (("silu", None),)), (4, f, d, ()),
+                          (4, d, d, ())):
         a = torch.randn((m, k), generator=gen, device="cuda").to(bf)
         w = (torch.randn((k, n), generator=gen, device="cuda")
              * k ** -0.5).to(bf)
@@ -699,6 +722,17 @@ def phase_timings(torch, cfg, params, counts, errs) -> list[dict]:
                                              out_dtype=torch.float32),
         lambda: torch.matmul(h4[:, None, :], emb_t),
         lm_bytes, lm_flops, f"LM head 4x1x{d}x{v} bf16->fp32"))
+    # K2 beside K1 at the decode o projection (4 x 1 stacked rows)
+    w = (torch.randn((d, d), generator=gen, device="cuda") * d ** -0.5).to(bf)
+    rows.append(row(
+        "skew_matmul_batched",
+        lambda: mm.skew_matmul_batched_cuda(h4[:, None, :], w, bm=64, bk=64,
+                                            bn=128, out_dtype=bf),
+        lambda: mm.skew_matmul_batched_plain(h4[:, None, :], w, bk=64,
+                                             out_dtype=bf),
+        lambda: torch.matmul(h4[:, None, :], w),
+        (4 * d + d * d + 4 * d) * 2, 2 * 4 * d * d,
+        f"4x1x{d}x{d} bf16"))
     sk = lm_head_splitk_plan(cfg)
     gk_n = -(-d // sk.bk)
     slab = gk.gemv_splitk_partial_cuda(h4, emb_t, bm=sk.bm, bk=sk.bk,
@@ -1663,7 +1697,7 @@ def phase_tune(torch) -> dict:
 def phase_timings_bsr(torch, counts, errs) -> list[dict]:
     """K9 at the tuner's sparse shapes (4096^2, (32, 128), d 0.25 / 0.5,
     n 4096) and at density 1.0: each schedule the planner offers (and
-    b_resident by an explicit plan at d 0.25), the plain version, the
+    b_resident by an explicit plan), the plain version, the
     bound, and `torch.matmul` of the pre-masked dense A (the dense work K9
     avoids; never on the port's path).  At density 1.0 K1 at the dense
     planner's plan shows where the card's crossover lies."""
@@ -1695,8 +1729,7 @@ def phase_timings_bsr(torch, counts, errs) -> list[dict]:
         flops = 2 * s.nnz_elems * t
         scheds = {c.plan.schedule: c.plan.bn for c in
                   planner.enumerate_sparse_plans(s, t, chip="gpu_h100")}
-        if d == 0.25:
-            scheds["b_resident"] = BSR_BN
+        scheds["b_resident"] = BSR_BN
         for sched, bn in scheds.items():
             rows.append(row(
                 f"block_sparse_matmul_{sched}",
@@ -1720,6 +1753,7 @@ def profile_steps(torch, cfg, params) -> None:
     """torch.profiler over one prefill and one decode step (batch 4): device
     time by kernel and the device's busy share of the host-clock step.
     Run only with --profile; not part of the smoke's contract."""
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.serve import engine
@@ -1739,7 +1773,10 @@ def profile_steps(torch, cfg, params) -> None:
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
         ka = prof.key_averages()
-        dev_us = sum(e.self_device_time_total for e in ka)
+        # kernel rows only: an operator row carries its kernels' time too
+        dev_us = sum(e.self_device_time_total for e in ka
+                     if e.device_type == DeviceType.CUDA
+                     and not getattr(e, "is_user_annotation", False))
         say(f"profile {what}: host-clock {wall * 1e3:.2f} ms, device busy "
             f"{dev_us / 1e3:.2f} ms ({dev_us / 1e4 / wall:.1f}% of the step)")
         print(ka.table(sort_by="self_device_time_total", row_limit=12),

@@ -27,52 +27,42 @@
 //                whole chunk stay in registers across s (no workspace),
 //                all 8 warps split the columns, and B streams through a
 //                cp.async ring; one CTA owns its outputs, so no atomics.
-//   b_resident — blockIdx = (m-chunk, n-tile), for parity with the JAX
-//                schedule family (its planner never picks it).  The CTA
-//                walks s, and for each s its rows; the B tile is reloaded
-//                only when the column block changes, so it stays resident
-//                exactly when the rows share their structure.
+//   b_resident — in csrc/block_sparse_b_resident.cu (its own library, so
+//                that nvcc builds it beside this one): the CTA walks a
+//                chunk of row blocks' column blocks in ascending order,
+//                fetching each B slice once for every row block that holds
+//                it, with the sums in registers and a cp.async ring.
 //
-// Density-1.0 parity: k_inner and b_resident run K1's device code
-// (load_tile, mma_block, combine, apply_epi from common.cuh); a_resident
-// forms each block's partial with the same MMAs in the same k order
-// (strip_mma) and folds it as `combine` does.  At density 1.0 cols[i, s]
-// == s and nnz[i] == gk, so every element sees the same products summed
-// in the same order: the output is bitwise equal to K1's at the same
-// blocks and schedule.
+// Density-1.0 parity: k_inner runs K1's old device code (load_tile,
+// mma_block, apply_epi from common.cuh); a_resident and b_resident form
+// each block's partial with the same MMAs in the same k order (strip_mma)
+// and fold it as `combine` does.  At density 1.0 cols[i, s] == s and
+// nnz[i] == gk, so every element sees the same products summed in the
+// same order: the output is bitwise equal to K1's at the same blocks and
+// schedule (K1's k_inner keeps one chain over k in registers, the chain
+// this k_inner keeps in its shared-memory tile).
 //
 // Bound on the H100: the work is 2 * nnz_elems * n operations and the
 // bytes are the nonzero A blocks once, B once and C once.  At the tuner's
 // 4096^2 (32, 128) layouts with n = 4096 the products run at a few hundred
 // operations per byte, above the card's ~295 FLOP/byte ridge, so the bound
-// is the tensor-core rate.  k_inner and b_resident are bound by what K1 is
-// bound by (single-buffered tiles, WMMA from shared memory, at bm = 32
-// only 2 of 8 warps with a 32 x 32 region of a 32 x 64 tile) plus the
-// gather: each CTA re-reads its B tiles, which L2 (50 MB) absorbs for a
-// 32 MB bf16 B.  a_resident keeps every warp busy at any bm <= 128 and
-// overlaps its copies with the MMAs; what is left is B's re-read from L2
-// (once per row block and nonzero block) and WMMA fed from shared memory.  Blocks come
-// from the layout, not the planner, so the wrapper takes any (bm, bk) that
-// K1's shared-memory rule allows; (128, 128, 64), the planner's fail-over
-// plan at (128, 128) layouts, needs 86 KB (bf16) / 134 KB (fp32) of
-// dynamic shared memory, above the 104 KB AMP budget but under the 227 KB
-// a block may use.  TMA and wgmma (64-row warpgroup tiles, so only for
-// bm >= 64 layouts) are later work.
+// is the tensor-core rate.  k_inner is bound by its old device code
+// (single-buffered tiles, WMMA from shared memory, at bm = 32 only 2 of 8
+// warps with a 32 x 32 region of a 32 x 64 tile) plus the gather: each CTA
+// re-reads its B tiles, which L2 (50 MB) absorbs for a 32 MB bf16 B.
+// a_resident and b_resident keep every warp busy at any bm <= 128 and
+// overlap their copies with the MMAs; what is left is B's re-read from L2
+// (a_resident: once per row block and nonzero block; b_resident: once per
+// chunk of row blocks and column block) and the per-step barrier.  Blocks
+// come from the layout, not the planner, so the wrapper takes any (bm, bk)
+// that K1's shared-memory rule allows; (128, 128, 64), the planner's
+// fail-over plan at (128, 128) layouts, needs 86 KB (bf16) / 134 KB (fp32)
+// of dynamic shared memory in k_inner, above the 104 KB AMP budget but
+// under the 227 KB a block may use.  TMA and wgmma (64-row warpgroup
+// tiles, so only for bm >= 64 layouts) are later work.
 #include "common.cuh"
 
 namespace rt {
-
-// Write epilogue(0) over the output tile at (i0, j0): a row block that
-// holds no nonzero block.
-template <typename O>
-__device__ void write_empty(O* out, int i0, int j0, int bm, int bn, int m, int n,
-                            const Epi& e) {
-  for (int idx = threadIdx.x; idx < bm * bn; idx += blockDim.x) {
-    const int r = idx / bn, c = idx - r * bn;
-    const int gr = i0 + r, gc = j0 + c;
-    if (gr < m && gc < n) out[(long long)gr * n + gc] = from_f<O>(apply_epi(0.0f, e, 0, gr, gc));
-  }
-}
 
 template <typename T, typename O>
 __global__ void __launch_bounds__(kThreads)
@@ -298,48 +288,9 @@ int launch_a_resident(const ARCfg& c, dim3 grid, const int* cols, const int* nnz
 }
 
 template <typename T, typename O>
-__global__ void __launch_bounds__(kThreads)
-bsr_b_resident_kernel(const int* __restrict__ cols, const int* __restrict__ nnz, int s_max,
-                      const T* __restrict__ A, long long sa_m, long long sa_k,
-                      const T* __restrict__ B, long long sb_k, long long sb_n,
-                      O* __restrict__ out, float* __restrict__ ws, int m, int k, int n,
-                      int bm, int bk, int bn, int per_chunk, Epi e) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  Tiles<T> t(smem, bm, bk, bn);
-  const int gm = (m + bm - 1) / bm;
-  const int j0 = blockIdx.y * bn;
-  const int ib = blockIdx.x * per_chunk;
-  const int ie = min(gm, ib + per_chunk);
-  int steps = 0;
-  for (int it = ib; it < ie; ++it) {
-    const int cnt = nnz[it];
-    if (cnt == 0) write_empty(out, it * bm, j0, bm, bn, m, n, e);
-    steps = max(steps, cnt);
-  }
-  int loaded = -1;  // the column block whose B tile sits in shared memory
-  for (int s = 0; s < steps; ++s) {
-    for (int it = ib; it < ie; ++it) {
-      const int cnt = nnz[it];
-      if (s >= cnt) continue;
-      const int cb = cols[(long long)it * s_max + s];
-      __syncthreads();
-      if (cb != loaded) {
-        load_tile(t.b, t.ldb, B, sb_k, sb_n, cb * bk, j0, bk, bn, k, n);
-        loaded = cb;
-      }
-      load_tile(t.a, t.lda, A, sa_m, sa_k, it * bm, cb * bk, bm, bk, m, k);
-      __syncthreads();
-      mma_block(t.a, t.lda, t.b, t.ldb, t.c, t.ldc, bm, bk, bn, m - it * bm, true);
-      __syncthreads();
-      combine(t.c, t.ldc, ws, out, s, cnt, it * bm, j0, bm, bn, m, n, e);
-    }
-  }
-}
-
-template <typename T, typename O>
 int launch(int schedule, const int* cols, const int* nnz, int s_max, const void* A,
            long long sa_m, long long sa_k, const void* B, long long sb_k, long long sb_n,
-           void* out, void* ws, int m, int k, int n, int bm, int bk, int bn, int chunks,
+           void* out, int m, int k, int n, int bm, int bk, int bn, int chunks,
            const Epi& e, cudaStream_t stream) {
   const long long smem = tile_smem_bytes<T>(bm, bk, bn);
   if (smem > kSmemMax) return (int)cudaErrorInvalidValue;
@@ -347,7 +298,6 @@ int launch(int schedule, const int* cols, const int* nnz, int s_max, const void*
   const T* a = static_cast<const T*>(A);
   const T* b = static_cast<const T*>(B);
   O* o = static_cast<O*>(out);
-  float* w = static_cast<float*>(ws);
   cudaError_t err;
   if (schedule == 0) {
     err = cudaFuncSetAttribute(bsr_k_inner_kernel<T, O>,
@@ -358,7 +308,7 @@ int launch(int schedule, const int* cols, const int* nnz, int s_max, const void*
         cols, nnz, s_max, a, sa_m, sa_k, b, sb_k, sb_n, o, m, k, n, bm, bk, bn, e);
   } else if (schedule == 1) {
     // `chunks` is the number of column tiles a CTA holds (the wrapper's
-    // `a_resident_chunk`); `ws` is not used.
+    // `a_resident_chunk`).
     const ARCfg c = ar_config<T>(bm, bk);
     if (c.smem < 0) return (int)cudaErrorInvalidValue;
     const int ntiles = (n + c.tw - 1) / c.tw;
@@ -378,14 +328,6 @@ int launch(int schedule, const int* cols, const int* nnz, int s_max, const void*
         return launch_a_resident<T, O, 8>(c, grid, cols, nnz, s_max, a, sa_m, sa_k, b, sb_k,
                                           sb_n, o, m, k, n, bm, bk, per, e, stream);
     }
-  } else if (schedule == 2) {
-    err = cudaFuncSetAttribute(bsr_b_resident_kernel<T, O>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return (int)err;
-    const int per = (gm + chunks - 1) / chunks;
-    dim3 grid((gm + per - 1) / per, gn, 1);
-    bsr_b_resident_kernel<T, O><<<grid, kThreads, smem, stream>>>(
-        cols, nnz, s_max, a, sa_m, sa_k, b, sb_k, sb_n, o, w, m, k, n, bm, bk, bn, per, e);
   } else {
     return (int)cudaErrorInvalidValue;
   }
@@ -394,17 +336,17 @@ int launch(int schedule, const int* cols, const int* nnz, int s_max, const void*
 
 }  // namespace rt
 
-// schedule: 0 k_inner, 1 a_resident, 2 b_resident.  cols is a contiguous
+// schedule: 0 k_inner, 1 a_resident (2, b_resident, is
+// rt_block_sparse_b_resident in its own library).  cols is a contiguous
 // int32 (gm, s_max) table and nnz int32 (gm,), both on the device.  Strides
-// are in elements; `out` is a contiguous (m, n) tensor; `ws` an fp32 (m, n)
-// workspace for b_resident when s_max > 1 (else null); a_resident keeps its
-// sums in registers and reads `chunks` as column tiles per CTA.
+// are in elements; `out` is a contiguous (m, n) tensor; a_resident keeps
+// its sums in registers and reads `chunks` as column tiles per CTA.
 // Returns the cudaError_t of the launch.
 extern "C" int rt_block_sparse_matmul(int schedule, int in_bf16, int out_bf16,
                                       const void* cols, const void* nnz, int s_max,
                                       const void* A, long long sa_m, long long sa_k,
                                       const void* B, long long sb_k, long long sb_n,
-                                      void* out, void* ws, int m, int k, int n, int bm, int bk,
+                                      void* out, int m, int k, int n, int bm, int bk,
                                       int bn, int chunks, float scale, int has_scale,
                                       const void* bias, int bias_bf16, int act, const void* res,
                                       int res_bf16, long long rs_m, long long rs_n,
@@ -415,13 +357,13 @@ extern "C" int rt_block_sparse_matmul(int schedule, int in_bf16, int out_bf16,
   const int* z = static_cast<const int*>(nnz);
   if (in_bf16 && out_bf16)
     return rt::launch<rt::bf16, rt::bf16>(schedule, c, z, s_max, A, sa_m, sa_k, B, sb_k, sb_n,
-                                          out, ws, m, k, n, bm, bk, bn, chunks, e, s);
+                                          out, m, k, n, bm, bk, bn, chunks, e, s);
   if (in_bf16)
     return rt::launch<rt::bf16, float>(schedule, c, z, s_max, A, sa_m, sa_k, B, sb_k, sb_n, out,
-                                       ws, m, k, n, bm, bk, bn, chunks, e, s);
+                                       m, k, n, bm, bk, bn, chunks, e, s);
   if (out_bf16)
     return rt::launch<float, rt::bf16>(schedule, c, z, s_max, A, sa_m, sa_k, B, sb_k, sb_n, out,
-                                       ws, m, k, n, bm, bk, bn, chunks, e, s);
-  return rt::launch<float, float>(schedule, c, z, s_max, A, sa_m, sa_k, B, sb_k, sb_n, out, ws,
-                                  m, k, n, bm, bk, bn, chunks, e, s);
+                                       m, k, n, bm, bk, bn, chunks, e, s);
+  return rt::launch<float, float>(schedule, c, z, s_max, A, sa_m, sa_k, B, sb_k, sb_n, out, m,
+                                  k, n, bm, bk, bn, chunks, e, s);
 }

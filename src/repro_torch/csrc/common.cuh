@@ -9,7 +9,10 @@
 // Products: bf16 operands go through warp-level tensor-core MMA (WMMA
 // 16x16x16, fp32 accumulate; `strip_mma` issues the same m16n8k16 HMMA
 // through ldmatrix + mma.sync with register-resident sums); fp32 operands
-// run a plain fp32 FMA loop — true IEEE fp32, never TF32.
+// run a plain fp32 FMA loop — true IEEE fp32, never TF32.  The redesigned
+// kernels (K1 k_inner, K9 a_resident and b_resident) keep their sums in
+// registers and stream their operands through `cp.async` rings; the
+// others still use the shared-memory fp32 tile above.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -219,6 +222,18 @@ __device__ inline void mma_block(const float* sA, int lda, const float* sB, int 
   }
 }
 
+// Write epilogue(0) over the output tile at (i0, j0): a row block that
+// holds no nonzero block.
+template <typename O>
+__device__ void write_empty(O* out, int i0, int j0, int bm, int bn, int m, int n,
+                            const Epi& e) {
+  for (int idx = threadIdx.x; idx < bm * bn; idx += blockDim.x) {
+    const int r = idx / bn, c = idx - r * bn;
+    const int gr = i0 + r, gc = j0 + c;
+    if (gr < m && gc < n) out[(long long)gr * n + gc] = from_f<O>(apply_epi(0.0f, e, 0, gr, gc));
+  }
+}
+
 // Fold one partial tile into the output: gk == 1 writes the epilogue
 // directly; otherwise the first k block writes the fp32 workspace, middle
 // blocks add to it, and the last adds, applies the epilogue and casts.
@@ -299,7 +314,9 @@ __device__ __forceinline__ void mma_16816(float* d, const unsigned (&a)[4], unsi
 // in 16-deep steps in k order.  bf16: ldmatrix fragments and two
 // m16n8k16 HMMAs a step, the instruction WMMA 16x16x16 lowers to on
 // sm_90, so a sum started from zero equals mma_block's bit for bit; fp32:
-// mma_block's fmaf chain.  sA and sB rows are 16-byte aligned.
+// mma_block's fmaf chain.  sA and sB rows are 16-byte aligned.  fp32 BT:
+// sB is held n-major (sB[c * ldb + k], a transposed B copied as its own
+// rows); the sums are the same.
 template <int MR>
 __device__ __forceinline__ void strip_mma(AccMma (&acc)[MR], const bf16* sA, int lda,
                                           const bf16* sB, int ldb, int K, int nrf) {
@@ -319,12 +336,12 @@ __device__ __forceinline__ void strip_mma(AccMma (&acc)[MR], const bf16* sA, int
     }
   }
 }
-template <int MR>
+template <int MR, bool BT = false>
 __device__ __forceinline__ void strip_mma(AccF32 (&acc)[MR], const float* sA, int lda,
                                           const float* sB, int ldb, int K, int nrf) {
   const int lane = threadIdx.x % 32, c = lane % 16, h = lane / 16;
   for (int k = 0; k < K; ++k) {
-    const float bv = sB[k * ldb + c];
+    const float bv = BT ? sB[c * ldb + k] : sB[k * ldb + c];
 #pragma unroll
     for (int r = 0; r < MR; ++r) {
       if (r >= nrf) break;
@@ -339,27 +356,33 @@ __device__ __forceinline__ void strip_mma(AccF32 (&acc)[MR], const float* sA, in
 // through the epilogue, masked at the edges.  Not inlined: a kernel holds
 // up to 8 accumulators a lane, and 8 inlined epilogues each would
 // multiply its code (and its build time) for work done once per output.
+// With `mb` set, row gr of a contiguous (nb, mb, n) output is row gr % mb
+// of batch gr / mb for the residual (K1's batched rows); by default every
+// row is in batch 0.
 template <typename O>
 __device__ __forceinline__ void store_one(O* out, int gr, int gc, int m, int n, float v,
-                                          const Epi& e) {
-  if (gr < m && gc < n) out[(long long)gr * n + gc] = from_f<O>(apply_epi(v, e, 0, gr, gc));
+                                          const Epi& e, int mb) {
+  if (gr < m && gc < n) {
+    const int b = gr / mb;
+    out[(long long)gr * n + gc] = from_f<O>(apply_epi(v, e, b, gr - b * mb, gc));
+  }
 }
 template <typename O>
 __device__ __noinline__ void store_acc(const AccMma a, O* out, int gr0, int gc0, int m,
-                                       int n, const Epi e) {
+                                       int n, const Epi e, int mb = 0x7fffffff) {
   const int lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
 #pragma unroll
   for (int x = 0; x < 8; ++x)
     store_one(out, gr0 + g + 8 * ((x >> 1) & 1), gc0 + 8 * (x >> 2) + 2 * t + (x & 1), m, n,
-              a.x[x], e);
+              a.x[x], e, mb);
 }
 template <typename O>
 __device__ __noinline__ void store_acc(const AccF32 a, O* out, int gr0, int gc0, int m,
-                                       int n, const Epi e) {
+                                       int n, const Epi e, int mb = 0x7fffffff) {
   const int lane = threadIdx.x % 32;
 #pragma unroll
   for (int x = 0; x < 8; ++x)
-    store_one(out, gr0 + lane / 16 + 2 * x, gc0 + lane % 16, m, n, a.x[x], e);
+    store_one(out, gr0 + lane / 16 + 2 * x, gc0 + lane % 16, m, n, a.x[x], e, mb);
 }
 
 // cp.async (sm_80+): a 16-byte global -> shared copy that bypasses the
@@ -374,6 +397,51 @@ __device__ __forceinline__ void cp_async16(void* dst, const void* src, int src_b
 // wait in one).
 __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_all;\n" ::);
+}
+// Close this thread's current group of cp.async copies (an empty group is
+// allowed), and wait until at most `n` of its groups are still in flight
+// (n < 8; the instruction takes n as an immediate, hence the switch).
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+__device__ __forceinline__ void cp_async_wait_n(int n) {
+  switch (n) {
+    case 0: asm volatile("cp.async.wait_group 0;\n" ::); break;
+    case 1: asm volatile("cp.async.wait_group 1;\n" ::); break;
+    case 2: asm volatile("cp.async.wait_group 2;\n" ::); break;
+    case 3: asm volatile("cp.async.wait_group 3;\n" ::); break;
+    case 4: asm volatile("cp.async.wait_group 4;\n" ::); break;
+    case 5: asm volatile("cp.async.wait_group 5;\n" ::); break;
+    case 6: asm volatile("cp.async.wait_group 6;\n" ::); break;
+    default: asm volatile("cp.async.wait_group 7;\n" ::); break;
+  }
+}
+
+// Copy the (R x C) tile at (r0, c0) of a matrix with unit column stride,
+// row stride s_r and 16-byte aligned rows (nr x nc) into shared memory
+// (leading dim ld) with cp.async, zero-filling past the edge.  C / V is
+// 2^lgc vectors of 16 bytes, so a thread's (row, vector) needs no
+// division; c0 is a multiple of V.
+template <typename T>
+__device__ __forceinline__ void copy_tile_async(T* s, int ld, const T* g, long long s_r,
+                                                int r0, int c0, int R, int lgc, int nr,
+                                                int nc) {
+  constexpr int V = 16 / (int)sizeof(T);
+  for (int idx = threadIdx.x; idx < (R << lgc); idx += kThreads) {
+    const int r = idx >> lgc, c = (idx & ((1 << lgc) - 1)) * V;
+    const int gr = r0 + r, gc = c0 + c;
+    const int valid = gr < nr ? max(0, min(V, nc - gc)) : 0;
+    cp_async16(s + r * ld + c, valid ? g + (long long)gr * s_r + gc : g,
+               valid * (int)sizeof(T));
+  }
+}
+
+// log2 of x when x is a power of two, else -1.
+__host__ __device__ inline int log2_exact(int x) {
+  if (x <= 0 || (x & (x - 1))) return -1;
+  int l = 0;
+  while ((1 << l) < x) ++l;
+  return l;
 }
 
 // Start copying the (R x C) tile at (r0, c0) of a strided (nr x nc) matrix

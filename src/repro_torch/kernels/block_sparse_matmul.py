@@ -1,6 +1,7 @@
 """Block-sparse (BSR) matmul: the Hopper kernel K9 + its plain version.
 
-Kernel (CUDA C++, `csrc/block_sparse_matmul.cu`): K9, one kernel per loop
+Kernel (CUDA C++, `csrc/block_sparse_matmul.cu` for k_inner and a_resident,
+`csrc/block_sparse_b_resident.cu` for b_resident): K9, one kernel per loop
 order of the dense family (k_inner, a_resident, b_resident), replacing
 `repro/sparse/kernels.py::block_sparse_matmul_padded`:
 
@@ -21,7 +22,10 @@ in the layout's order and applies the epilogue once.
 a_resident keeps the fp32 sums of its CTA's columns in registers (no
 workspace); `a_resident_config` gives the kernel's warp layout and
 shared memory at a block shape, `a_resident_chunk` the columns one CTA
-holds.
+holds.  b_resident is its mirror: the sums of a chunk of row blocks in
+registers, the chunk's column blocks walked in ascending order so that
+each B slice is fetched once per chunk; `b_resident_config` /
+`b_resident_chunk` give its layout and chunk.
 
 `LAUNCHES` counts kernel launches per schedule, on the CUDA path only.
 """
@@ -112,6 +116,82 @@ def a_resident_chunk(gm: int, n: int, bm: int, bk: int, dtype: torch.dtype,
     return per
 
 
+# Shared memory of b_resident's control block (`BrCtl` in the source:
+# 8 cursors, 8 heads, 3 ints and 16 descriptors of 4 ints), 128-aligned.
+BR_CTL_BYTES = 384
+
+
+@dataclasses.dataclass(frozen=True)
+class BRConfig:
+    """b_resident's shape on the card (mirrors `br_config` in
+    csrc/block_sparse_b_resident.cu).  The CTA covers tile_w columns (bf16:
+    the widest power-of-two multiple of 16 within bn and 128; fp32: 16;
+    halved until mr fits) of a chunk of row blocks; the 8 warps form a
+    wr x wc grid over a row block's bm x tile_w tile, a warp owning 16 * mr
+    rows (mr at most 4 for bf16, 2 for fp32: the kernels built) and one
+    16-column strip.  A blocks and B slices stream through `stages` (2-4)
+    shared-memory stages, as many as leave room for two CTAs an SM, else
+    as many as fit one; `smem` is -1 when no shape fits."""
+
+    wr: int
+    wc: int
+    tile_w: int
+    mr: int
+    stages: int
+    smem: int
+
+    @property
+    def max_rows(self) -> int:
+        """Row blocks a CTA may hold: 8 / mr, so a lane keeps
+        `AR_SUMS_PER_LANE` sums (8 per 16 x 16 accumulator)."""
+        return 8 // self.mr
+
+
+def b_resident_config(bm: int, bk: int, bn: int,
+                      dtype: torch.dtype) -> BRConfig:
+    size = 2 if dtype == torch.bfloat16 else 4
+    pad = 16 // size
+    bm16 = -(-bm // 16)
+    mr_max = 4 if size == 2 else 2
+    tw = 16
+    while 2 * tw <= bn and 2 * tw <= 128 and size == 2:
+        tw *= 2
+    while True:
+        wc = tw // 16
+        wr = 8 // wc
+        need = -(-bm16 // wr)
+        mr = 1
+        while mr < need:
+            mr *= 2
+        if mr <= mr_max or tw == 16:
+            break
+        tw //= 2
+    if mr > mr_max:
+        return BRConfig(wr, wc, tw, mr, 0, -1)
+    st = (_mm._round_up(bm * (bk + pad) * size, 128)
+          + _mm._round_up(bk * (tw + pad) * size, 128))
+    for cap in ((_mm.SMEM_MAX - 1024) // 2, _mm.SMEM_MAX):
+        for stages in (4, 3, 2):
+            if stages * st + BR_CTL_BYTES <= cap:
+                return BRConfig(wr, wc, tw, mr, stages,
+                                stages * st + BR_CTL_BYTES)
+    return BRConfig(wr, wc, tw, mr, 0, -1)
+
+
+def b_resident_chunk(gm: int, n: int, bm: int, bk: int, bn: int,
+                     dtype: torch.dtype, sms: int) -> int:
+    """Row blocks one b_resident CTA holds: as many as its registers allow
+    (`max_rows`: 8 at bm 32 with bn 64), fewer where that would leave under
+    2 x `sms` CTAs and more chunks can be had.  The chunks tile the row
+    blocks [0, gm) in order, the last one ragged."""
+    cfg = b_resident_config(bm, bk, bn, dtype)
+    tiles = max(1, -(-n // cfg.tile_w))
+    per = min(cfg.max_rows, max(1, gm))
+    while per > 1 and -(-gm // per) * tiles < 2 * sms:
+        per -= 1
+    return per
+
+
 # ------------------------------------------------------------ plain version
 def block_sparse_matmul_plain(a: torch.Tensor, b: torch.Tensor, layout,
                               bias=None, residual=None, *, epilogue=None,
@@ -143,9 +223,21 @@ def _lib() -> ctypes.CDLL:
     p, i, ll, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, \
         ctypes.c_float
     lib.rt_block_sparse_matmul.argtypes = [
-        i, i, i, p, p, i, p, ll, ll, p, ll, ll, p, p, i, i, i, i, i, i, i,
+        i, i, i, p, p, i, p, ll, ll, p, ll, ll, p, i, i, i, i, i, i, i,
         f, i, p, i, i, p, i, ll, ll, p]
     lib.rt_block_sparse_matmul.restype = i
+    return lib
+
+
+@functools.lru_cache(maxsize=None)
+def _lib_b_resident() -> ctypes.CDLL:
+    lib = build.load("block_sparse_b_resident")
+    p, i, ll, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, \
+        ctypes.c_float
+    lib.rt_block_sparse_b_resident.argtypes = [
+        i, i, p, p, i, p, ll, ll, p, ll, ll, p, i, i, i, i, i, i, i,
+        f, i, p, i, i, p, i, ll, ll, p]
+    lib.rt_block_sparse_b_resident.restype = i
     return lib
 
 
@@ -178,7 +270,7 @@ def block_sparse_matmul_cuda(a, b, layout, bias=None, residual=None, *,
                         f"got {out_dtype}")
     bm, bk = layout.block_shape
     _mm.check_blocks(a.dtype, bm, bk, bn)
-    gm, gn = layout.gm, -(-n // bn)
+    gm = layout.gm
     if gm > 65535:
         raise ValueError(f"grid too large: gm={gm}")
     if residual is not None and tuple(residual.shape) != (m, n):
@@ -188,7 +280,6 @@ def block_sparse_matmul_cuda(a, b, layout, bias=None, residual=None, *,
      rst, keep) = _mm.epilogue_args(epilogue, bias, residual, a.device, n)
     cols, nnz = layout.device_tensors(a.device)
     out = torch.empty((m, n), dtype=out_dtype, device=a.device)
-    ws = None
     chunks = 1
     if sid == 1:
         if a_resident_config(bm, bk, a.dtype).smem < 0:
@@ -198,18 +289,30 @@ def block_sparse_matmul_cuda(a, b, layout, bias=None, residual=None, *,
         chunks = a_resident_chunk(gm, n, bm, bk, a.dtype,
                                   _mm._sm_count(a.device.index or 0))
     elif sid == 2:
-        sms = _mm._sm_count(a.device.index or 0)
-        chunks = max(1, min(gm, -(-2 * sms // gn)))
-        if layout.s_max > 1:
-            ws = torch.empty((m, n), dtype=torch.float32, device=a.device)
+        cfg = b_resident_config(bm, bk, bn, a.dtype)
+        if cfg.smem < 0:
+            raise ValueError(f"b_resident cannot take blocks {(bm, bk)} of "
+                             f"{a.dtype}: no pipeline fits the {_mm.SMEM_MAX}"
+                             f" bytes of shared memory a CTA may use")
+        if -(-n // cfg.tile_w) > 65535:
+            raise ValueError(f"grid too large: n={n}")
+        chunks = b_resident_chunk(gm, n, bm, bk, bn, a.dtype,
+                                  _mm._sm_count(a.device.index or 0))
     stream = torch.cuda.current_stream(a.device).cuda_stream
-    err = _lib().rt_block_sparse_matmul(
-        sid, in_bf16, out_bf16, cols.data_ptr(), nnz.data_ptr(),
-        layout.s_max, a.data_ptr(), a.stride(0), a.stride(1), b.data_ptr(),
-        b.stride(0), b.stride(1), out.data_ptr(),
-        None if ws is None else ws.data_ptr(), m, k, n, bm, bk, bn, chunks,
-        scale, has_scale, bias_ptr, bias_bf16, act, res_ptr, res_bf16,
-        rst[1], rst[2], stream)
+    if sid == 2:
+        err = _lib_b_resident().rt_block_sparse_b_resident(
+            in_bf16, out_bf16, cols.data_ptr(), nnz.data_ptr(), layout.s_max,
+            a.data_ptr(), a.stride(0), a.stride(1), b.data_ptr(),
+            b.stride(0), b.stride(1), out.data_ptr(), m, k, n, bm, bk, bn,
+            chunks, scale, has_scale, bias_ptr, bias_bf16, act, res_ptr,
+            res_bf16, rst[1], rst[2], stream)
+    else:
+        err = _lib().rt_block_sparse_matmul(
+            sid, in_bf16, out_bf16, cols.data_ptr(), nnz.data_ptr(),
+            layout.s_max, a.data_ptr(), a.stride(0), a.stride(1),
+            b.data_ptr(), b.stride(0), b.stride(1), out.data_ptr(), m, k, n,
+            bm, bk, bn, chunks, scale, has_scale, bias_ptr, bias_bf16, act,
+            res_ptr, res_bf16, rst[1], rst[2], stream)
     build.check(err, f"block_sparse_matmul[{schedule}]")
     del keep
     LAUNCHES[f"block_sparse_matmul_{schedule}"] += 1

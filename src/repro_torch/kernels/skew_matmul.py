@@ -14,6 +14,11 @@ with fp32 accumulation, the epilogue at fp32 and one cast.  Operands need
 no padding: the kernels mask ragged edges and read A and B through their
 strides, so a transposed view (a tied embedding used as E^T) costs no copy.
 
+k_inner (K1's planned schedule, and K2) keeps its fp32 sums in registers,
+streams A and B through a `cp.async` ring and stacks the batch slices'
+rows, so decode's 4 x 1 rows read B once; `k_inner_config` gives its CTA
+tile, ring and grid (mirroring `ki_config` in the source).
+
 `skew_matmul` / `skew_matmul_batched` dispatch on the device of their
 input: a CUDA tensor always launches the kernel (or raises); a CPU tensor
 runs the plain version, which repeats the kernels' arithmetic — fp32 sums
@@ -27,6 +32,7 @@ from __future__ import annotations
 
 import collections
 import ctypes
+import dataclasses
 import functools
 
 import torch
@@ -87,13 +93,130 @@ def _round_up(a: int, b: int) -> int:
 
 
 def smem_bytes(dtype: torch.dtype, bm: int, bk: int, bn: int) -> int:
-    """Shared memory one CTA of the dense kernels uses (mirrors
-    `tile_smem_bytes` in csrc/common.cuh)."""
+    """Shared memory of one plan block's tile set, A, B and an fp32 C
+    (mirrors `tile_smem_bytes` in csrc/common.cuh): what a CTA of the
+    dense a/b_resident, split-K, grouped and K9 k_inner kernels uses, and
+    the budget within which k_inner's ring fits (`k_inner_config`)."""
     size = 2 if dtype == torch.bfloat16 else 4
     pad = 16 // size
     return (_round_up(bm * (bk + pad) * size, 128)
             + _round_up(bk * (bn + pad) * size, 128)
             + _round_up(bm * (bn + 4) * 4, 128))
+
+
+@dataclasses.dataclass(frozen=True)
+class KInnerConfig:
+    """k_inner's shape on the card (mirrors `ki_config` in
+    csrc/skew_matmul.cu).  The CTA covers `rows` x `tile_w` of the plan's
+    (bm, bn) block.  rows: bf16 8 when the stacked rows fit in 8 (the
+    MMA's other 8 rows read a zero row), else min(bm, 64, the 16-row
+    granules the rows fill); fp32 16.  mr: 16-row fragments a warp holds
+    (1 or 4, the only kernels built).  tile_w: the widest power-of-two
+    multiple of 16 within bn and 128 (a 16-column strip for each of the 8
+    warps, whose sums stay in registers), or, where that grid has fewer
+    than `sms` CTAs, the narrower one `_narrow_tile` picks; for a
+    transposed B (`b_trans`: copied n-major) halved until each slice is
+    128 bytes deep.  A and B stream in `ks`-deep slices (a power of two
+    dividing round_up(k, bk)) through `stages` >= 3 shared-memory stages
+    (bf16 tiles unpadded and XOR-swizzled, fp32 tiles with a 16-byte row
+    pad).  `smem` never exceeds the plan's tile set (`smem_bytes`) unless
+    that cannot hold three 16-deep stages."""
+
+    rows: int
+    mr: int
+    tile_w: int
+    ks: int
+    stages: int
+    b_trans: bool
+    gm: int
+    gn: int
+    smem: int
+
+
+def _narrow_tile(gm: int, n: int, tw: int, sms: int) -> int:
+    """Below a grid of `tw`-wide tiles that leaves SMs idle: the widest
+    narrower power of two whose grid fills the card with its CTAs spread
+    evenly (the busiest SM at most 1 / 0.85 of the mean), else the most
+    even of those that fill it (16 columns at the least)."""
+    best, best_bal = 16, -1.0
+    w = tw // 2
+    while w >= 16:
+        ctas = gm * -(-n // w)
+        if ctas >= sms or w == 16:
+            bal = ctas / (sms * -(-ctas // sms))
+            if bal >= 0.85:
+                return w
+            if bal > best_bal:
+                best, best_bal = w, bal
+        w //= 2
+    return best
+
+
+def _ki_stage_bytes(size: int, rows: int, tw: int, ks: int,
+                    b_trans: bool) -> int:
+    pad = 0 if size == 2 else 16 // size     # bf16 tiles are swizzled
+    a = _round_up(rows * (ks + pad) * size, 128)
+    b = (tw * (ks + pad) if b_trans else ks * (tw + pad)) * size
+    return a + _round_up(b, 128)
+
+
+def _ki_fixed_bytes(size: int, rows: int, ks: int) -> int:
+    """The row offset table, and an 8-row tile's zero row."""
+    return (_round_up(rows * 8, 128)
+            + (_round_up(ks * size, 128) if rows < 16 else 0))
+
+
+def _ki_ring(size: int, rows: int, tw: int, kp: int, b_trans: bool,
+             plan: int) -> tuple[int, int, int]:
+    """(ks, stages, smem) of the deepest ring for a tile width: a
+    power-of-two slice up to 256 deep that divides kp and leaves room for
+    >= 3 stages (at most 8) in the budget."""
+    budget = max(plan, _ki_fixed_bytes(size, rows, 16)
+                 + 3 * _ki_stage_bytes(size, rows, tw, 16, b_trans))
+    ks = 256
+    while ks >= 16:
+        if kp % ks == 0:
+            st = _ki_stage_bytes(size, rows, tw, ks, b_trans)
+            fixed = _ki_fixed_bytes(size, rows, ks)
+            stages = (budget - fixed) // st
+            if stages >= 3:
+                stages = min(stages, 8)
+                return ks, stages, fixed + stages * st
+        ks //= 2
+    raise AssertionError("unreachable: 16-deep stages always fit")
+
+
+@functools.lru_cache(maxsize=4096)
+def k_inner_config(rows_total: int, k: int, n: int, bm: int, bk: int,
+                   bn: int, dtype: torch.dtype, b_trans: bool,
+                   sms: int) -> KInnerConfig:
+    """The k_inner CTA tile, ring and grid for `rows_total` = nb * m
+    stacked rows against a (k, n) B at the plan's blocks on a card with
+    `sms` SMs."""
+    size = 2 if dtype == torch.bfloat16 else 4
+    if size == 4:
+        rows = 16
+    elif rows_total <= 8:
+        rows = 8
+    else:
+        rows = min(bm, 64, _round_up(rows_total, 16))
+    mr = 1 if rows <= 16 else 4
+    tw = 16
+    while 2 * tw <= bn and 2 * tw <= 128:
+        tw *= 2
+    gm = -(-rows_total // rows)
+    if gm * -(-n // tw) < sms:
+        tw = _narrow_tile(gm, n, tw, sms)
+    plan = smem_bytes(dtype, bm, bk, bn)
+    kp = _round_up(k, bk)
+    ks, stages, smem = _ki_ring(size, rows, tw, kp, b_trans, plan)
+    # a transposed B is read in runs of ks elements along k: narrow the
+    # tile until they are 128 bytes long
+    while b_trans and tw > 16 and ks * size < 128:
+        tw //= 2
+        ks, stages, smem = _ki_ring(size, rows, tw, kp, b_trans, plan)
+    return KInnerConfig(rows, mr, tw, ks, stages, b_trans, gm, -(-n // tw),
+                        smem)
 
 
 def _dtype_flag(t: torch.Tensor, what: str) -> int:
@@ -166,8 +289,15 @@ def _launch(schedule: str, a3: torch.Tensor, b: torch.Tensor, bias,
                         f"got {out_dtype}")
     check_blocks(a3.dtype, bm, bk, bn)
     gm, gn, gk = -(-m // bm), -(-n // bn), -(-k // bk)
-    if gm > 65535 or nb > 65535:
-        raise ValueError(f"grid too large: gm={gm}, nb={nb}")
+    sid = SCHEDULE_IDS[schedule]
+    sms = _sm_count(a3.device.index or 0)
+    if sid == 0:
+        b_trans = b.stride(0) == 1 and b.stride(1) != 1
+        cfg = k_inner_config(nb * m, k, n, bm, bk, bn, a3.dtype, b_trans, sms)
+        if cfg.gn > 65535:
+            raise ValueError(f"grid too large: {cfg.gn} column tiles")
+    elif gm > 65535:
+        raise ValueError(f"grid too large: gm={gm}")
     if residual is not None:
         if tuple(residual.shape[-2:]) != (m, n) or (
                 residual.dim() == 3 and residual.shape[0] != nb):
@@ -178,11 +308,9 @@ def _launch(schedule: str, a3: torch.Tensor, b: torch.Tensor, bias,
     (scale, has_scale, bias_ptr, bias_bf16, act, res_ptr, res_bf16,
      rst, keep) = epilogue_args(epilogue, bias, residual, a3.device, n)
     out = torch.empty((nb, m, n), dtype=out_dtype, device=a3.device)
-    sid = SCHEDULE_IDS[schedule]
     ws = None
-    chunks = 1
+    chunks = sms                 # k_inner: the SM count its tiling targets
     if sid:
-        sms = _sm_count(a3.device.index or 0)
         if sid == 1:
             chunks = max(1, min(gn, -(-2 * sms // gm)))
         else:

@@ -11,6 +11,18 @@
   cover every column tile exactly once, hold no more sums a lane than
   `AR_SUMS_PER_LANE`, and keep at least 2 x SMs CTAs where the grid
   allows, for SM counts 78, 114 and 132.
+* K1 k_inner (and K2): `k_inner_config` keeps its ring within the plan's
+  tile set (`smem_bytes`) and the 227 KB limit, covers each output column
+  and stacked row exactly once, reaches >= 132 CTAs at decode on a
+  132-SM card, and leaves today's grid where that already fills the card
+  (bf16, row-major B; a block taller than 64 rows or wider than 128
+  columns is covered by CTAs of 64 x 128, and a transposed B narrows the
+  tile for 128-byte runs along k).
+* K9 b_resident: `b_resident_config` / `b_resident_chunk` fit, lay out all
+  8 warps, and cover every row block once; a numpy mirror of the kernel's
+  walk (column blocks ascending, thread 0's merge of the rows' sorted
+  lists) visits each (row block, nonzero block) once, in each row's s
+  order, and fetches each B slice once per chunk.
 """
 
 import numpy as np
@@ -19,6 +31,7 @@ import torch
 
 from repro_torch.kernels import block_sparse_matmul as bsr
 from repro_torch.kernels import gemv_splitk as gk_mod
+from repro_torch.kernels import skew_matmul as mm
 
 SMEM_MAX = 232_448
 RNG = np.random.default_rng(16)
@@ -157,3 +170,275 @@ def test_a_resident_chunk_at_the_tuners_shape():
     assert bsr.a_resident_chunk(32, 4096, 128, 128, torch.bfloat16, 132) == 1
     # a small grid takes narrower chunks to fill the card
     assert bsr.a_resident_chunk(100, 600, 32, 128, torch.bfloat16, 132) == 2
+
+
+# ------------------------------------------------------------------ K1 k_inner
+# (m, k, n, nb): phi4 decode o / down / gate-up rows, the LM head, prefill,
+# K2's 4 x 1 and 4 x 128 rows, the tuner's 4096^3, small and ragged shapes
+KI_SHAPES = [(4, 3072, 3072, 1), (4, 8192, 3072, 1), (4, 3072, 16384, 1),
+             (4, 3072, 200064, 1), (1, 3072, 200064, 4), (512, 3072, 8192, 1),
+             (128, 3072, 8192, 4), (4096, 4096, 4096, 1), (1, 3072, 3072, 1),
+             (16, 3072, 3072, 1), (100, 320, 200, 1), (40, 192, 130, 3),
+             (3, 700, 90, 5), (1, 16, 16, 1)]
+KI_BLOCKS = [(64, 64, 128), (64, 128, 128), (128, 64, 128), (16, 16, 16),
+             (64, 64, 64), (32, 64, 256), (256, 16, 64), (64, 64, 192),
+             (48, 80, 112)]
+
+
+@pytest.mark.parametrize("sms", [78, 132])
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("blocks", KI_BLOCKS)
+def test_k_inner_config_fits_and_covers_every_output_once(blocks, dtype, sms):
+    bm, bk, bn = blocks
+    if mm.smem_bytes(dtype, bm, bk, bn) > SMEM_MAX:
+        with pytest.raises(ValueError, match="shared"):
+            mm.check_blocks(dtype, bm, bk, bn)
+        return
+    size = 2 if dtype == torch.bfloat16 else 4
+    for m, k, n, nb in KI_SHAPES:
+        for b_trans in (False, True):
+            c = mm.k_inner_config(nb * m, k, n, bm, bk, bn, dtype, b_trans,
+                                  sms)
+            # the ring: >= 3 stages of a power-of-two slice dividing the
+            # zero-padded k, within the plan's tile set (or three 16-deep
+            # stages where that cannot hold them) and the 227 KB limit
+            assert c.stages >= 3 and c.ks & (c.ks - 1) == 0 and c.ks >= 16
+            assert -(-k // bk) * bk % c.ks == 0
+            pad = 0 if size == 2 else 16 // size   # bf16 tiles: swizzled
+            a_bytes = -(-c.rows * (c.ks + pad) * size // 128) * 128
+            b_elems = (c.tile_w * (c.ks + pad) if b_trans
+                       else c.ks * (c.tile_w + pad))
+            stage = a_bytes + -(-b_elems * size // 128) * 128
+            assert stage == mm._ki_stage_bytes(size, c.rows, c.tile_w, c.ks,
+                                               b_trans)
+            table = -(-c.rows * 8 // 128) * 128
+            zrow = -(-c.ks * size // 128) * 128 if c.rows < 16 else 0
+            assert c.smem == table + zrow + c.stages * stage <= SMEM_MAX
+            floor = (table + (32 * size if c.rows < 16 else 0)
+                     + 3 * mm._ki_stage_bytes(size, c.rows, c.tile_w, 16,
+                                              b_trans))
+            assert c.smem <= max(mm.smem_bytes(dtype, bm, bk, bn), floor)
+            # the tile: 16-row granules within bm (at most 64 rows for
+            # bf16, 16 for fp32: a warp holds 1 or 4 fragments, the only
+            # kernels built), or 8 rows of bf16 when every row fits; a
+            # power-of-two number of 16-column strips within bn, at most
+            # one a warp, and at most 64 sums a lane
+            if size == 2 and nb * m <= 8:
+                assert c.rows == 8
+            else:
+                assert c.rows % 16 == 0
+                assert c.rows <= min(bm, 64 if size == 2 else 16)
+            assert c.mr == (1 if c.rows <= 16 else 4)
+            assert c.tile_w % 16 == 0 and c.tile_w & (c.tile_w - 1) == 0
+            assert c.tile_w <= min(128, max(16, bn))
+            assert c.mr * 8 <= bsr.AR_SUMS_PER_LANE
+            if b_trans and c.tile_w > 16:     # runs of 128 bytes along k
+                assert c.ks * size >= 128
+            # every stacked row and every column exactly once
+            rows = [c.rows * i + r for i in range(c.gm)
+                    for r in range(c.rows) if c.rows * i + r < nb * m]
+            assert rows == list(range(nb * m))
+            cols = [c.tile_w * j + x for j in range(c.gn)
+                    for x in range(c.tile_w) if c.tile_w * j + x < n]
+            assert cols == list(range(n))
+            assert (c.gm - 1) * c.rows < nb * m <= c.gm * c.rows
+
+
+@pytest.mark.parametrize("n", [3072, 8192, 16384, 200064])
+def test_k_inner_config_fills_a_132_sm_card_at_decode(n):
+    for m, b_trans in ((1, False), (4, False), (16, False), (4, True)):
+        c = mm.k_inner_config(m, 3072, n, 64, 64, 128, torch.bfloat16,
+                              b_trans, 132)
+        assert c.gm * c.gn >= 132
+        # one MMA granule, not 64 rows; up to 8 rows, half of it
+        assert c.rows == (8 if m <= 8 else 16) and c.mr == 1
+    # today's grid at n = 3072 is 24 CTAs; 16-column tiles give 192
+    c = mm.k_inner_config(4, 3072, 3072, 64, 64, 128, torch.bfloat16, False,
+                          132)
+    assert (c.tile_w, c.gm * c.gn) == (16, 192)
+    # n = 5120: 320 CTAs of 16 columns (2.4 an SM, the busiest 3), not 160
+    # of 32 (the busiest SM 2 against a mean of 1.2); n = 8192 and 16384:
+    # the widest tile that fills the card evenly
+    for n, tw in ((5120, 16), (8192, 32), (16384, 64), (6144, 16)):
+        c = mm.k_inner_config(4, 3072, n, 64, 64, 128, torch.bfloat16,
+                              False, 132)
+        assert c.tile_w == tw
+    # the LM head's E^T: 128 columns a CTA, read 64 deep (128 bytes a row)
+    c = mm.k_inner_config(4, 3072, 200064, 64, 64, 128, torch.bfloat16, True,
+                          132)
+    assert (c.tile_w, c.ks, c.stages) == (128, 64, 3)
+    # the decode o / down projections: 8 rows, 16 columns, 256 deep
+    c = mm.k_inner_config(4, 8192, 3072, 64, 64, 128, torch.bfloat16, False,
+                          132)
+    assert (c.rows, c.tile_w, c.ks, c.stages) == (8, 16, 256, 4)
+
+
+def test_k_inner_config_stacks_decode_batches_into_one_row_tile():
+    # K2 at 4 x 1 rows: one row tile, B read once; the same grid as K1 at
+    # 4 rows
+    k2 = mm.k_inner_config(4 * 1, 3072, 200064, 64, 64, 128, torch.bfloat16,
+                           True, 132)
+    k1 = mm.k_inner_config(4, 3072, 200064, 64, 64, 128, torch.bfloat16,
+                           True, 132)
+    assert k2 == k1 and k2.gm == 1
+    # prefill batches of 128 rows: 64-row tiles that never straddle slices
+    c = mm.k_inner_config(4 * 128, 3072, 8192, 64, 64, 128, torch.bfloat16,
+                          False, 132)
+    assert (c.rows, c.gm) == (64, 8)
+
+
+@pytest.mark.parametrize("sms", [78, 114, 132])
+@pytest.mark.parametrize("blocks", [(64, 64, 128), (64, 128, 128),
+                                    (128, 64, 128), (64, 64, 64),
+                                    (32, 64, 256), (16, 16, 16)])
+def test_k_inner_config_keeps_todays_grid_where_it_fills_the_card(blocks,
+                                                                  sms):
+    bm, bk, bn = blocks
+    for m, k, n in ((512, 3072, 8192), (4096, 4096, 4096), (4, 3072, 200064),
+                    (100, 320, 200), (256, 1024, 1024)):
+        today = -(-m // bm) * -(-n // bn)
+        c = mm.k_inner_config(m, k, n, bm, bk, bn, torch.bfloat16, False,
+                              sms)
+        rows = min(bm, 64)           # a taller block: 64-row CTAs
+        if today >= sms and bn <= 128:
+            assert (c.gm, c.gn, c.tile_w) == (-(-m // rows), -(-n // bn),
+                                              bn)
+        elif today >= sms:           # a wider block: 128-column CTAs
+            assert (c.gm, c.tile_w) == (-(-m // rows), 128)
+        else:
+            assert c.gm * c.gn >= min(sms, c.gm * -(-n // 16))
+
+
+# ------------------------------------------------------------------ K9 b_resident
+@pytest.mark.parametrize("bn", [16, 64, 128, 256])
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("block", BLOCKS)
+def test_b_resident_config_fits_and_lays_out_all_warps(block, dtype, bn):
+    bm, bk = block
+    cfg = bsr.b_resident_config(bm, bk, bn, dtype)
+    assert cfg.wr * cfg.wc == 8 and cfg.tile_w == 16 * cfg.wc
+    assert cfg.tile_w <= min(128, bn) and cfg.tile_w & (cfg.tile_w - 1) == 0
+    assert cfg.mr in (1, 2, 4, 8)
+    if dtype == torch.float32:
+        assert cfg.tile_w == 16
+    if cfg.smem > 0:                 # only mr <= 4 (bf16) / 2 (fp32) built
+        assert cfg.mr <= (4 if dtype == torch.bfloat16 else 2)
+        assert cfg.wr * cfg.mr * 16 >= bm       # the warps cover the rows
+    assert cfg.max_rows * cfg.mr * 8 <= bsr.AR_SUMS_PER_LANE
+    if cfg.smem < 0:
+        return
+    size = 2 if dtype == torch.bfloat16 else 4
+    pad = 16 // size
+    stage = (-(-bm * (bk + pad) * size // 128) * 128
+             + -(-bk * (cfg.tile_w + pad) * size // 128) * 128)
+    assert 2 <= cfg.stages <= 4
+    assert cfg.smem == cfg.stages * stage + bsr.BR_CTL_BYTES <= SMEM_MAX
+    two_per_sm = (SMEM_MAX - 1024) // 2
+    if cfg.stages < 4 and cfg.smem <= two_per_sm:   # a deeper ring would
+        assert (cfg.stages + 1) * stage + bsr.BR_CTL_BYTES > two_per_sm
+
+
+@pytest.mark.parametrize("block", [(32, 128), (64, 64), (128, 128)])
+def test_b_resident_config_puts_all_8_warps_on_the_tuners_blocks(block):
+    for dtype in DTYPES:
+        cfg = bsr.b_resident_config(*block, 64, dtype)
+        assert cfg.smem > 0 and cfg.wr * cfg.wc == 8
+        # every warp has a fragment of every row block: rows and strips
+        # tile the bm x tile_w tile (bf16: 64 columns, fp32: 16)
+        assert cfg.tile_w == (64 if dtype == torch.bfloat16 else 16)
+        assert cfg.wr * cfg.mr * 16 == max(16 * cfg.wr, block[0])
+    c = bsr.b_resident_config(32, 128, 64, torch.bfloat16)
+    assert (c.wr, c.wc, c.mr, c.max_rows, c.stages) == (2, 4, 1, 8, 4)
+    # 4096^2, (32, 128), n 4096 on 132 SMs: 8 row blocks a CTA, 16 chunks
+    # x 64 column tiles = 1024 CTAs
+    assert bsr.b_resident_chunk(128, 4096, 32, 128, 64, torch.bfloat16,
+                                132) == 8
+
+
+@pytest.mark.parametrize("sms", [78, 132])
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("block", BLOCKS)
+def test_b_resident_chunks_cover_every_row_block_once(block, dtype, sms):
+    bm, bk = block
+    for bn in (64, 128):
+        cfg = bsr.b_resident_config(bm, bk, bn, dtype)
+        for gm in (1, 3, 16, 100, 128, 1000):
+            for n in (90, 700, 4096):
+                per = bsr.b_resident_chunk(gm, n, bm, bk, bn, dtype, sms)
+                assert 1 <= per <= max(1, min(cfg.max_rows, gm))
+                chunks = -(-gm // per)
+                seen = [i for c in range(chunks)
+                        for i in range(c * per, min(gm, (c + 1) * per))]
+                assert seen == list(range(gm))
+                tiles = -(-n // cfg.tile_w)
+                if per > 1:
+                    assert chunks * tiles >= 2 * sms
+                if per < min(cfg.max_rows, gm):
+                    assert -(-gm // (per + 1)) * tiles < 2 * sms
+
+
+def _b_resident_walk(cols: np.ndarray, nnz: np.ndarray, i0: int, per: int):
+    """The kernel's steps for the CTA holding row blocks i0 .. i0 + per - 1:
+    thread 0 keeps one cursor per row block; a step takes, within the
+    current column block, the next row block (in row order) whose cursor
+    points at it, else opens the smallest column block at any cursor (and
+    fetches its B slice).  Returns the steps and the column blocks opened."""
+    rows = list(range(i0, min(i0 + per, len(nnz))))
+    cur = np.zeros(len(rows), np.int64)
+    big = np.iinfo(np.int64).max
+    head = np.array([cols[i, 0] if nnz[i] else big for i in rows])
+    kb, rr = -1, len(rows)
+    steps, opened = [], []
+    for _ in range(int(nnz[rows].sum())):
+        nxt = [j for j in range(rr + 1, len(rows)) if head[j] == kb]
+        if nxt:
+            r = nxt[0]
+        else:
+            kb = int(head.min())
+            opened.append(kb)
+            r = int(np.flatnonzero(head == kb)[0])
+        rr = r
+        steps.append((rows[r], kb))
+        cur[r] += 1
+        head[r] = cols[rows[r], cur[r]] if cur[r] < nnz[rows[r]] else big
+    return steps, opened
+
+
+def _random_layout(gm: int, gk: int, density: float, seed: int,
+                   empty_every: int = 0):
+    rng = np.random.default_rng(seed)
+    mask = rng.random((gm, gk)) < density
+    if empty_every:
+        mask[::empty_every] = False
+    nnz = mask.sum(1)
+    cols = np.zeros((gm, max(1, gk)), np.int64)
+    for i in range(gm):
+        c = np.flatnonzero(mask[i])
+        cols[i, :len(c)] = c
+    return cols, nnz
+
+
+@pytest.mark.parametrize("case", [
+    # (gm, gk, density, seed, empty_every, per)
+    (128, 32, 0.25, 0, 0, 8), (128, 32, 0.5, 1, 0, 8), (128, 32, 1.0, 2, 0, 8),
+    (32, 32, 0.1, 3, 0, 2), (32, 32, 0.4, 4, 0, 2), (64, 64, 0.05, 5, 3, 4),
+    (32, 12, 0.5, 6, 3, 8),      # a ragged last row block (m = 1000 at bm 32)
+    (7, 5, 0.0, 7, 0, 8), (9, 40, 0.3, 8, 2, 3), (1, 1, 1.0, 9, 0, 1),
+    (50, 20, 0.7, 10, 5, 7)])
+def test_b_resident_walk_visits_every_block_once_in_s_order(case):
+    gm, gk, density, seed, empty_every, per = case
+    cols, nnz = _random_layout(gm, gk, density, seed, empty_every)
+    visits = []
+    for i0 in range(0, gm, per):
+        steps, opened = _b_resident_walk(cols, nnz, i0, per)
+        # each B slice once per chunk, in ascending order
+        assert opened == sorted(set(opened))
+        assert opened == sorted({kb for _, kb in steps})
+        kbs = [kb for _, kb in steps]
+        assert kbs == sorted(kbs)
+        visits += steps
+    assert sorted(visits) == sorted((i, int(cols[i, s])) for i in range(gm)
+                                    for s in range(nnz[i]))
+    assert len(set(visits)) == len(visits)
+    for i in range(gm):           # each row's blocks arrive in its s order
+        assert [kb for r, kb in visits if r == i] == list(cols[i, :nnz[i]])

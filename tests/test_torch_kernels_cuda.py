@@ -108,6 +108,82 @@ def test_transposed_b_and_decode_rows(dev, dtype):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("m", [1, 4, 16])
+def test_k_inner_decode_rows_at_phi4_widths(dev, dtype, m):
+    """k_inner at decode rows against its plain version: the o projection
+    (row-major B, 16-column tiles so the grid fills the card) and a tied
+    embedding read as E^T in place (n-major copies), with the plan's
+    (64, 64, 128) blocks."""
+    w = _t((3072, 3072), dtype, dev, 3072 ** -0.5)
+    emb = _t((4000, 3072), dtype, dev, 0.02)
+    a = _t((m, 3072), dtype, dev)
+    for b, spec in ((w, "residual"), (emb.T, None)):
+        tokens, bias, res = _operands(spec, m, b.shape[1], dtype, dev)
+        for out_dtype in (dtype, torch.float32):
+            got = mm_mod.skew_matmul_cuda(a, b, bias, res, bm=64, bk=64,
+                                          bn=128, epilogue=tokens,
+                                          out_dtype=out_dtype)
+            want = mm_mod.skew_matmul_plain(a, b, bias, res, bk=64,
+                                            epilogue=tokens,
+                                            out_dtype=out_dtype)
+            torch.cuda.synchronize()
+            torch.testing.assert_close(got.float(), want.float(),
+                                       **TOL[out_dtype])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("m", [3, 37])
+def test_k_inner_reads_any_strides_bitwise(dev, dtype, m):
+    """A transposed A and a B with a column stride of 2 (no 16-byte copies:
+    the element loads) or a transposed B (n-major copies) give the same
+    bits as contiguous operands: the layout moves no sum."""
+    k, n = 333, 150
+    a = _t((m, k), dtype, dev)
+    b = _t((k, n), dtype, dev, k ** -0.5)
+    want = mm_mod.skew_matmul_cuda(a, b, bm=64, bk=64, bn=128,
+                                   out_dtype=torch.float32)
+    a_t = a.T.contiguous().T                          # sa_k = m
+    b_s = torch.zeros((k, 2 * n), dtype=dtype, device=dev)[:, ::2]
+    b_s.copy_(b)                                      # sb_n = 2
+    b_t = b.T.contiguous().T                          # sb_k = 1
+    for aa, bb in ((a_t, b), (a, b_s), (a, b_t), (a_t, b_t)):
+        got = mm_mod.skew_matmul_cuda(aa, bb, bm=64, bk=64, bn=128,
+                                      out_dtype=torch.float32)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("rows", [(4, 1), (3, 5), (4, 128), (3, 40)])
+def test_batched_bitwise_equals_separate_k1_calls(dev, dtype, rows):
+    """K2 stacks the batch slices' rows (all in one row tile when nb * m
+    <= 16, across tiles otherwise); each row keeps its own A slice and
+    residual batch stride, so the output equals nb K1 calls bit for bit,
+    with B row-major and as a transposed view."""
+    nb, m = rows
+    k, n = 200, 300
+    a = _t((nb, 2 * m, k), dtype, dev)[:, ::2]          # strided rows
+    res = _t((n, m, nb), dtype, dev).permute(2, 1, 0)   # batch-strided
+    tokens = (("bias", None), ("silu", None), ("residual", None))
+    bias = _t((n,), dtype, dev)
+    for b in (_t((k, n), dtype, dev, k ** -0.5),
+              _t((n, k), dtype, dev, k ** -0.5).T):
+        for out_dtype in (dtype, torch.float32):
+            got = mm_mod.skew_matmul_batched_cuda(
+                a, b, bias, res, bm=64, bk=64, bn=128, epilogue=tokens,
+                out_dtype=out_dtype)
+            for i in range(nb):
+                want = mm_mod.skew_matmul_cuda(
+                    a[i], b, bias, res[i], bm=64, bk=64, bn=128,
+                    epilogue=tokens, out_dtype=out_dtype)
+                torch.cuda.synchronize()
+                assert torch.equal(got[i], want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_batched_matches_plain(dev, dtype):
     nb, m, k, n = 3, 40, 192, 130
     a, b = _t((nb, m, k), dtype, dev, 0.2), _t((k, n), dtype, dev, 0.2)
@@ -525,24 +601,35 @@ def test_block_sparse_a_resident_chunked_matches_plain(dev, dtype, block):
                                        **TOL[dtype])
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_block_sparse_a_resident_allocates_only_its_output(dev, dtype):
+def _allocates_only_its_output(dev, dtype, schedule):
     from repro_torch.kernels import block_sparse_matmul as bsr_mod
     m, k, n = 1024, 1024, 1024
     lay = _bsr_layout(m, k, (32, 128), 0.5, empty_rows=False)
     a, b = _t((m, k), dtype, dev, 0.2), _t((k, n), dtype, dev, 0.2)
     bsr_mod.block_sparse_matmul_cuda(a, b, lay, bn=64,
-                                     schedule="a_resident")   # tables, build
+                                     schedule=schedule)   # tables, build
     torch.cuda.synchronize()
     before = torch.cuda.memory_allocated(dev)
     torch.cuda.reset_peak_memory_stats(dev)
     out = bsr_mod.block_sparse_matmul_cuda(a, b, lay, bn=64,
-                                           schedule="a_resident",
+                                           schedule=schedule,
                                            out_dtype=dtype)
     torch.cuda.synchronize()
     grown = torch.cuda.max_memory_allocated(dev) - before
     assert grown == -(-out.numel() * out.element_size() // 512) * 512
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_block_sparse_a_resident_allocates_only_its_output(dev, dtype):
+    _allocates_only_its_output(dev, dtype, "a_resident")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_block_sparse_b_resident_allocates_only_its_output(dev, dtype):
+    """b_resident keeps its chunk's sums in registers: no fp32 workspace."""
+    _allocates_only_its_output(dev, dtype, "b_resident")
 
 
 @pytest.mark.cuda
