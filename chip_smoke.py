@@ -13,7 +13,9 @@ nonzero and prints no result:
   3. kernel parity — each dense kernel (K1-K4) against its plain PyTorch
      version on the card at phi4-mini-3.8b's shapes, bf16 and fp32, every
      schedule and epilogue on the path, K2 bitwise equal to one K1 call
-     per batch slice, plus split-K bitwise stability
+     per batch slice, a_resident at the tuner's decode rows (m 1 / 4 / 8
+     against 4096^2) and at the LM head's E^T, plus split-K bitwise
+     stability
      across split counts for integer-valued inputs, and K4 bitwise equal
      to the plain `tree_sum` reduce on random fp32 slabs of depth 7 to
      14600;
@@ -29,9 +31,11 @@ nonzero and prints no result:
   6. timings — each kernel, its plain version and one PyTorch call
      computing the same function (the yardstick; never on the port's path),
      with CUDA events, at the main path's shapes: K1 k_inner at the LM
-     head, the prefill and the decode gate/up, down and o projections, K2
-     at the LM head and the o projection (4 x 1 rows); K4 also at slab
-     depths 84 (dbrx's k 10752 at bk 128) and 101;
+     head, the prefill and the decode gate/up, down and o projections, K1
+     k_inner and a_resident (at its two candidate plans) at the tuner's
+     decode class 4 x 4096 x 4096, K2 at the LM head and the o projection
+     (4 x 1 rows); K4 also at slab depths 84 (dbrx's k 10752 at bk 128) and
+     101;
 then dbrx-132b's MoE layers, after phi4's weights are freed:
   3b. K5 parity — the grouped expert GEMM against its plain version at the
      dbrx decode shapes (16 experts x 8 capacity rows, gate/up and down),
@@ -100,7 +104,8 @@ then the measured autotuner and the block-sparse matmul:
   6e. timings — K9 at the tuner's 4096^2 (32, 128) layouts, d 0.25 / 0.5
      and 1.0, n 4096, each schedule the planner offers and b_resident, its
      plain version, its bound and `torch.matmul` of the pre-masked dense
-     A; K1 at the dense planner's 4096^3 plan beside it;
+     A; k_inner at the (128, 128, 64) fail-over plan on a (128, 128) d 0.4
+     layout; K1 at the dense planner's 4096^3 plan beside it;
   7. the `kernels` JSON line (K1-K9; launches summed over the five main
      paths), then the device line.
 Phi4's and dbrx's prefills reach K7 too (phases 4, 4b).
@@ -184,7 +189,7 @@ KERNELS = {
         "src/repro_torch/csrc/ssd_scan.cu",
         "src/repro/kernels/ssd_scan.py:96"),
     "block_sparse_matmul_k_inner": (
-        "src/repro_torch/csrc/block_sparse_matmul.cu",
+        "src/repro_torch/csrc/block_sparse_k_inner.cu",
         "src/repro/sparse/kernels.py:223"),
     "block_sparse_matmul_a_resident": (
         "src/repro_torch/csrc/block_sparse_matmul.cu",
@@ -419,6 +424,36 @@ def phase_parity(torch, cfg) -> dict:
                       f"{[t for t, _ in spec]}")
         del emb
         torch.cuda.empty_cache()
+
+    # a_resident at the tuner's decode classes (m 1 / 4 / 8 against
+    # 4096^2, its two candidate plans; 8-row tiles, up to 8 column tiles a
+    # CTA) and at the LM head's E^T for m 1 / 8 (phase 3's cases hold m 4)
+    t = TUNE_TOTAL
+    w = rnd((t, t), torch.bfloat16, t ** -0.5)
+    emb = rnd((v, d), torch.bfloat16, 0.02)
+    for m in (1, 4, 8):
+        a = rnd((m, t), torch.bfloat16)
+        for blocks in ((64, 128, 64), (64, 64, 64)):
+            got = mm.skew_matmul_cuda(a, w, bm=blocks[0], bk=blocks[1],
+                                      bn=blocks[2], schedule="a_resident",
+                                      out_dtype=torch.bfloat16)
+            want = mm.skew_matmul_plain(a, w, bk=blocks[1],
+                                        out_dtype=torch.bfloat16)
+            torch.cuda.synchronize()
+            check("skew_matmul_a_resident", got, want, torch.bfloat16,
+                  f"bf16 decode {m}x{t}x{t} blocks {blocks}")
+        if m != 4:
+            a = rnd((m, d), torch.bfloat16)
+            got = mm.skew_matmul_cuda(a, emb.T, bm=64, bk=64, bn=128,
+                                      schedule="a_resident",
+                                      out_dtype=torch.float32)
+            want = mm.skew_matmul_plain(a, emb.T, bk=64,
+                                        out_dtype=torch.float32)
+            torch.cuda.synchronize()
+            check("skew_matmul_a_resident", got, want, torch.float32,
+                  f"bf16 {m}x{d}x{v} E^T")
+    del w, emb
+    torch.cuda.empty_cache()
 
     # split-K bitwise stability across split counts (integer inputs)
     a = torch.randint(-8, 8, (4, d), generator=gen, device=dev).float()
@@ -713,6 +748,23 @@ def phase_timings(torch, cfg, params, counts, errs) -> list[dict]:
             lambda a=a, w=w: torch.matmul(a, w),
             (m * k + k * n + m * n) * 2, 2 * m * k * n,
             f"{m}x{k}x{n} bf16 {[t for t, _ in spec]}"))
+    # the tuner's decode class 4 x 4096 x 4096: a_resident at its two
+    # candidate plans beside k_inner at the planned blocks
+    t = TUNE_TOTAL
+    a = torch.randn((4, t), generator=gen, device="cuda").to(bf)
+    w = (torch.randn((t, t), generator=gen, device="cuda") * t ** -0.5).to(bf)
+    for sched, (bm, bk, bn) in (("k_inner", (64, 64, 128)),
+                                ("a_resident", (64, 128, 64)),
+                                ("a_resident", (64, 64, 64))):
+        rows.append(row(
+            f"skew_matmul_{sched}",
+            lambda s=sched, bm=bm, bk=bk, bn=bn: mm.skew_matmul_cuda(
+                a, w, bm=bm, bk=bk, bn=bn, schedule=s, out_dtype=bf),
+            lambda bk=bk: mm.skew_matmul_plain(a, w, bk=bk, out_dtype=bf),
+            lambda: torch.matmul(a, w),
+            (4 * t + t * t + 4 * t) * 2, 2 * 4 * t * t,
+            f"decode 4x{t}x{t} {(bm, bk, bn)}"))
+    del a, w
     rows.append(row(
         "skew_matmul_batched",
         lambda: mm.skew_matmul_batched_cuda(h4[:, None, :], emb_t, bm=64,
@@ -1699,8 +1751,9 @@ def phase_timings_bsr(torch, counts, errs) -> list[dict]:
     n 4096) and at density 1.0: each schedule the planner offers (and
     b_resident by an explicit plan), the plain version, the
     bound, and `torch.matmul` of the pre-masked dense A (the dense work K9
-    avoids; never on the port's path).  At density 1.0 K1 at the dense
-    planner's plan shows where the card's crossover lies."""
+    avoids; never on the port's path); then k_inner at the fail-over plan
+    (128, 128, 64) on a (128, 128) d 0.4 layout.  At density 1.0 K1 at the
+    dense planner's plan shows where the card's crossover lies."""
     from repro_torch.core.planner import plan_matmul
     from repro_torch.kernels import block_sparse_matmul as bsr
     from repro_torch.kernels import skew_matmul as mm
@@ -1743,7 +1796,25 @@ def phase_timings_bsr(torch, counts, errs) -> list[dict]:
                 nbytes, flops,
                 f"{t}^3 (32,128) d={lay.density:.3f} bn={bn}"))
         del masked
-    del a, b
+    # k_inner at the sparse planner's fail-over plan (128, 128, 64), the
+    # one it takes at (128, 128) layouts: d 0.4 of the JAX tuned suite
+    lay = BlockSparseLayout.random(t, t, (128, 128),
+                                   TUNED_SUITE_DENSITIES[1])
+    s = lay.summary()
+    plan = planner.enumerate_sparse_plans(s, t, chip="gpu_h100")[0].plan
+    masked = a * torch.as_tensor(lay.element_mask(), device="cuda").to(
+        a.dtype)
+    rows.append(row(
+        f"block_sparse_matmul_{plan.schedule}",
+        lambda: bsr.block_sparse_matmul_cuda(a, b, lay, bn=plan.bn,
+                                             schedule=plan.schedule,
+                                             out_dtype=torch.bfloat16),
+        lambda: bsr.block_sparse_matmul_plain(a, b, lay,
+                                              out_dtype=torch.bfloat16),
+        lambda: torch.matmul(masked, b),
+        2 * (s.nnz_elems + t * t + t * t), 2 * s.nnz_elems * t,
+        f"{t}^3 (128,128) d={lay.density:.3f} bn={plan.bn}"))
+    del a, b, masked
     torch.cuda.empty_cache()
     return rows
 

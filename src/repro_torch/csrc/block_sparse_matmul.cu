@@ -16,83 +16,48 @@
 // scalar prefetch, and runs only the valid steps s < nnz[i]: the masked
 // tail steps of the TPU kernel are never executed, which gives exactly
 // what they give (nothing).  A row block with nnz[i] == 0 still writes its
-// output rows, as epilogue(0) (bias and residual).
-//   k_inner    — blockIdx = (n-tile, row block); the fp32 accumulator tile,
-//                zeroed explicitly, stays in shared memory across the s loop
-//                and the epilogue is applied once.
-//   a_resident — blockIdx = (row block, column chunk).  For each nonzero
-//                block the A block stays in shared memory while the CTA
-//                walks the column tiles of its chunk.  Redesigned for
-//                Hopper (see bsr_a_resident_kernel): the fp32 sums of the
-//                whole chunk stay in registers across s (no workspace),
-//                all 8 warps split the columns, and B streams through a
-//                cp.async ring; one CTA owns its outputs, so no atomics.
-//   b_resident — in csrc/block_sparse_b_resident.cu (its own library, so
-//                that nvcc builds it beside this one): the CTA walks a
-//                chunk of row blocks' column blocks in ascending order,
-//                fetching each B slice once for every row block that holds
-//                it, with the sums in registers and a cp.async ring.
+// output rows, as epilogue(0) (bias and residual).  One library a
+// schedule, so that nvcc builds the three side by side:
+//   k_inner    — csrc/block_sparse_k_inner.cu: K1's k_inner device code
+//                (csrc/k_inner.cuh) walking the slices of the CTA's row
+//                block's nonzero blocks; register sums, a cp.async ring,
+//                up to 256 columns a CTA.
+//   a_resident — here: blockIdx = (row block, column chunk).  For each
+//                nonzero block the A block stays in shared memory while
+//                the CTA walks the column tiles of its chunk.  Redesigned
+//                for Hopper (see bsr_a_resident_kernel): the fp32 sums of
+//                the whole chunk stay in registers across s (no
+//                workspace), all 8 warps split the columns, and B streams
+//                through a cp.async ring; one CTA owns its outputs, so no
+//                atomics.
+//   b_resident — csrc/block_sparse_b_resident.cu: the CTA walks a chunk of
+//                row blocks' column blocks in ascending order, fetching
+//                each B slice once for every row block that holds it, with
+//                the sums in registers and a cp.async ring.
 //
-// Density-1.0 parity: k_inner runs K1's old device code (load_tile,
-// mma_block, apply_epi from common.cuh); a_resident and b_resident form
-// each block's partial with the same MMAs in the same k order (strip_mma)
-// and fold it as `combine` does.  At density 1.0 cols[i, s] == s and
-// nnz[i] == gk, so every element sees the same products summed in the
-// same order: the output is bitwise equal to K1's at the same blocks and
-// schedule (K1's k_inner keeps one chain over k in registers, the chain
-// this k_inner keeps in its shared-memory tile).
+// Density-1.0 parity: k_inner runs K1's k_inner template, whose walk is
+// then K1's; a_resident and b_resident form each block's partial with the
+// same MMAs in the same k order (strip_mma) and fold it as K1's a_resident
+// and b_resident do.  At density 1.0 cols[i, s] == s and nnz[i] == gk, so
+// every element sees the same products summed in the same order: the
+// output is bitwise equal to K1's at the same blocks and schedule.
 //
 // Bound on the H100: the work is 2 * nnz_elems * n operations and the
 // bytes are the nonzero A blocks once, B once and C once.  At the tuner's
 // 4096^2 (32, 128) layouts with n = 4096 the products run at a few hundred
 // operations per byte, above the card's ~295 FLOP/byte ridge, so the bound
-// is the tensor-core rate.  k_inner is bound by its old device code
-// (single-buffered tiles, WMMA from shared memory, at bm = 32 only 2 of 8
-// warps with a 32 x 32 region of a 32 x 64 tile) plus the gather: each CTA
-// re-reads its B tiles, which L2 (50 MB) absorbs for a 32 MB bf16 B.
-// a_resident and b_resident keep every warp busy at any bm <= 128 and
+// is the tensor-core rate.  All three schedules keep every warp busy and
 // overlap their copies with the MMAs; what is left is B's re-read from L2
-// (a_resident: once per row block and nonzero block; b_resident: once per
+// (k_inner: once per row block and nonzero block across all of n;
+// a_resident: once per row block and nonzero block; b_resident: once per
 // chunk of row blocks and column block) and the per-step barrier.  Blocks
-// come from the layout, not the planner, so the wrapper takes any (bm, bk)
-// that K1's shared-memory rule allows; (128, 128, 64), the planner's
-// fail-over plan at (128, 128) layouts, needs 86 KB (bf16) / 134 KB (fp32)
-// of dynamic shared memory in k_inner, above the 104 KB AMP budget but
-// under the 227 KB a block may use.  TMA and wgmma (64-row warpgroup
-// tiles, so only for bm >= 64 layouts) are later work.
+// come from the layout, not the planner, so the wrappers take any (bm, bk)
+// that K1's shared-memory rule allows, (128, 128, 64) included (the
+// planner's fail-over plan at (128, 128) layouts).  TMA and wgmma (64-row
+// warpgroup tiles, so only for bm >= 64 layouts) are later work.
 #include "common.cuh"
 
 namespace rt {
-
-template <typename T, typename O>
-__global__ void __launch_bounds__(kThreads)
-bsr_k_inner_kernel(const int* __restrict__ cols, const int* __restrict__ nnz, int s_max,
-                   const T* __restrict__ A, long long sa_m, long long sa_k,
-                   const T* __restrict__ B, long long sb_k, long long sb_n,
-                   O* __restrict__ out, int m, int k, int n, int bm, int bk, int bn, Epi e) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  Tiles<T> t(smem, bm, bk, bn);
-  const int i = blockIdx.y;
-  const int i0 = i * bm, j0 = blockIdx.x * bn;
-  const int cnt = nnz[i];
-  const int* row = cols + (long long)i * s_max;
-  for (int idx = threadIdx.x; idx < bm * t.ldc; idx += blockDim.x) t.c[idx] = 0.0f;
-  for (int s = 0; s < cnt; ++s) {
-    const int k0 = row[s] * bk;
-    __syncthreads();
-    load_tile(t.a, t.lda, A, sa_m, sa_k, i0, k0, bm, bk, m, k);
-    load_tile(t.b, t.ldb, B, sb_k, sb_n, k0, j0, bk, bn, k, n);
-    __syncthreads();
-    mma_block(t.a, t.lda, t.b, t.ldb, t.c, t.ldc, bm, bk, bn, m - i0, false);
-  }
-  __syncthreads();
-  for (int idx = threadIdx.x; idx < bm * bn; idx += blockDim.x) {
-    const int r = idx / bn, c = idx - r * bn;
-    const int gr = i0 + r, gc = j0 + c;
-    if (gr < m && gc < n)
-      out[(long long)gr * n + gc] = from_f<O>(apply_epi(t.c[r * t.ldc + c], e, 0, gr, gc));
-  }
-}
 
 // a_resident's shape on the card (mirrored by `a_resident_config` in
 // kernels/block_sparse_matmul.py).  The 8 warps form a wr x wc grid: a
@@ -147,9 +112,8 @@ inline ARCfg ar_config(int bm, int bk) {
 // of two slots while step q runs its MMAs.  For each (s, tile) a
 // warp forms the block's partial product from zero over its bk in 16-deep
 // steps, then adds it to the running sum with one fp32 add (the first
-// block's partial is the sum): the fold `combine` performs through the
-// workspace in K1's a_resident, so at density 1.0 the output equals K1's
-// bit for bit.  The epilogue is applied once, after the last s.
+// block's partial is the sum): the fold of K1's a_resident (and of the
+// JAX kernel), so at density 1.0 the output equals K1's bit for bit.  The epilogue is applied once, after the last s.
 template <typename T, typename O, int MR>
 __global__ void __launch_bounds__(kThreads, MR <= 2 ? 2 : 1)
 bsr_a_resident_kernel(const int* __restrict__ cols, const int* __restrict__ nnz, int s_max,
@@ -294,19 +258,11 @@ int launch(int schedule, const int* cols, const int* nnz, int s_max, const void*
            const Epi& e, cudaStream_t stream) {
   const long long smem = tile_smem_bytes<T>(bm, bk, bn);
   if (smem > kSmemMax) return (int)cudaErrorInvalidValue;
-  const int gm = (m + bm - 1) / bm, gn = (n + bn - 1) / bn;
+  const int gm = (m + bm - 1) / bm;
   const T* a = static_cast<const T*>(A);
   const T* b = static_cast<const T*>(B);
   O* o = static_cast<O*>(out);
-  cudaError_t err;
-  if (schedule == 0) {
-    err = cudaFuncSetAttribute(bsr_k_inner_kernel<T, O>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return (int)err;
-    dim3 grid(gn, gm, 1);
-    bsr_k_inner_kernel<T, O><<<grid, kThreads, smem, stream>>>(
-        cols, nnz, s_max, a, sa_m, sa_k, b, sb_k, sb_n, o, m, k, n, bm, bk, bn, e);
-  } else if (schedule == 1) {
+  if (schedule == 1) {
     // `chunks` is the number of column tiles a CTA holds (the wrapper's
     // `a_resident_chunk`).
     const ARCfg c = ar_config<T>(bm, bk);
@@ -336,8 +292,8 @@ int launch(int schedule, const int* cols, const int* nnz, int s_max, const void*
 
 }  // namespace rt
 
-// schedule: 0 k_inner, 1 a_resident (2, b_resident, is
-// rt_block_sparse_b_resident in its own library).  cols is a contiguous
+// schedule: 1 a_resident (0, k_inner, is rt_block_sparse_k_inner and 2,
+// b_resident, rt_block_sparse_b_resident, each in its own library).  cols is a contiguous
 // int32 (gm, s_max) table and nnz int32 (gm,), both on the device.  Strides
 // are in elements; `out` is a contiguous (m, n) tensor; a_resident keeps
 // its sums in registers and reads `chunks` as column tiles per CTA.

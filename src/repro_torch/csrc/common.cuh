@@ -10,9 +10,10 @@
 // 16x16x16, fp32 accumulate; `strip_mma` issues the same m16n8k16 HMMA
 // through ldmatrix + mma.sync with register-resident sums); fp32 operands
 // run a plain fp32 FMA loop — true IEEE fp32, never TF32.  The redesigned
-// kernels (K1 k_inner, K9 a_resident and b_resident) keep their sums in
-// registers and stream their operands through `cp.async` rings; the
-// others still use the shared-memory fp32 tile above.
+// kernels (K1 k_inner and a_resident, K9's three schedules; k_inner's
+// device code is shared in k_inner.cuh) keep their sums in registers and
+// stream their operands through `cp.async` rings; the others still use the
+// shared-memory fp32 tile above.
 #pragma once
 
 #include <cuda_bf16.h>

@@ -19,23 +19,27 @@
 //
 // Loop orders (the Pallas grid's sequential dims become loops in the CTA,
 // its parallel dims become blockIdx):
-//   k_inner    — redesigned for Hopper (see k_inner_kernel): blockIdx =
-//                (row tile, column tile) with the batch slices' rows
-//                stacked (K2), CTA tiles narrowed until the grid fills the
-//                SMs, the fp32 sums in registers with every warp on its
-//                own columns, and A and B streamed through a cp.async ring
-//                of >= 3 stages, a transposed B copied as its own rows.
-//   a_resident — blockIdx = (n-chunk, m-tile).  For each k block the A tile
-//                stays in shared memory while the CTA walks its run of
-//                n-tiles.  The n sweep is split into chunks so the card has
-//                enough CTAs when there is one m-tile (the LM head).  With
-//                gk > 1 the partial sums accumulate through an fp32
-//                workspace; one CTA owns its output tiles for every k, so
-//                that accumulation is sequential in the CTA (no atomics).
-//   b_resident — the mirror image: B tile resident, the CTA walks m-tiles.
-// a_resident and b_resident keep single-buffered tiles and WMMA from the
-// shared-memory fp32 tile; TMA and wgmma are later work for all three.
-#include "common.cuh"
+//   k_inner    — redesigned for Hopper (k_inner_kernel in k_inner.cuh, the
+//                template K9's k_inner shares): blockIdx = (row tile,
+//                column tile) with the batch slices' rows stacked (K2),
+//                CTA tiles narrowed until the grid fills the SMs, the fp32
+//                sums in registers with every warp on its own columns, and
+//                A and B streamed through a cp.async ring of >= 3 stages,
+//                a transposed B copied as its own rows.
+//   a_resident — redesigned for Hopper (see a_resident_kernel): blockIdx =
+//                (column chunk, row tile).  For each k block the A tile
+//                stays in shared memory while the CTA walks the chunk's
+//                column tiles; each block's partial is formed from zero and
+//                added to the chunk's fp32 sums, which stay in registers
+//                (no workspace), with A and B on k_inner's cp.async ring and
+//                swizzled tiles.
+//   b_resident — the mirror image: B tile resident, the CTA walks m-tiles;
+//                it keeps single-buffered tiles and WMMA from the
+//                shared-memory fp32 tile, the partial sums accumulating
+//                through an fp32 workspace when gk > 1 (one CTA owns its
+//                output tiles for every k, so no atomics).
+// TMA and wgmma are later work for all three.
+#include "k_inner.cuh"
 
 namespace rt {
 
@@ -51,8 +55,8 @@ namespace rt {
 //            strip of 16 columns for each of the 8 warps); where that grid
 //            would leave SMs idle (fewer than `sms` CTAs), a narrower
 //            power of two whose grid fills the card and spreads evenly
-//            over the SMs: at m = 4, n = 3072 that is 16 columns (192
-//            CTAs), at n = 5120 16 (320 CTAs, not 160 of 32);
+//            over the SMs (`ki_narrow`): at m = 4, n = 3072 that is 16
+//            columns (192 CTAs), at n = 5120 16 (320 CTAs, not 160 of 32);
 //   ks     — the k slice of one stage, the deepest power of two up to 256
 //            that divides round_up(k, bk) and leaves room for 3 stages;
 //            a transposed B narrows tw further until ks spans 128 bytes
@@ -60,57 +64,26 @@ namespace rt {
 //   stages — as many as the budget holds, at most 8.
 // The budget is the plan's own tile set (`tile_smem_bytes`: A, B and the
 // fp32 C tile this kernel no longer keeps), or, for blocks too small to
-// hold three 16-deep stages, those three stages.  `bt`: B is a transposed
-// view (unit stride along k) and is copied n-major.  bf16 tiles have no
-// row pad: their 16-byte chunks are XOR-swizzled (`ki_swz`) so ldmatrix
-// reads them without bank conflicts; fp32 tiles keep the 16-byte pad.
-struct KICfg {
-  int rows, mr, tw, ks, stages, bt, gm, gn;
-  long long smem;  // dynamic shared memory in bytes
-};
-template <typename T> constexpr bool kKiSwz = sizeof(T) == 2;
-template <typename T> constexpr int kKiPad = kKiSwz<T> ? 0 : pad<T>();
+// hold three 16-deep stages, those three stages.
 
-// The chunk a tile row r (of 2^lgc 16-byte chunks) XORs its chunk index
-// with: rows that share a 128-byte bank window take different chunks, so
-// the 8 rows of an ldmatrix 8 x 8 read hit 8 distinct bank groups.  It
-// depends on r % 8 only.
-__host__ __device__ inline int ki_swz(int r, int lgc) {
-  return lgc >= 3 ? (r & 7) : ((r >> (3 - lgc)) & ((1 << lgc) - 1));
-}
-
-template <typename T>
-__host__ __device__ inline long long ki_stage_bytes(int rows, int tw, int ks, int bt) {
-  const long long a = align128((long long)rows * (ks + kKiPad<T>) * sizeof(T));
-  const long long b = bt ? align128((long long)tw * (ks + kKiPad<T>) * sizeof(T))
-                         : align128((long long)ks * (tw + kKiPad<T>) * sizeof(T));
-  return a + b;
-}
-// Shared memory besides the stages: the row offset table, and the zero row
-// an 8-row tile's MMA reads for its other 8 rows.
-template <typename T>
-__host__ __device__ inline long long ki_fixed_bytes(int rows, int ks) {
-  return align128((long long)rows * 8) + (rows < 16 ? align128((long long)ks * sizeof(T)) : 0);
-}
-
-// The deepest ring for a tile width: a power-of-two slice up to 256 deep
-// that divides kp and leaves room for >= 3 stages (at most 8) in the budget.
-template <typename T>
-inline bool ki_ring(KICfg& c, int tw, int kp, long long plan) {
-  const long long budget = max(
-      plan, ki_fixed_bytes<T>(c.rows, 16) + 3 * ki_stage_bytes<T>(c.rows, tw, 16, c.bt));
-  for (int ks = 256; ks >= 16; ks /= 2) {
-    if (kp % ks) continue;
-    const long long st = ki_stage_bytes<T>(c.rows, tw, ks, c.bt);
-    const long long s = (budget - ki_fixed_bytes<T>(c.rows, ks)) / st;
-    if (s >= 3) {
-      c.ks = ks;
-      c.stages = (int)min(s, 8LL);
-      c.smem = ki_fixed_bytes<T>(c.rows, ks) + c.stages * st;
-      return true;
+// Below a grid of `tw`-wide tiles that leaves SMs idle: the widest
+// narrower power of two whose grid fills the card with its CTAs spread
+// evenly (the busiest SM at most 1 / 0.85 of the mean), else the most even
+// of those that fill it (16 columns, the MMA strip, at the least).
+inline int ki_narrow(int gm, int n, int tw, int sms) {
+  int best = 16;
+  double best_bal = -1.0;
+  for (int w = tw / 2; w >= 16; w /= 2) {
+    const long long ctas = (long long)gm * ((n + w - 1) / w);
+    if (ctas < sms && w > 16) continue;
+    const double bal = (double)ctas / ((double)sms * ((ctas + sms - 1) / sms));
+    if (bal >= 0.85) return w;
+    if (bal > best_bal) {
+      best = w;
+      best_bal = bal;
     }
   }
-  return false;  // not reached: ks = 16 always fits the budget
+  return best;
 }
 
 template <typename T>
@@ -127,27 +100,7 @@ inline KICfg ki_config(int M, int k, int n, int bm, int bk, int bn, int bt, int 
   int tw = 16;
   while (2 * tw <= bn && 2 * tw <= 128) tw *= 2;
   c.gm = (M + c.rows - 1) / c.rows;
-  if ((long long)c.gm * ((n + tw - 1) / tw) < sms) {
-    // narrower tiles: the widest that fills the card with its CTAs spread
-    // evenly (the busiest SM at most 1 / 0.85 of the mean), else the most
-    // even of those that fill it (16 columns, the MMA strip, at the least)
-    int best = 16;
-    double best_bal = -1.0;
-    for (int w = tw / 2; w >= 16; w /= 2) {
-      const long long ctas = (long long)c.gm * ((n + w - 1) / w);
-      if (ctas < sms && w > 16) continue;
-      const double bal = (double)ctas / ((double)sms * ((ctas + sms - 1) / sms));
-      if (bal >= 0.85) {
-        best = w;
-        break;
-      }
-      if (bal > best_bal) {
-        best = w;
-        best_bal = bal;
-      }
-    }
-    tw = best;
-  }
+  if ((long long)c.gm * ((n + tw - 1) / tw) < sms) tw = ki_narrow(c.gm, n, tw, sms);
   const long long plan = tile_smem_bytes<T>(bm, bk, bn);
   const int kp = (k + bk - 1) / bk * bk;
   c.smem = -1;
@@ -163,92 +116,150 @@ inline KICfg ki_config(int M, int k, int n, int bm, int bk, int bn, int bt, int 
   return c;
 }
 
-// One warp's 16-column strip of the bf16 product over one stage: acc[r] +=
-// A[16 r .. 16 r + 16, slice] @ B[slice, strip] in 16-deep steps in k
-// order, through ldmatrix and two m16n8k16 HMMAs a step (strip_mma's
-// instructions, on the swizzled tiles).  `zrow`: an 8-row A tile, whose
-// MMA rows 8-15 read this zero row.
-template <int MR, bool BT>
-__device__ __forceinline__ void ki_mma(AccMma (&acc)[MR], const bf16* sA, int lda, int lga,
-                                       const bf16* zrow, const bf16* sB, int ldb, int lgb,
-                                       int strip, int K, int nrf) {
-  const int lane = threadIdx.x % 32, l8 = lane & 7, h = lane >> 4;
-  const int ar = lane & 15;
-  const bool zero = zrow != nullptr && ar >= 8;
-  const bf16* pa = zero ? zrow : sA + ar * lda;
-  const int fa = zero ? 0 : ki_swz(l8, lga);
-  // ldmatrix's four 8 x 8 matrices are (k 0-7, n 0-7), (k 8-15, n 0-7),
-  // (k 0-7, n 8-15), (k 8-15, n 8-15): b[0], b[1] feed columns 0-7 and
-  // b[2], b[3] columns 8-15.  Row-major B is read transposed, lane l at row
-  // kk + (l & 15), chunk 2 strip + h; n-major B is already mma.sync's
-  // column-major B, lane l at row 16 strip + (l & 7) + 8 h, chunk kk / 8 +
-  // (l >> 3 & 1)
-  const bf16* pb = BT ? sB + (16 * strip + l8 + 8 * h) * ldb
-                      : sB + ar * ldb + (((2 * strip + h) ^ ki_swz(l8, lgb)) << 3);
-  const int fb = ki_swz(l8, lgb), hb = (lane >> 3) & 1;
-  for (int kk = 0; kk < K; kk += 16) {
-    unsigned b[4];
-    if (BT)
-      ldsm_x4(b, pb + ((((kk >> 3) | hb) ^ fb) << 3));
-    else
-      ldsm_x4_trans(b, pb + kk * ldb);
-    const int ca = (((kk >> 3) | h) ^ fa) << 3;
-#pragma unroll
-    for (int r = 0; r < MR; ++r) {
-      if (r >= nrf) break;
-      unsigned a[4];
-      ldsm_x4(a, pa + 16 * r * lda + ca);
-      mma_16816(acc[r].x, a, b[0], b[1]);
-      mma_16816(acc[r].x + 4, a, b[2], b[3]);
-    }
-  }
+// a_resident's shape on the card (mirrored by `a_resident_config` in
+// kernels/skew_matmul.py):
+//   rows, mr — k_inner's rule: bf16 8 rows when every row fits (the MMA's
+//            other 8 rows read a zero row), else the plan's bm, at most 64,
+//            within the 16-row granules m fills (mr 4); fp32 16 (mr 1);
+//   tw     — 128, a 16-column strip for each of the 8 warps, narrowed as
+//            k_inner's (`ki_narrow`) where one tile a CTA would leave SMs
+//            idle, and for a transposed B until a slice is 128 bytes deep;
+//   ks, g  — a stage holds one B slice (ks x tw) and one A buffer of a
+//            group of g = max(bk, ks) columns of k (g / ks sub-tiles of
+//            rows x ks, swizzled as k_inner's A); ks is the deepest power
+//            of two up to 256 that divides round_up(k, bk), divides bk or
+//            (at a bk that is a multiple of 64) is a multiple of it, and
+//            leaves room for >= 3 stages (at most 8) within two CTAs an SM
+//            (`kArdBudget`);
+//   per    — column tiles a CTA holds: the fewest that fit the grid in
+//            one wave of two CTAs an SM (the kernel's launch bound), at
+//            most 8 / mr (64 sums a lane: 1024 columns at decode).  At the
+//            LM head that is 6 tiles and 261 CTAs; K9's rule (>= 2 x SMs
+//            CTAs) would give 5 and 313, a wave and a fifth.
+struct ARDCfg {
+  int rows, mr, tw, ks, g, stages, bt, per, gm, gc;
+  long long smem;  // dynamic shared memory in bytes
+};
+
+template <typename T>
+__host__ __device__ inline long long ard_a_bytes(int rows, int g, int ks) {
+  return align128((long long)(g / ks) * rows * (ks + kKiPad<T>) * sizeof(T));
+}
+template <typename T>
+__host__ __device__ inline long long ard_b_bytes(int tw, int ks, int bt) {
+  return bt ? align128((long long)tw * (ks + kKiPad<T>) * sizeof(T))
+            : align128((long long)ks * (tw + kKiPad<T>) * sizeof(T));
+}
+// the zero row an 8-row tile's MMA reads for its other 8 rows
+template <typename T>
+__host__ __device__ inline long long ard_fixed_bytes(int rows, int ks) {
+  return rows < 16 ? align128((long long)ks * sizeof(T)) : 0;
 }
 
-// blockIdx = (row tile, column tile): the row tiles that share a column
-// tile run next to each other, so B streams from device memory once.
-// Rows are the nb * m rows of every batch slice in order (row r is row
-// r % m of slice r / m, read through sa_b and sa_m from a per-row offset
-// table); at decode (nb * m <= 16) one CTA takes every slice's rows, so
-// K2 reads B once per launch, not once per slice.  The steps q walk k in
-// `ks`-deep slices over round_up(k, bk) (the zero-filled tail of the last
-// k block included, as the plan's blocks had it); the copies of the next
-// stages - 1 slices are in flight (cp.async, one commit group a step)
-// while step q multiplies.  Warp w owns the 16-column strip w of the tile
-// (warps past tw / 16 only copy) and every row of it, and keeps its fp32
-// sums in registers from the first slice to the epilogue: each output's
-// sum is one chain over k in ascending order in 16-deep MMA steps, the
-// chain the shared-memory WMMA kernel formed, so the output is the same
-// bit for bit.
+// The ring's budget: two CTAs an SM, the kernel's launch bound (its 64
+// register sums a lane hold it there), so the plan's tile set would leave
+// shared memory idle.
+constexpr long long kArdBudget = (kSmemMax - 1024) / 2;
+
+template <typename T>
+inline bool ard_ring(ARDCfg& c, int tw, int kp, int bk) {
+  auto stage = [&](int ks) {
+    return ard_a_bytes<T>(c.rows, max(bk, ks), ks) + ard_b_bytes<T>(tw, ks, c.bt);
+  };
+  const long long budget = max(kArdBudget, ard_fixed_bytes<T>(c.rows, 16) + 3 * stage(16));
+  for (int ks = 256; ks >= 16; ks /= 2) {
+    // a step holds whole blocks or part of one; several blocks only at a
+    // bk that is a multiple of 64, so that each block's MMAs can read the
+    // swizzled tiles at an offset
+    if (kp % ks || (bk % ks && (ks % bk || bk % 64))) continue;
+    const long long s = (budget - ard_fixed_bytes<T>(c.rows, ks)) / stage(ks);
+    if (s >= 3) {
+      c.ks = ks;
+      c.g = max(bk, ks);
+      c.stages = (int)min(s, 8LL);
+      c.smem = ard_fixed_bytes<T>(c.rows, ks) + c.stages * stage(ks);
+      return true;
+    }
+  }
+  return false;  // not reached: ks = 16 divides bk and always fits the budget
+}
+
+template <typename T>
+inline ARDCfg ard_config(int m, int k, int n, int bm, int bk, int bt, int sms) {
+  ARDCfg c{};
+  if (!kKiSwz<T>)
+    c.rows = 16;
+  else if (m <= 8)
+    c.rows = 8;
+  else
+    c.rows = min(min(bm, 64), (m + 15) / 16 * 16);
+  c.mr = c.rows <= 16 ? 1 : 4;
+  c.bt = bt;
+  c.gm = (m + c.rows - 1) / c.rows;
+  int tw = 128;
+  if ((long long)c.gm * ((n + tw - 1) / tw) < sms) tw = ki_narrow(c.gm, n, tw, sms);
+  const int kp = (k + bk - 1) / bk * bk;
+  c.smem = -1;
+  if (!ard_ring<T>(c, tw, kp, bk)) return c;
+  while (bt && tw > 16 && c.ks * (int)sizeof(T) < 128) {
+    tw /= 2;
+    if (!ard_ring<T>(c, tw, kp, bk)) return c;
+  }
+  c.tw = tw;
+  const int tiles = (n + tw - 1) / tw;
+  const int rows_per_wave = max(1, 2 * sms / c.gm);
+  c.per = min(8 / c.mr, (tiles + rows_per_wave - 1) / rows_per_wave);
+  c.gc = (tiles + c.per - 1) / c.per;
+  return c;
+}
+
+// blockIdx = (column chunk, row tile): the CTA owns rows r0 .. r0 + rows of
+// the chunk's `per` column tiles (the last chunk may hold fewer) and keeps
+// their fp32 sums in registers for the whole k loop: no workspace.  Steps
+// q = (group, tile, slice) run in that order over round_up(k, bk) (the
+// zero-filled tail of a ragged last k block included); at a group's first
+// step its A (rows x g) is fetched into A buffer (group % stages), where it
+// stays while the CTA walks the chunk's tiles, and each step fetches its B
+// slice into B slot q % stages; the copies of the next stages - 1 steps are
+// in flight (cp.async, one commit group a step) while step q multiplies.
+// A buffer (group % stages) is overwritten only stages - 1 steps before
+// the group's first step, after every step of group - stages (each group
+// has at least one step).  Warp w owns the 16-column strip w of every tile
+// (warps past tw / 16 only copy).  For each (k block, tile) it forms the
+// block's partial from zero over bk in 16-deep steps (a step of ks > bk
+// covers ks / bk blocks), then adds it to the tile's running sum with one
+// fp32 add (the first block's partial is the sum): the JAX kernel's fold,
+// and K9 a_resident's, so at density 1.0 K9 equals this kernel bit for bit.
+// The epilogue is applied once, after the last k block.
 template <typename T, typename O, int MR>
-__global__ void __launch_bounds__(kThreads, 2)
-k_inner_kernel(const T* __restrict__ A, long long sa_b, long long sa_m, long long sa_k,
-               const T* __restrict__ B, long long sb_k, long long sb_n,
-               O* __restrict__ out, int nb, int m, int k, int n, int bk, KICfg cfg, Epi e) {
+__global__ void __launch_bounds__(kThreads, MR == 1 ? 2 : 1)
+a_resident_kernel(const T* __restrict__ A, long long sa_m, long long sa_k,
+                  const T* __restrict__ B, long long sb_k, long long sb_n,
+                  O* __restrict__ out, int m, int k, int n, int bk, ARDCfg cfg, Epi e) {
+  constexpr int TN = 8 / MR;  // column tiles a CTA may hold (64 sums a lane)
   constexpr int V = 16 / (int)sizeof(T);
   constexpr bool SW = kKiSwz<T>;
   using Acc = typename AccFrag<T>::type;
   extern __shared__ __align__(128) unsigned char smem[];
-  const int rows = cfg.rows, tw = cfg.tw, ks = cfg.ks, S = cfg.stages;
+  const int rows = cfg.rows, tw = cfg.tw, ks = cfg.ks, G = cfg.g, S = cfg.stages;
+  const int nks = G / ks;
   const int lda = ks + kKiPad<T>;
   const int ldb = cfg.bt ? ks + kKiPad<T> : tw + kKiPad<T>;
-  const long long a_bytes = align128((long long)rows * lda * sizeof(T));
-  const long long st_bytes = ki_stage_bytes<T>(rows, tw, ks, cfg.bt);
-  long long* rowoff = reinterpret_cast<long long*>(smem + S * st_bytes);
-  T* zrow = rows < 16 ? reinterpret_cast<T*>(smem + S * st_bytes + align128(rows * 8LL))
-                      : nullptr;
+  const int sub = rows * lda;  // elements of one A sub-tile
+  const long long a_bytes = ard_a_bytes<T>(rows, G, ks);
+  const long long b_bytes = ard_b_bytes<T>(tw, ks, cfg.bt);
+  unsigned char* const sbase = smem + S * a_bytes;
+  T* zrow = rows < 16 ? reinterpret_cast<T*>(sbase + S * b_bytes) : nullptr;
   const int warp = threadIdx.x / 32;
 
-  const int M = nb * m;
-  const int r0 = blockIdx.x * rows, c0 = blockIdx.y * tw;
-  const int vrows = min(rows, M - r0);
+  const int tiles = (n + tw - 1) / tw;
+  const int t0 = blockIdx.x * cfg.per, tnc = min(cfg.per, tiles - t0);
+  const int r0 = blockIdx.y * rows;
+  const int vrows = min(rows, m - r0);
   const int nrf = min(MR, (vrows + 15) / 16);
-  for (int r = threadIdx.x; r < vrows; r += kThreads) {
-    const int b = (r0 + r) / m;
-    rowoff[r] = b * sa_b + (long long)(r0 + r - b * m) * sa_m;
-  }
-  // rows past the last valid one stay zero in every stage: never copied
-  for (int s = 0; s < S; ++s) {
-    T* sa = reinterpret_cast<T*>(smem + s * st_bytes);
+  // rows past the last valid one stay zero in every A buffer: never copied
+  for (int s = 0; s < S * nks; ++s) {
+    T* sa = reinterpret_cast<T*>(smem + (s / nks) * a_bytes) + (s % nks) * sub;
     for (int idx = threadIdx.x; idx < (rows - vrows) * lda; idx += kThreads)
       sa[vrows * lda + idx] = from_f<T>(0.0f);
   }
@@ -256,43 +267,50 @@ k_inner_kernel(const T* __restrict__ A, long long sa_b, long long sa_m, long lon
     for (int idx = threadIdx.x; idx < ks; idx += kThreads) zrow[idx] = from_f<T>(0.0f);
   __syncthreads();
 
-  const int kp = (k + bk - 1) / bk * bk, steps = kp / ks;
+  const int groups = (k + bk - 1) / bk * bk / G, steps = groups * tnc * nks;
   const int lgk = log2_exact(ks / V), lgn = log2_exact(tw / V);
   const int lgb = cfg.bt ? lgk : lgn;
-  const bool a_vec = sa_k == 1 && sa_m % V == 0 && (nb == 1 || sa_b % V == 0) &&
-                     (reinterpret_cast<uintptr_t>(A) & 15) == 0;
+  const bool a_vec = sa_k == 1 && sa_m % V == 0 && (reinterpret_cast<uintptr_t>(A) & 15) == 0;
   const bool b_vec = (cfg.bt ? sb_n % V == 0 : sb_n == 1 && sb_k % V == 0) &&
                      (reinterpret_cast<uintptr_t>(B) & 15) == 0;
-  // element (r, c) of a tile whose rows hold 2^lg chunks of V elements
   auto at = [](int r, int c, int ld, int lg) {
     return r * ld + (SW ? (((c / V) ^ ki_swz(r, lg)) * V + c % V) : c);
   };
 
-  int islot = 0;  // stage of the next copy
-  auto issue = [&](int q) {
-    unsigned char* st = smem + islot * st_bytes;
-    T* sa = reinterpret_cast<T*>(st);
-    T* sb = reinterpret_cast<T*>(st + a_bytes);
-    const int k0 = q * ks;
-    if (a_vec) {
-      for (int idx = threadIdx.x; idx < (vrows << lgk); idx += kThreads) {
-        const int r = idx >> lgk, c = (idx & ((1 << lgk) - 1)) * V;
-        const int valid = max(0, min(V, k - (k0 + c)));
-        cp_async16(sa + at(r, c, lda, lgk), valid ? A + rowoff[r] + k0 + c : A,
-                   valid * (int)sizeof(T));
-      }
-    } else {
-      for (int idx = threadIdx.x; idx < vrows * ks; idx += kThreads) {
-        const int r = idx / ks, c = idx - r * ks;
-        sa[at(r, c, lda, lgk)] =
-            k0 + c < k ? A[rowoff[r] + (long long)(k0 + c) * sa_k] : from_f<T>(0.0f);
+  // The copy cursor (group, tile, slice; B slot, A buffer) runs a step
+  // ahead of the compute cursor below; both only count.
+  int ig = 0, it = 0, isl = 0, islot = 0, iga = 0;
+  auto issue = [&]() {
+    const int kg = ig * G;
+    if (it == 0 && isl == 0) {
+      T* sa = reinterpret_cast<T*>(smem + iga * a_bytes);
+      if (a_vec) {
+        const int cpr = G / V;
+        for (int idx = threadIdx.x; idx < vrows * cpr; idx += kThreads) {
+          const int r = idx / cpr, c = (idx - r * cpr) * V;
+          const int j = c / ks, cc = c - j * ks;
+          const int valid = max(0, min(V, k - (kg + c)));
+          cp_async16(sa + j * sub + at(r, cc, lda, lgk),
+                     valid ? A + (long long)(r0 + r) * sa_m + kg + c : A,
+                     valid * (int)sizeof(T));
+        }
+      } else {
+        for (int idx = threadIdx.x; idx < vrows * G; idx += kThreads) {
+          const int r = idx / G, c = idx - r * G;
+          const int j = c / ks, cc = c - j * ks;
+          sa[j * sub + at(r, cc, lda, lgk)] =
+              kg + c < k ? A[(long long)(r0 + r) * sa_m + (long long)(kg + c) * sa_k]
+                         : from_f<T>(0.0f);
+        }
       }
     }
-    // B: row j of an n-major tile is column c0 + j of B (a transposed
-    // view); a row-major tile holds rows k0 .. k0 + ks of B
+    T* sb = reinterpret_cast<T*>(sbase + islot * b_bytes);
+    const int k0 = kg + isl * ks, c0 = (t0 + it) * tw;
+    // B, as k_inner copies it: row j of an n-major slice is column c0 + j
     const int br = cfg.bt ? tw : ks, bc = cfg.bt ? ks : tw;
     const int nr = cfg.bt ? n - c0 : k - k0, nc = cfg.bt ? k - k0 : n - c0;
-    const T* g = cfg.bt ? B + c0 * sb_n + k0 * sb_k : B + k0 * sb_k + c0 * sb_n;
+    const T* g = cfg.bt ? B + (long long)c0 * sb_n + (long long)k0 * sb_k
+                        : B + (long long)k0 * sb_k + (long long)c0 * sb_n;
     const long long s_r = cfg.bt ? sb_n : sb_k, s_c = cfg.bt ? sb_k : sb_n;
     if (b_vec) {
       for (int idx = threadIdx.x; idx < (br << lgb); idx += kThreads) {
@@ -308,84 +326,100 @@ k_inner_kernel(const T* __restrict__ A, long long sa_b, long long sa_m, long lon
       }
     }
     if (++islot == S) islot = 0;
+    if (++isl == nks) {
+      isl = 0;
+      if (++it == tnc) {
+        it = 0;
+        ++ig;
+        if (++iga == S) iga = 0;
+      }
+    }
   };
 
-  Acc run[MR];
-#pragma unroll
-  for (int r = 0; r < MR; ++r) acc_zero(run[r]);
+  Acc run[TN][MR];
+  Acc part[MR];
   const bool mma_warp = 16 * warp < tw;
+  const int kstep = min(ks, bk);
   for (int q = 0; q < S - 1; ++q) {
-    if (q < steps) issue(q);
+    if (q < steps) issue();
     cp_async_commit();
   }
-  int cslot = 0;
+  int cg = 0, ct = 0, csl = 0, cslot = 0, cga = 0;
   for (int q = 0; q < steps; ++q) {
     cp_async_wait_n(S - 2);
-    __syncthreads();  // step q landed for every thread; step q - 1's slot is free
-    if (q + S - 1 < steps) issue(q + S - 1);
+    __syncthreads();  // step q landed for every thread; step q - 1's slots are free
+    if (q + S - 1 < steps) issue();
     cp_async_commit();
-    const unsigned char* st = smem + cslot * st_bytes;
-    const T* sa = reinterpret_cast<const T*>(st);
-    const T* sb = reinterpret_cast<const T*>(st + a_bytes);
     if (mma_warp) {
-      if constexpr (SW) {
-        if (cfg.bt)
-          ki_mma<MR, true>(run, sa, lda, lgk, zrow, sb, ldb, lgb, warp, ks, nrf);
-        else
-          ki_mma<MR, false>(run, sa, lda, lgk, zrow, sb, ldb, lgb, warp, ks, nrf);
-      } else if (cfg.bt) {
-        strip_mma<MR, true>(run, sa, lda, sb + 16 * warp * ldb, ldb, ks, nrf);
-      } else {
-        strip_mma<MR>(run, sa, lda, sb + 16 * warp, ldb, ks, nrf);
+      const T* sa = reinterpret_cast<const T*>(smem + cga * a_bytes) + csl * sub;
+      const T* sb = reinterpret_cast<const T*>(sbase + cslot * b_bytes);
+      for (int kb = 0; kb < ks; kb += kstep) {
+        if (csl == 0) {
+#pragma unroll
+          for (int r = 0; r < MR; ++r) acc_zero(part[r]);
+        }
+        if constexpr (SW) {
+          // kb is 0 or a multiple of 64 (`ard_ring`), where the swizzle
+          // commutes with the offset (it XORs a chunk index below 8), so
+          // the block's MMAs read shifted tiles
+          if (cfg.bt)
+            ki_mma<MR, true>(part, sa + kb, lda, lgk, zrow, sb + kb, ldb, lgb, warp, kstep, nrf);
+          else
+            ki_mma<MR, false>(part, sa + kb, lda, lgk, zrow, sb + kb * ldb, ldb, lgb, warp,
+                              kstep, nrf);
+        } else if (cfg.bt) {
+          strip_mma<MR, true>(part, sa + kb, lda, sb + 16 * warp * ldb + kb, ldb, kstep, nrf);
+        } else {
+          strip_mma<MR>(part, sa + kb, lda, sb + kb * ldb + 16 * warp, ldb, kstep, nrf);
+        }
+        if (csl == nks - 1) {
+          const bool first = cg == 0 && kb == 0;
+#pragma unroll
+          for (int tt = 0; tt < TN; ++tt) {
+            if (tt >= tnc) break;
+            if (tt != ct) continue;
+#pragma unroll
+            for (int r = 0; r < MR; ++r)
+#pragma unroll
+              for (int x = 0; x < 8; ++x)
+                run[tt][r].x[x] = first ? part[r].x[x] : run[tt][r].x[x] + part[r].x[x];
+          }
+        }
       }
     }
     if (++cslot == S) cslot = 0;
+    if (++csl == nks) {
+      csl = 0;
+      if (++ct == tnc) {
+        ct = 0;
+        ++cg;
+        if (++cga == S) cga = 0;
+      }
+    }
   }
   if (!mma_warp) return;
 #pragma unroll
-  for (int r = 0; r < MR; ++r) {
-    if (r >= nrf) break;
-    store_acc(run[r], out, r0 + 16 * r, c0 + 16 * warp, M, n, e, m);
+  for (int tt = 0; tt < TN; ++tt) {
+    if (tt >= tnc) break;
+#pragma unroll
+    for (int r = 0; r < MR; ++r) {
+      if (r >= nrf) break;
+      store_acc(run[tt][r], out, r0 + 16 * r, (t0 + tt) * tw + 16 * warp, m, n, e);
+    }
   }
 }
 
 template <typename T, typename O, int MR>
-int launch_k_inner(const KICfg& c, const T* a, long long sa_b, long long sa_m,
-                   long long sa_k, const T* b, long long sb_k, long long sb_n, O* o, int nb,
-                   int m, int k, int n, int bk, const Epi& e, cudaStream_t stream) {
+int launch_a_resident(const ARDCfg& c, const T* a, long long sa_m, long long sa_k, const T* b,
+                      long long sb_k, long long sb_n, O* o, int m, int k, int n, int bk,
+                      const Epi& e, cudaStream_t stream) {
   const cudaError_t err = cudaFuncSetAttribute(
-      k_inner_kernel<T, O, MR>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)c.smem);
+      a_resident_kernel<T, O, MR>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)c.smem);
   if (err != cudaSuccess) return (int)err;
-  dim3 grid(c.gm, c.gn, 1);
-  k_inner_kernel<T, O, MR><<<grid, kThreads, c.smem, stream>>>(
-      a, sa_b, sa_m, sa_k, b, sb_k, sb_n, o, nb, m, k, n, bk, c, e);
+  dim3 grid(c.gc, c.gm, 1);
+  a_resident_kernel<T, O, MR><<<grid, kThreads, c.smem, stream>>>(a, sa_m, sa_k, b, sb_k, sb_n,
+                                                                   o, m, k, n, bk, c, e);
   return (int)cudaGetLastError();
-}
-
-template <typename T, typename O>
-__global__ void __launch_bounds__(kThreads)
-a_resident_kernel(const T* __restrict__ A, long long sa_m, long long sa_k,
-                  const T* __restrict__ B, long long sb_k, long long sb_n,
-                  O* __restrict__ out, float* __restrict__ ws, int m, int k, int n,
-                  int bm, int bk, int bn, int per_chunk, Epi e) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  Tiles<T> t(smem, bm, bk, bn);
-  const int gn = (n + bn - 1) / bn, gk = (k + bk - 1) / bk;
-  const int i0 = blockIdx.y * bm;
-  const int jb = blockIdx.x * per_chunk;
-  const int je = min(gn, jb + per_chunk);
-  for (int kk = 0; kk < gk; ++kk) {
-    __syncthreads();
-    load_tile(t.a, t.lda, A, sa_m, sa_k, i0, kk * bk, bm, bk, m, k);
-    for (int jt = jb; jt < je; ++jt) {
-      __syncthreads();
-      load_tile(t.b, t.ldb, B, sb_k, sb_n, kk * bk, jt * bn, bk, bn, k, n);
-      __syncthreads();
-      mma_block(t.a, t.lda, t.b, t.ldb, t.c, t.ldc, bm, bk, bn, m - i0, true);
-      __syncthreads();
-      combine(t.c, t.ldc, ws, out, kk, gk, i0, jt * bn, bm, bn, m, n, e);
-    }
-  }
 }
 
 template <typename T, typename O>
@@ -433,20 +467,25 @@ int launch(int schedule, const void* A, long long sa_b, long long sa_m, long lon
     const KICfg c = ki_config<T>(nb * m, k, n, bm, bk, bn, bt, chunks);
     if (c.smem < 0 || c.smem > kSmemMax || c.gn > 65535) return (int)cudaErrorInvalidValue;
     if (c.mr == 1)
-      return launch_k_inner<T, O, 1>(c, a, sa_b, sa_m, sa_k, b, sb_k, sb_n, o, nb, m, k, n, bk,
-                                     e, stream);
+      return launch_k_inner<T, O, 1, 1, false>(c, a, sa_b, sa_m, sa_k, b, sb_k, sb_n, o, nb, m, k,
+                                               n, bk, e, nullptr, nullptr, 0, bm, stream);
     if constexpr (kKiSwz<T>)
-      return launch_k_inner<T, O, 4>(c, a, sa_b, sa_m, sa_k, b, sb_k, sb_n, o, nb, m, k, n, bk,
-                                     e, stream);
+      return launch_k_inner<T, O, 4, 1, false>(c, a, sa_b, sa_m, sa_k, b, sb_k, sb_n, o, nb, m, k,
+                                               n, bk, e, nullptr, nullptr, 0, bm, stream);
     return (int)cudaErrorInvalidValue;
   } else if (schedule == 1) {
-    err = cudaFuncSetAttribute(a_resident_kernel<T, O>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return (int)err;
-    const int per = (gn + chunks - 1) / chunks;
-    dim3 grid((gn + per - 1) / per, gm, 1);
-    a_resident_kernel<T, O><<<grid, kThreads, smem, stream>>>(
-        a, sa_m, sa_k, b, sb_k, sb_n, o, w, m, k, n, bm, bk, bn, per, e);
+    // `chunks` is the card's SM count (the wrapper's `a_resident_config`)
+    const int bt = sb_k == 1 && sb_n != 1;
+    const ARDCfg c = ard_config<T>(m, k, n, bm, bk, bt, chunks);
+    if (nb != 1 || c.smem < 0 || c.smem > kSmemMax || c.gm > 65535)
+      return (int)cudaErrorInvalidValue;
+    if (c.mr == 1)
+      return launch_a_resident<T, O, 1>(c, a, sa_m, sa_k, b, sb_k, sb_n, o, m, k, n, bk, e,
+                                        stream);
+    if constexpr (kKiSwz<T>)
+      return launch_a_resident<T, O, 4>(c, a, sa_m, sa_k, b, sb_k, sb_n, o, m, k, n, bk, e,
+                                        stream);
+    return (int)cudaErrorInvalidValue;
   } else if (schedule == 2) {
     err = cudaFuncSetAttribute(b_resident_kernel<T, O>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -465,10 +504,10 @@ int launch(int schedule, const void* A, long long sa_b, long long sa_m, long lon
 
 // schedule: 0 k_inner (nb >= 1 stacks the batch slices' rows), 1
 // a_resident, 2 b_resident.  Strides are in elements; `out` is a
-// contiguous (nb, m, n) tensor; `ws` an fp32 (m, n) workspace for the
-// resident schedules with more than one k block (else null).  `chunks` is
-// the number of chunks for the resident schedules and the card's SM count
-// for k_inner.  Returns the cudaError_t of the launch.
+// contiguous (nb, m, n) tensor; `ws` an fp32 (m, n) workspace for
+// b_resident with more than one k block (else null).  `chunks` is the
+// number of chunks for b_resident and the card's SM count for k_inner and
+// a_resident.  Returns the cudaError_t of the launch.
 extern "C" int rt_skew_matmul(int schedule, int in_bf16, int out_bf16, const void* A,
                               long long sa_b, long long sa_m, long long sa_k,
                               const void* B, long long sb_k, long long sb_n, void* out,

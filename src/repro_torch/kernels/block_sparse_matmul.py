@@ -1,7 +1,8 @@
 """Block-sparse (BSR) matmul: the Hopper kernel K9 + its plain version.
 
-Kernel (CUDA C++, `csrc/block_sparse_matmul.cu` for k_inner and a_resident,
-`csrc/block_sparse_b_resident.cu` for b_resident): K9, one kernel per loop
+Kernel (CUDA C++, one source and library a schedule, so nvcc builds them
+side by side: `csrc/block_sparse_k_inner.cu`, `csrc/block_sparse_matmul.cu`
+for a_resident, `csrc/block_sparse_b_resident.cu`): K9, one kernel per loop
 order of the dense family (k_inner, a_resident, b_resident), replacing
 `repro/sparse/kernels.py::block_sparse_matmul_padded`:
 
@@ -19,13 +20,16 @@ always launches the kernel (or raises); a CPU tensor runs the plain
 version, which loops over (row block, nonzero block) with fp32 products
 in the layout's order and applies the epilogue once.
 
-a_resident keeps the fp32 sums of its CTA's columns in registers (no
-workspace); `a_resident_config` gives the kernel's warp layout and
-shared memory at a block shape, `a_resident_chunk` the columns one CTA
-holds.  b_resident is its mirror: the sums of a chunk of row blocks in
-registers, the chunk's column blocks walked in ascending order so that
-each B slice is fetched once per chunk; `b_resident_config` /
-`b_resident_chunk` give its layout and chunk.
+k_inner is K1's k_inner device code walking the slices of the CTA's row
+block's nonzero blocks; `k_inner_config` gives its CTA tile (rows within
+one row block, up to 256 columns), ring and grid.  a_resident keeps the
+fp32 sums of its CTA's columns in registers (no workspace);
+`a_resident_config` gives the kernel's warp layout and shared memory at a
+block shape, `a_resident_chunk` the columns one CTA holds.  b_resident is
+its mirror: the sums of a chunk of row blocks in registers, the chunk's
+column blocks walked in ascending order so that each B slice is fetched
+once per chunk; `b_resident_config` / `b_resident_chunk` give its layout
+and chunk.
 
 `LAUNCHES` counts kernel launches per schedule, on the CUDA path only.
 """
@@ -48,6 +52,42 @@ LAUNCHES: collections.Counter = collections.Counter()
 # fp32 sums one lane of a_resident may hold for its CTA's columns (the
 # same again holds the block being formed).
 AR_SUMS_PER_LANE = 64
+
+
+# k_inner's shared-memory budget: two CTAs an SM.
+K_INNER_BUDGET = (_mm.SMEM_MAX - 1024) // 2
+
+
+@functools.lru_cache(maxsize=4096)
+def k_inner_config(m: int, n: int, bm: int, bk: int, dtype: torch.dtype,
+                   b_trans: bool, sms: int) -> _mm.KInnerConfig:
+    """K9 k_inner's CTA tile, ring and grid (mirrors `bki_config` in
+    csrc/block_sparse_k_inner.cu) for an (m, k) A of (bm, bk) blocks
+    against n columns on a card with `sms` SMs.  rows: bf16 the largest of
+    64, 32 and 16 that divides bm, so that no CTA's rows cross a row block
+    (mr = rows / 16); fp32 16.  tile_w: the widest power of two up to 256
+    (bf16; fp32 128) whose grid still has `sms` CTAs, at least 16; a warp
+    owns strips w and w + 8, so two at 256.  ks: the deepest power of two
+    up to 256 dividing bk (no slice straddles two blocks) with >= 3
+    stages (at most 8) within `K_INNER_BUDGET`; a transposed B narrows the
+    tile until a slice is 128 bytes deep."""
+    size = 2 if dtype == torch.bfloat16 else 4
+    if size == 4:
+        rows = 16
+    else:
+        rows = 64 if bm % 64 == 0 else 32 if bm % 32 == 0 else 16
+    gm = -(-m // rows)
+    tw = 256 if size == 2 else 128
+    while tw > 16 and gm * -(-n // tw) < sms:
+        tw //= 2
+    ks, stages, smem = _mm._ki_ring(size, rows, tw, bk, b_trans,
+                                    K_INNER_BUDGET)
+    while b_trans and tw > 16 and ks * size < 128:
+        tw //= 2
+        ks, stages, smem = _mm._ki_ring(size, rows, tw, bk, b_trans,
+                                        K_INNER_BUDGET)
+    return _mm.KInnerConfig(rows, rows // 16, tw, ks, stages, b_trans, gm,
+                            -(-n // tw), smem)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -230,14 +270,16 @@ def _lib() -> ctypes.CDLL:
 
 
 @functools.lru_cache(maxsize=None)
-def _lib_b_resident() -> ctypes.CDLL:
-    lib = build.load("block_sparse_b_resident")
+def _lib_one(name: str) -> ctypes.CDLL:
+    """The k_inner or b_resident library: one entry point, named after
+    it, with the same arguments."""
+    lib = build.load(f"block_sparse_{name}")
     p, i, ll, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, \
         ctypes.c_float
-    lib.rt_block_sparse_b_resident.argtypes = [
-        i, i, p, p, i, p, ll, ll, p, ll, ll, p, i, i, i, i, i, i, i,
-        f, i, p, i, i, p, i, ll, ll, p]
-    lib.rt_block_sparse_b_resident.restype = i
+    fn = getattr(lib, f"rt_block_sparse_{name}")
+    fn.argtypes = [i, i, p, p, i, p, ll, ll, p, ll, ll, p, i, i, i, i, i, i, i,
+                   f, i, p, i, i, p, i, ll, ll, p]
+    fn.restype = i
     return lib
 
 
@@ -280,15 +322,19 @@ def block_sparse_matmul_cuda(a, b, layout, bias=None, residual=None, *,
      rst, keep) = _mm.epilogue_args(epilogue, bias, residual, a.device, n)
     cols, nnz = layout.device_tensors(a.device)
     out = torch.empty((m, n), dtype=out_dtype, device=a.device)
-    chunks = 1
-    if sid == 1:
+    sms = _mm._sm_count(a.device.index or 0)
+    if sid == 0:
+        b_trans = b.stride(0) == 1 and b.stride(1) != 1
+        if k_inner_config(m, n, bm, bk, a.dtype, b_trans, sms).gn > 65535:
+            raise ValueError(f"grid too large: n={n}")
+        chunks = sms
+    elif sid == 1:
         if a_resident_config(bm, bk, a.dtype).smem < 0:
             raise ValueError(f"a_resident cannot take blocks {(bm, bk)} of "
                              f"{a.dtype}: no pipeline fits the {_mm.SMEM_MAX}"
                              f" bytes of shared memory a CTA may use")
-        chunks = a_resident_chunk(gm, n, bm, bk, a.dtype,
-                                  _mm._sm_count(a.device.index or 0))
-    elif sid == 2:
+        chunks = a_resident_chunk(gm, n, bm, bk, a.dtype, sms)
+    else:
         cfg = b_resident_config(bm, bk, bn, a.dtype)
         if cfg.smem < 0:
             raise ValueError(f"b_resident cannot take blocks {(bm, bk)} of "
@@ -296,23 +342,18 @@ def block_sparse_matmul_cuda(a, b, layout, bias=None, residual=None, *,
                              f" bytes of shared memory a CTA may use")
         if -(-n // cfg.tile_w) > 65535:
             raise ValueError(f"grid too large: n={n}")
-        chunks = b_resident_chunk(gm, n, bm, bk, bn, a.dtype,
-                                  _mm._sm_count(a.device.index or 0))
+        chunks = b_resident_chunk(gm, n, bm, bk, bn, a.dtype, sms)
     stream = torch.cuda.current_stream(a.device).cuda_stream
-    if sid == 2:
-        err = _lib_b_resident().rt_block_sparse_b_resident(
-            in_bf16, out_bf16, cols.data_ptr(), nnz.data_ptr(), layout.s_max,
+    args = (in_bf16, out_bf16, cols.data_ptr(), nnz.data_ptr(), layout.s_max,
             a.data_ptr(), a.stride(0), a.stride(1), b.data_ptr(),
             b.stride(0), b.stride(1), out.data_ptr(), m, k, n, bm, bk, bn,
             chunks, scale, has_scale, bias_ptr, bias_bf16, act, res_ptr,
             res_bf16, rst[1], rst[2], stream)
+    if sid == 1:
+        err = _lib().rt_block_sparse_matmul(sid, *args)
     else:
-        err = _lib().rt_block_sparse_matmul(
-            sid, in_bf16, out_bf16, cols.data_ptr(), nnz.data_ptr(),
-            layout.s_max, a.data_ptr(), a.stride(0), a.stride(1),
-            b.data_ptr(), b.stride(0), b.stride(1), out.data_ptr(), m, k, n,
-            bm, bk, bn, chunks, scale, has_scale, bias_ptr, bias_bf16, act,
-            res_ptr, res_bf16, rst[1], rst[2], stream)
+        err = getattr(_lib_one(schedule), f"rt_block_sparse_{schedule}")(
+            *args)
     build.check(err, f"block_sparse_matmul[{schedule}]")
     del keep
     LAUNCHES[f"block_sparse_matmul_{schedule}"] += 1

@@ -3,8 +3,9 @@
 Each `csrc/<name>.cu` is compiled by ``nvcc`` for ``sm_90a`` into a shared
 library with a plain C interface (no PyTorch headers, so a build takes
 seconds) and loaded with ctypes.  Libraries are named by a hash of their
-sources, so an edited kernel is always rebuilt, and live under ``build/``
-at the repository root (override with ``REPRO_TORCH_BUILD_DIR``).
+sources (the `.cu` and every shared `.cuh`), so an edited kernel is always
+rebuilt, and live under ``build/`` at the repository root (override with
+``REPRO_TORCH_BUILD_DIR``).
 
 Nothing here runs at import time: the first call of a kernel wrapper on a
 CUDA tensor builds what it needs.  `build_all()` starts one nvcc per source
@@ -24,7 +25,7 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 SOURCES = ("skew_matmul", "gemv_splitk", "grouped_matmul", "flash_attention",
            "rglru_scan", "ssd_scan", "block_sparse_matmul",
-           "block_sparse_b_resident")
+           "block_sparse_k_inner", "block_sparse_b_resident")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -51,7 +52,7 @@ def nvcc_path() -> str:
 
 def _lib_path(name: str) -> Path:
     h = hashlib.sha256()
-    for f in (CSRC / f"{name}.cu", CSRC / "common.cuh"):
+    for f in (CSRC / f"{name}.cu", *sorted(CSRC.glob("*.cuh"))):
         h.update(f.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return build_dir() / f"lib{name}-{h.hexdigest()[:12]}.so"

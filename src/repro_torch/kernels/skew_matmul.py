@@ -17,7 +17,12 @@ strides, so a transposed view (a tied embedding used as E^T) costs no copy.
 k_inner (K1's planned schedule, and K2) keeps its fp32 sums in registers,
 streams A and B through a `cp.async` ring and stacks the batch slices'
 rows, so decode's 4 x 1 rows read B once; `k_inner_config` gives its CTA
-tile, ring and grid (mirroring `ki_config` in the source).
+tile, ring and grid (mirroring `ki_config` in the source).  a_resident
+keeps the sums of a chunk of column tiles in registers over the whole k
+loop (no workspace), each k block's partial formed from zero and added
+once, with A and B on the same kind of ring; `a_resident_config` gives
+its rows, tile, ring and chunks (mirroring `ard_config`).  b_resident
+still folds its partials through an fp32 (m, n) workspace.
 
 `skew_matmul` / `skew_matmul_batched` dispatch on the device of their
 input: a CUDA tensor always launches the kernel (or raises); a CPU tensor
@@ -95,8 +100,9 @@ def _round_up(a: int, b: int) -> int:
 def smem_bytes(dtype: torch.dtype, bm: int, bk: int, bn: int) -> int:
     """Shared memory of one plan block's tile set, A, B and an fp32 C
     (mirrors `tile_smem_bytes` in csrc/common.cuh): what a CTA of the
-    dense a/b_resident, split-K, grouped and K9 k_inner kernels uses, and
-    the budget within which k_inner's ring fits (`k_inner_config`)."""
+    dense b_resident, split-K and grouped kernels uses, and the budget
+    within which k_inner's and a_resident's rings fit (`k_inner_config`,
+    `a_resident_config`)."""
     size = 2 if dtype == torch.bfloat16 else 4
     pad = 16 // size
     return (_round_up(bm * (bk + pad) * size, 128)
@@ -120,7 +126,9 @@ class KInnerConfig:
     dividing round_up(k, bk)) through `stages` >= 3 shared-memory stages
     (bf16 tiles unpadded and XOR-swizzled, fp32 tiles with a 16-byte row
     pad).  `smem` never exceeds the plan's tile set (`smem_bytes`) unless
-    that cannot hold three 16-deep stages."""
+    that cannot hold three 16-deep stages.  K9's k_inner uses the same
+    record (`block_sparse_matmul.k_inner_config`), with mr = rows / 16 up
+    to 4 and tiles up to 256 columns (two strips a warp)."""
 
     rows: int
     mr: int
@@ -219,6 +227,113 @@ def k_inner_config(rows_total: int, k: int, n: int, bm: int, bk: int,
                         smem)
 
 
+@dataclasses.dataclass(frozen=True)
+class AResidentConfig:
+    """a_resident's shape on the card (mirrors `ard_config` in
+    csrc/skew_matmul.cu).  rows / mr: k_inner's rule (bf16 8 rows when
+    every row fits, the MMA's other 8 reading a zero row, else min(bm, 64,
+    the 16-row granules m fills) with mr 4; fp32 16).  tile_w: 128 (a
+    16-column strip for each of the 8 warps), narrowed as k_inner's where
+    one tile a CTA would leave SMs idle, and for a transposed B until a
+    slice is 128 bytes deep.  A stage holds one B slice (ks x tile_w) and
+    one A buffer of a `group` = max(bk, ks) columns of k; ks is the deepest
+    power of two up to 256 that divides round_up(k, bk), divides bk or (at
+    a bk that is a multiple of 64) is a multiple of it, and leaves room for
+    >= 3 `stages` (at most 8) within
+    `A_RESIDENT_BUDGET` (two CTAs an SM).  `per` column tiles a CTA:
+    the fewest that fit the grid in one wave of two CTAs an SM (the
+    kernel's launch bound), at most 8 / mr (so a lane keeps 64 sums); the
+    grid is (`chunks`, `gm`)."""
+
+    rows: int
+    mr: int
+    tile_w: int
+    ks: int
+    group: int
+    stages: int
+    b_trans: bool
+    per: int
+    gm: int
+    chunks: int
+    smem: int
+
+    @property
+    def max_tiles(self) -> int:
+        """Column tiles a CTA may hold: 8 / mr (8 sums a lane a tile and
+        fragment)."""
+        return 8 // self.mr
+
+
+def _ar_stage_bytes(size: int, rows: int, group: int, tw: int, ks: int,
+                    b_trans: bool) -> int:
+    pad = 0 if size == 2 else 16 // size     # bf16 tiles are swizzled
+    a = _round_up(group // ks * rows * (ks + pad) * size, 128)
+    b = (tw * (ks + pad) if b_trans else ks * (tw + pad)) * size
+    return a + _round_up(b, 128)
+
+
+def _ar_fixed_bytes(size: int, rows: int, ks: int) -> int:
+    """An 8-row tile's zero row."""
+    return _round_up(ks * size, 128) if rows < 16 else 0
+
+
+# a_resident's shared-memory budget: two CTAs an SM, its launch bound.
+A_RESIDENT_BUDGET = (SMEM_MAX - 1024) // 2
+
+
+def _ar_ring(size: int, rows: int, tw: int, kp: int, bk: int,
+             b_trans: bool) -> tuple[int, int, int, int]:
+    """(ks, group, stages, smem) of a_resident's deepest ring."""
+    def stage(ks):
+        return _ar_stage_bytes(size, rows, max(bk, ks), tw, ks, b_trans)
+    budget = max(A_RESIDENT_BUDGET,
+                 _ar_fixed_bytes(size, rows, 16) + 3 * stage(16))
+    ks = 256
+    while ks >= 16:
+        # whole blocks a step only at a bk that is a multiple of 64 (the
+        # kernel reads each block at an offset of the swizzled tiles)
+        if kp % ks == 0 and (bk % ks == 0
+                             or (ks % bk == 0 and bk % 64 == 0)):
+            fixed = _ar_fixed_bytes(size, rows, ks)
+            stages = (budget - fixed) // stage(ks)
+            if stages >= 3:
+                stages = min(stages, 8)
+                return ks, max(bk, ks), stages, fixed + stages * stage(ks)
+        ks //= 2
+    raise AssertionError("unreachable: 16-deep stages always fit")
+
+
+@functools.lru_cache(maxsize=4096)
+def a_resident_config(m: int, k: int, n: int, bm: int, bk: int,
+                      dtype: torch.dtype, b_trans: bool,
+                      sms: int) -> AResidentConfig:
+    """a_resident's rows, tile, ring and chunks for an (m, k) @ (k, n)
+    product at the plan's (bm, bk) on a card with `sms` SMs (the plan's bn
+    does not enter: the tile is the kernel's choice)."""
+    size = 2 if dtype == torch.bfloat16 else 4
+    if size == 4:
+        rows = 16
+    elif m <= 8:
+        rows = 8
+    else:
+        rows = min(bm, 64, _round_up(m, 16))
+    mr = 1 if rows <= 16 else 4
+    gm = -(-m // rows)
+    tw = 128
+    if gm * -(-n // tw) < sms:
+        tw = _narrow_tile(gm, n, tw, sms)
+    kp = _round_up(k, bk)
+    ks, group, stages, smem = _ar_ring(size, rows, tw, kp, bk, b_trans)
+    while b_trans and tw > 16 and ks * size < 128:
+        tw //= 2
+        ks, group, stages, smem = _ar_ring(size, rows, tw, kp, bk, b_trans)
+    tiles = -(-n // tw)
+    rows_per_wave = max(1, 2 * sms // gm)
+    per = min(8 // mr, -(-tiles // rows_per_wave))
+    return AResidentConfig(rows, mr, tw, ks, group, stages, b_trans, per, gm,
+                           -(-tiles // per), smem)
+
+
 def _dtype_flag(t: torch.Tensor, what: str) -> int:
     if t.dtype == torch.bfloat16:
         return 1
@@ -291,11 +406,17 @@ def _launch(schedule: str, a3: torch.Tensor, b: torch.Tensor, bias,
     gm, gn, gk = -(-m // bm), -(-n // bn), -(-k // bk)
     sid = SCHEDULE_IDS[schedule]
     sms = _sm_count(a3.device.index or 0)
+    b_trans = b.stride(0) == 1 and b.stride(1) != 1
     if sid == 0:
-        b_trans = b.stride(0) == 1 and b.stride(1) != 1
         cfg = k_inner_config(nb * m, k, n, bm, bk, bn, a3.dtype, b_trans, sms)
         if cfg.gn > 65535:
             raise ValueError(f"grid too large: {cfg.gn} column tiles")
+    elif sid == 1:
+        if nb != 1:
+            raise ValueError("a_resident takes one (m, k) operand")
+        cfg = a_resident_config(m, k, n, bm, bk, a3.dtype, b_trans, sms)
+        if cfg.gm > 65535:
+            raise ValueError(f"grid too large: {cfg.gm} row tiles")
     elif gm > 65535:
         raise ValueError(f"grid too large: gm={gm}")
     if residual is not None:
@@ -309,12 +430,9 @@ def _launch(schedule: str, a3: torch.Tensor, b: torch.Tensor, bias,
      rst, keep) = epilogue_args(epilogue, bias, residual, a3.device, n)
     out = torch.empty((nb, m, n), dtype=out_dtype, device=a3.device)
     ws = None
-    chunks = sms                 # k_inner: the SM count its tiling targets
-    if sid:
-        if sid == 1:
-            chunks = max(1, min(gn, -(-2 * sms // gm)))
-        else:
-            chunks = max(1, min(gm, -(-2 * sms // gn)))
+    chunks = sms         # k_inner, a_resident: the SM count they tile for
+    if sid == 2:
+        chunks = max(1, min(gm, -(-2 * sms // gn)))
         if gk > 1:
             ws = torch.empty((m, n), dtype=torch.float32, device=a3.device)
     sa = a3.stride()

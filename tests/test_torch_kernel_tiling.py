@@ -1,4 +1,4 @@
-"""The pure functions that shape two kernels, on the CPU.
+"""The pure functions that shape the redesigned kernels, on the CPU.
 
 * K4 (`gemv_splitk_reduce`): `reduce_strip(gk)` keeps the gk x W fp32
   strip within the 227 KB of shared memory a block may use, as wide as
@@ -23,6 +23,16 @@
   walk (column blocks ascending, thread 0's merge of the rows' sorted
   lists) visits each (row block, nonzero block) once, in each row's s
   order, and fetches each B slice once per chunk.
+* K9 k_inner: `block_sparse_matmul.k_inner_config` keeps each CTA's rows
+  inside one row block, covers every output once, divides bk into its
+  slices, fits shared memory at the tuner's blocks and the (128, 128, 64)
+  fail-over, and takes the widest column tile (up to 256) whose grid fills
+  a 78 / 114 / 132-SM card; a mirror of its walk visits each nonzero
+  block's bk in ascending slices and is K1's dense walk at density 1.0.
+* K1 a_resident: `skew_matmul.a_resident_config` sizes rows by the real
+  rows (8 at decode), keeps whole k blocks in each step's fold, fits its
+  ring, and chunks the column tiles so each is covered once within the
+  register sums a lane may hold and the grid fits a wave of two CTAs an SM.
 """
 
 import numpy as np
@@ -442,3 +452,217 @@ def test_b_resident_walk_visits_every_block_once_in_s_order(case):
     assert len(set(visits)) == len(visits)
     for i in range(gm):           # each row's blocks arrive in its s order
         assert [kb for r, kb in visits if r == i] == list(cols[i, :nnz[i]])
+
+
+# ------------------------------------------------------------------ K9 k_inner
+# (bm, bk, bn): the tuner's layouts, the (128, 128, 64) fail-over plan, and
+# small, odd and tall blocks
+BKI_BLOCKS = [(32, 128, 64), (64, 64, 64), (128, 128, 64), (128, 128, 128),
+              (16, 16, 16), (48, 64, 64), (144, 128, 64), (256, 64, 64),
+              (64, 80, 64)]
+BKI_SHAPES = [(4096, 4096), (1000, 700), (100, 200), (3200, 600), (256, 192),
+              (20, 16), (4096, 64)]
+
+
+def _bki_stage(size: int, rows: int, tw: int, ks: int, b_trans: bool) -> int:
+    a = -(-rows * (ks + (0 if size == 2 else 16 // size)) * size // 128) * 128
+    pad = 0 if size == 2 else 16 // size
+    b = (tw * (ks + pad) if b_trans else ks * (tw + pad)) * size
+    return a + -(-b // 128) * 128
+
+
+@pytest.mark.parametrize("sms", [78, 114, 132])
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("blocks", BKI_BLOCKS)
+def test_bsr_k_inner_config_fits_and_covers_every_output_once(blocks, dtype,
+                                                              sms):
+    bm, bk, bn = blocks
+    size = 2 if dtype == torch.bfloat16 else 4
+    cap = 256 if size == 2 else 128
+    for m, n in BKI_SHAPES:
+        for b_trans in (False, True):
+            c = bsr.k_inner_config(m, n, bm, bk, dtype, b_trans, sms)
+            # rows: a power-of-two number of 16-row fragments dividing bm,
+            # so that no CTA's rows cross a row block
+            assert c.rows in ((16, 32, 64) if size == 2 else (16,))
+            assert bm % c.rows == 0 and c.mr == c.rows // 16
+            if size == 2:
+                assert c.rows == max(r for r in (16, 32, 64) if bm % r == 0)
+            for i in range(c.gm):
+                r0, r1 = i * c.rows, min(m, (i + 1) * c.rows) - 1
+                assert r0 // bm == r1 // bm
+            # every row and column exactly once
+            assert (c.gm - 1) * c.rows < m <= c.gm * c.rows
+            cols = [c.tile_w * j + x for j in range(c.gn)
+                    for x in range(c.tile_w) if c.tile_w * j + x < n]
+            assert cols == list(range(n))
+            # the slice divides bk: no slice straddles two nonzero blocks
+            assert bk % c.ks == 0 and c.ks & (c.ks - 1) == 0 and c.ks >= 16
+            assert 3 <= c.stages <= 8
+            table = -(-c.rows * 8 // 128) * 128
+            stage = _bki_stage(size, c.rows, c.tile_w, c.ks, b_trans)
+            assert stage == mm._ki_stage_bytes(size, c.rows, c.tile_w, c.ks,
+                                               b_trans)
+            assert c.smem == table + c.stages * stage <= SMEM_MAX
+            floor = table + 3 * _bki_stage(size, c.rows, c.tile_w, 16,
+                                           b_trans)
+            assert c.smem <= max(bsr.K_INNER_BUDGET, floor)
+            # the column tile: the widest power of two up to 256 (fp32 128)
+            # whose grid fills the card (16 at the least); a transposed B
+            # narrows it further for 128-byte runs along k
+            assert c.tile_w & (c.tile_w - 1) == 0 and 16 <= c.tile_w <= cap
+            fills = c.gm * c.gn >= sms
+            assert fills or c.tile_w == 16 or b_trans
+            if c.tile_w < cap and not b_trans:
+                assert c.gm * -(-n // (2 * c.tile_w)) < sms
+            if b_trans and c.tile_w > 16:
+                assert c.ks * size >= 128
+            # a warp's sums: mr fragments of each of its strips (two at 256)
+            strips = 2 if c.tile_w > 128 else 1
+            assert c.mr * strips * 8 <= bsr.AR_SUMS_PER_LANE
+
+
+def test_bsr_k_inner_config_at_the_tuners_layouts():
+    # 4096^2, (32, 128), n 4096 on 132 SMs: 32 rows (2 fragments), 256
+    # columns, so each nonzero A block is read 16 times, not 64; 128 row
+    # blocks x 16 tiles = 2048 CTAs, two an SM
+    c = bsr.k_inner_config(4096, 4096, 32, 128, torch.bfloat16, False, 132)
+    assert (c.rows, c.mr, c.tile_w, c.gm, c.gn) == (32, 2, 256, 128, 16)
+    assert (c.ks, c.stages) == (64, 3) and 2 * (c.smem + 1024) <= 233_472
+    # the fail-over (128, 128, 64): two CTAs of 64 rows a row block
+    c = bsr.k_inner_config(4096, 4096, 128, 128, torch.bfloat16, False, 132)
+    assert (c.rows, c.mr, c.tile_w, c.gm) == (64, 4, 256, 64)
+    for dtype in DTYPES:
+        for bm, bk in ((32, 128), (64, 64), (128, 128)):
+            c = bsr.k_inner_config(4096, 4096, bm, bk, dtype, False, 132)
+            assert c.smem <= SMEM_MAX and c.gm * c.gn >= 132
+
+
+def _k_inner_walk(cols: np.ndarray, nnz: np.ndarray, i: int, bk: int,
+                  ks: int) -> list[int]:
+    """The k offsets of K9 k_inner's steps for row block i: the kernel's
+    copy cursor (block s, slice sl) advanced one step at a time over
+    nnz[i] * bk / ks steps, at cols[i, s] * bk + sl * ks."""
+    ks_per = bk // ks
+    s = sl = 0
+    walk = []
+    for _ in range(int(nnz[i]) * ks_per):
+        walk.append(int(cols[i, s]) * bk + sl * ks)
+        sl += 1
+        if sl == ks_per:
+            sl, s = 0, s + 1
+    return walk
+
+
+@pytest.mark.parametrize("case", [
+    # (gm, gk, density, seed, empty_every, bk, ks)
+    (128, 32, 0.25, 0, 0, 128, 64), (128, 32, 0.5, 1, 0, 128, 128),
+    (128, 32, 1.0, 2, 0, 128, 64), (32, 32, 0.1, 3, 0, 128, 32),
+    (32, 32, 0.4, 4, 0, 128, 32), (64, 64, 0.05, 5, 3, 64, 16),
+    (32, 12, 0.5, 6, 3, 128, 128), (7, 5, 0.0, 7, 0, 64, 64),
+    (9, 40, 0.3, 8, 2, 80, 16), (1, 1, 1.0, 9, 0, 16, 16),
+    (50, 20, 1.0, 10, 0, 256, 64)])
+def test_bsr_k_inner_walk_visits_each_block_in_ascending_slices(case):
+    gm, gk, density, seed, empty_every, bk, ks = case
+    cols, nnz = _random_layout(gm, gk, density, seed, empty_every)
+    for i in range(gm):
+        walk = _k_inner_walk(cols, nnz, i, bk, ks)
+        # ascending, ks apart inside a block, each slice inside one block
+        assert walk == sorted(set(walk))
+        assert all(k0 // bk == (k0 + ks - 1) // bk for k0 in walk)
+        want = [int(c) * bk + sl for c in cols[i, :nnz[i]]
+                for sl in range(0, bk, ks)]
+        assert walk == want
+        if nnz[i] == gk:            # a full row: K1's dense walk exactly
+            assert walk == list(range(0, gk * bk, ks))
+
+
+# ------------------------------------------------------------------ K1 a_resident
+AR_SHAPES = [(m, k, n) for m, k, n, nb in KI_SHAPES if nb == 1] + [
+    (8, 4096, 4096), (4, 4096, 4096), (1, 4096, 4096), (17, 256, 1000)]
+
+
+@pytest.mark.parametrize("sms", [78, 114, 132])
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("blocks", KI_BLOCKS)
+def test_dense_a_resident_config_fits_and_covers_every_output_once(
+        blocks, dtype, sms):
+    bm, bk, bn = blocks
+    if mm.smem_bytes(dtype, bm, bk, bn) > SMEM_MAX:
+        return                       # check_blocks refuses these blocks
+    size = 2 if dtype == torch.bfloat16 else 4
+    pad = 0 if size == 2 else 16 // size
+    for m, k, n in AR_SHAPES:
+        for b_trans in (False, True):
+            c = mm.a_resident_config(m, k, n, bm, bk, dtype, b_trans, sms)
+            # rows sized by the real rows (k_inner's rule)
+            if size == 2 and m <= 8:
+                assert c.rows == 8 and c.mr == 1 and c.max_tiles == 8
+            else:
+                assert c.rows % 16 == 0
+                assert c.rows <= min(bm, 64 if size == 2 else 16)
+            assert c.mr == (1 if c.rows <= 16 else 4)
+            assert (c.gm - 1) * c.rows < m <= c.gm * c.rows
+            # the ring: a power-of-two slice dividing round_up(k, bk) that
+            # divides bk or, at a bk that is a multiple of 64, is a
+            # multiple of it (the fold needs whole blocks, read at offsets
+            # of the swizzled tiles), its A buffer max(bk, ks) columns
+            kp = -(-k // bk) * bk
+            assert c.ks & (c.ks - 1) == 0 and 16 <= c.ks <= 256
+            assert kp % c.ks == 0 and (
+                bk % c.ks == 0 or (c.ks % bk == 0 and bk % 64 == 0))
+            assert c.group == max(bk, c.ks) and kp % c.group == 0
+            assert 3 <= c.stages <= 8
+            a_bytes = -(-c.group // c.ks * c.rows * (c.ks + pad) * size
+                        // 128) * 128
+            b_el = (c.tile_w * (c.ks + pad) if b_trans
+                    else c.ks * (c.tile_w + pad))
+            stage = a_bytes + -(-b_el * size // 128) * 128
+            zrow = -(-c.ks * size // 128) * 128 if c.rows < 16 else 0
+            assert c.smem == zrow + c.stages * stage <= SMEM_MAX
+            assert c.smem <= mm.A_RESIDENT_BUDGET or c.stages == 3
+            if c.stages < 8:              # no deeper ring fits the budget
+                assert zrow + (c.stages + 1) * stage > max(
+                    mm.A_RESIDENT_BUDGET, c.smem)
+            # chunks: every column tile exactly once, within the sums a
+            # lane may hold; the fewest tiles a CTA that fit the grid in
+            # one wave of two CTAs an SM, where 8 / mr tiles allow it
+            tiles = -(-n // c.tile_w)
+            assert 1 <= c.per <= min(c.max_tiles, tiles)
+            assert c.per * c.mr * 8 <= bsr.AR_SUMS_PER_LANE
+            assert c.chunks == -(-tiles // c.per)
+            seen = [t for ch in range(c.chunks)
+                    for t in range(ch * c.per, min(tiles, (ch + 1) * c.per))]
+            assert seen == list(range(tiles))
+            assert tiles * c.tile_w >= n > (tiles - 1) * c.tile_w
+            if c.per < c.max_tiles and c.gm <= 2 * sms:
+                assert c.gm * c.chunks <= 2 * sms
+            if c.per > 1:
+                assert c.gm * -(-tiles // (c.per - 1)) > 2 * sms
+            assert c.tile_w & (c.tile_w - 1) == 0 and 16 <= c.tile_w <= 128
+            if b_trans and c.tile_w > 16:
+                assert c.ks * size >= 128
+
+
+def test_dense_a_resident_config_at_decode_and_the_lm_head():
+    bf = torch.bfloat16
+    # the LM head's E^T: 8 rows (4 real), 128 columns, a 128-deep slice (two
+    # k blocks) in 3 stages of 34 KB, 6 tiles (768 columns) a CTA: 261 CTAs,
+    # one wave of two an SM (5 tiles would give 313, a wave and a fifth)
+    c = mm.a_resident_config(4, 3072, 200064, 64, 64, bf, True, 132)
+    assert (c.rows, c.mr, c.tile_w, c.ks, c.group, c.stages) == (
+        8, 1, 128, 128, 128, 3)
+    assert (c.per, c.chunks, c.gm) == (6, 261, 1)
+    # the tuner's decode class 4 x 4096 x 4096: k_inner's 16-column tiles,
+    # 256 CTAs of one tile, 256 deep at both candidate plans (two k blocks
+    # of 128 or four of 64 a step, each folded on its own)
+    for m in (1, 4, 8):
+        for bk in (128, 64):
+            c = mm.a_resident_config(m, 4096, 4096, 64, bk, bf, False, 132)
+            assert (c.rows, c.tile_w, c.per, c.chunks) == (8, 16, 1, 256)
+            assert (c.ks, c.group, c.stages) == (256, 256, 8)
+    # chunks cover the columns at n = 4096 and 200064 on a 132-SM card
+    for n in (4096, 200064):
+        c = mm.a_resident_config(4, 3072, n, 64, 64, bf, False, 132)
+        tiles = -(-n // c.tile_w)
+        assert c.chunks * c.per >= tiles > (c.chunks - 1) * c.per

@@ -638,14 +638,16 @@ def test_block_sparse_b_resident_allocates_only_its_output(dev, dtype):
 def test_block_sparse_dense_layout_bitwise_equals_k1(dev, dtype, schedule):
     """At density 1.0 K9 visits every k block in order with K1's MMAs and
     K1's fold of the block partials, so its output equals K1's bit for
-    bit, on a chunked shape and at (128, 128) blocks too."""
+    bit, on a chunked shape, at (128, 128) blocks, and where K9 k_inner
+    takes 256-column tiles (4000 rows)."""
     from repro_torch.kernels import block_sparse_matmul as bsr_mod
     from repro_torch.sparse.layout import BlockSparseLayout
     for (m, k, n), block, bn in (((200, 700, 300), (64, 128), 128),
                                  ((200, 700, 300), (32, 128), 64),
                                  ((200, 700, 300), (128, 128), 64),
                                  (AR_CHUNKED, (32, 128), 64),
-                                 (AR_CHUNKED, (128, 128), 64)):
+                                 (AR_CHUNKED, (128, 128), 64),
+                                 ((4000, 520, 1000), (32, 128), 64)):
         lay = BlockSparseLayout.dense(m, k, block)
         a, b = _t((m, k), dtype, dev, 0.2), _t((k, n), dtype, dev, 0.2)
         tokens, bias, res = _operands("bias_gelu", m, n, dtype, dev)
@@ -658,6 +660,101 @@ def test_block_sparse_dense_layout_bitwise_equals_k1(dev, dtype, schedule):
                                        epilogue=tokens, out_dtype=dtype)
         torch.cuda.synchronize()
         assert torch.equal(got, want)
+
+
+# K9 k_inner: (m, k, n, block, bn), ragged against every block; (128, 128)
+# at bn 64 is the sparse planner's fail-over plan; the "wide" shapes have
+# enough row tiles for 256-column tiles (two strips a warp, bf16)
+BKI_CASES = {
+    "ragged_32x128": (1000, 1500, 700, (32, 128), 64),
+    "ragged_64x64": (150, 300, 90, (64, 64), 64),
+    "failover_128x128x64": (600, 1100, 500, (128, 128), 64),
+    "small_16x16": (40, 70, 50, (16, 16), 16),
+    "wide_32x128": (4000, 520, 1000, (32, 128), 64),
+    "wide_failover_128x128x64": (4000, 520, 1000, (128, 128), 64),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", list(BKI_CASES))
+def test_block_sparse_k_inner_matches_plain(dev, dtype, case):
+    """K9 k_inner's walk over the nonzero blocks' slices, at densities 0.05
+    to 1.0, with empty row blocks below 1.0, and B row-major or a
+    transposed view (copied n-major)."""
+    from repro_torch.kernels import block_sparse_matmul as bsr_mod
+    m, k, n, block, bn = BKI_CASES[case]
+    a = _t((m, k), dtype, dev, 0.2)
+    b_rows = _t((k, n), dtype, dev, 0.2)
+    b_cols = _t((n, k), dtype, dev, 0.2).T
+    for density in (0.05, 0.25, 0.5, 1.0):
+        lay = _bsr_layout(m, k, block, density, empty_rows=density < 1.0)
+        for b in (b_rows, b_cols):
+            for spec in (None, "bias_silu", "residual"):
+                tokens, bias, res = _operands(spec, m, n, dtype, dev)
+                got = bsr_mod.block_sparse_matmul_cuda(
+                    a, b, lay, bias, res, bn=bn, schedule="k_inner",
+                    epilogue=tokens, out_dtype=dtype)
+                want = bsr_mod.block_sparse_matmul_plain(
+                    a, b, lay, bias, res, epilogue=tokens, out_dtype=dtype)
+                torch.cuda.synchronize()
+                torch.testing.assert_close(got.float(), want.float(),
+                                           **TOL[dtype])
+        if density < 1.0:            # the empty row block: epilogue(0)
+            tokens, _, res = _operands("residual", m, n, dtype, dev)
+            got = bsr_mod.block_sparse_matmul_cuda(
+                a, b_rows, lay, None, res, bn=bn, schedule="k_inner",
+                epilogue=tokens, out_dtype=torch.float32)
+            torch.cuda.synchronize()
+            assert torch.equal(got[:block[0]], res[:block[0]].float())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("m", [1, 4, 8])
+def test_dense_a_resident_decode_rows_match_plain(dev, dtype, m):
+    """K1 a_resident at decode rows (8-row tiles, up to 8 column tiles a
+    CTA) against its plain version: the tuner's decode plans (64, 128, 64)
+    and (64, 64, 64) (a slice of two k blocks) with row-major B, and a tied
+    embedding read as E^T in place."""
+    w = _t((1024, 2048), dtype, dev, 1024 ** -0.5)
+    emb = _t((3000, 1024), dtype, dev, 0.02)
+    a = _t((m, 1024), dtype, dev)
+    for b, spec in ((w, "residual"), (w, "silu"), (emb.T, None)):
+        tokens, bias, res = _operands(spec, m, b.shape[1], dtype, dev)
+        for blocks in ((64, 128, 64), (64, 64, 64), (64, 64, 128)):
+            for out_dtype in (dtype, torch.float32):
+                got = mm_mod.skew_matmul_cuda(
+                    a, b, bias, res, bm=blocks[0], bk=blocks[1],
+                    bn=blocks[2], schedule="a_resident", epilogue=tokens,
+                    out_dtype=out_dtype)
+                want = mm_mod.skew_matmul_plain(a, b, bias, res,
+                                                bk=blocks[1],
+                                                epilogue=tokens,
+                                                out_dtype=out_dtype)
+                torch.cuda.synchronize()
+                torch.testing.assert_close(got.float(), want.float(),
+                                           **TOL[out_dtype])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_dense_a_resident_allocates_only_its_output(dev, dtype):
+    """K1 a_resident keeps its chunk's sums in registers: no fp32 (m, n)
+    workspace, at decode rows and at a shape of several k blocks and row
+    tiles."""
+    for m, k, n in ((4, 1024, 4096), (200, 700, 300)):
+        a, b = _t((m, k), dtype, dev, 0.2), _t((k, n), dtype, dev, 0.2)
+        mm_mod.skew_matmul_cuda(a, b, bm=64, bk=64, bn=128,
+                                schedule="a_resident")   # the build
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        out = mm_mod.skew_matmul_cuda(a, b, bm=64, bk=64, bn=128,
+                                      schedule="a_resident", out_dtype=dtype)
+        torch.cuda.synchronize()
+        grown = torch.cuda.max_memory_allocated(dev) - before
+        assert grown == -(-out.numel() * out.element_size() // 512) * 512
 
 
 @pytest.mark.cuda

@@ -1,0 +1,102 @@
+#!/usr/bin/env python3
+"""Time the port's matmul kernels at `chip_smoke.py`'s shapes for one
+source tree, to compare two trees on one card.
+
+    python3 tools/kernel_ab.py SRC_DIR
+
+SRC_DIR holds a `repro_torch` package (`src` of a checkout, or of an
+unpacked `git archive <commit> src`).  Cards differ by a few percent from
+call to call, so compare two trees inside one call, in turns:
+
+    mkdir -p build/ab/parent && git archive <parent> src | tar -x -C build/ab/parent
+    for t in build/ab/parent/src src src build/ab/parent/src; do
+        python3 tools/kernel_ab.py $t; done
+
+Each run builds the tree's kernels into build/ab/<tree> and prints one
+JSON line of CUDA-event times in ms (50 calls after 5 warm-ups, queued
+behind a `torch.cuda._sleep` so the card, not the host, sets the pace):
+K1 k_inner at the LM head (E^T in place), the prefill and decode
+projections, 4096^3 and the tuner's decode class; K2 at 4 x 1 rows;
+K1 a_resident at the LM head and the decode class; K9 k_inner and
+a_resident at the tuner's layouts.  Needs one CUDA card.
+"""
+
+import json
+import os
+import sys
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent.parent
+
+
+def time_ms(torch, fn, iters=50, warmup=5):
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(10_000_000)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def main() -> None:
+    src = Path(sys.argv[1]).resolve()
+    tag = "_".join(src.relative_to(ROOT).parts) if src.is_relative_to(
+        ROOT) else src.name
+    os.environ["REPRO_TORCH_BUILD_DIR"] = str(ROOT / "build" / "ab" / tag)
+    sys.path.insert(0, str(src))
+    import torch
+    if not torch.cuda.is_available():
+        sys.exit("kernel_ab.py needs a CUDA card")
+    from repro_torch.kernels import block_sparse_matmul as bsr
+    from repro_torch.kernels import skew_matmul as mm
+    from repro_torch.sparse.layout import BlockSparseLayout
+
+    g = torch.Generator(device="cuda")
+    g.manual_seed(1)
+    bf = torch.bfloat16
+
+    def rnd(shape, scale=1.0):
+        return (torch.randn(shape, generator=g, device="cuda") * scale).to(bf)
+
+    res = {}
+    emb = rnd((200064, 3072), 0.02)
+    h4 = rnd((4, 3072))
+    res["lm_head"] = time_ms(torch, lambda: mm.skew_matmul_cuda(
+        h4, emb.T, bm=64, bk=64, bn=128, out_dtype=torch.float32))
+    res["k2_lm_head"] = time_ms(torch, lambda: mm.skew_matmul_batched_cuda(
+        h4[:, None, :], emb.T, bm=64, bk=64, bn=128, out_dtype=torch.float32))
+    for m, k, n in ((512, 3072, 8192), (512, 8192, 3072), (4, 3072, 8192),
+                    (4, 8192, 3072), (4, 3072, 3072), (4, 4096, 4096),
+                    (4096, 4096, 4096)):
+        a, w = rnd((m, k)), rnd((k, n), k ** -0.5)
+        res[f"{m}x{k}x{n}"] = time_ms(torch, lambda: mm.skew_matmul_cuda(
+            a, w, bm=64, bk=64, bn=128, out_dtype=bf))
+    w = rnd((3072, 3072), 3072 ** -0.5)
+    res["k2_4x1x3072"] = time_ms(torch, lambda: mm.skew_matmul_batched_cuda(
+        h4[:, None, :], w, bm=64, bk=64, bn=128, out_dtype=bf))
+    res["ar_lm_head"] = time_ms(torch, lambda: mm.skew_matmul_cuda(
+        h4, emb.T, bm=64, bk=64, bn=128, schedule="a_resident",
+        out_dtype=torch.float32))
+    a, w = rnd((4, 4096)), rnd((4096, 4096), 4096 ** -0.5)
+    for bm, bk, bn in ((64, 128, 64), (64, 64, 64)):
+        res[f"ar_decode_{bk}"] = time_ms(torch, lambda: mm.skew_matmul_cuda(
+            a, w, bm=bm, bk=bk, bn=bn, schedule="a_resident", out_dtype=bf))
+    big = rnd((4096, 4096))
+    for block, d in (((32, 128), 0.25), ((32, 128), 0.5), ((128, 128), 0.4)):
+        lay = BlockSparseLayout.random(4096, 4096, block, d)
+        for sched in ("k_inner", "a_resident"):
+            res[f"bsr_{sched}_{block[0]}_{d}"] = time_ms(
+                torch, lambda: bsr.block_sparse_matmul_cuda(
+                    big, w, lay, bn=64, schedule=sched, out_dtype=bf))
+    print(json.dumps({"src": str(sys.argv[1]),
+                      **{k: round(v, 5) for k, v in res.items()}}))
+
+
+if __name__ == "__main__":
+    main()
