@@ -14,7 +14,8 @@ nonzero and prints no result:
      version on the card at phi4-mini-3.8b's shapes, bf16 and fp32, every
      schedule and epilogue on the path, K2 bitwise equal to one K1 call
      per batch slice, a_resident at the tuner's decode rows (m 1 / 4 / 8
-     against 4096^2) and at the LM head's E^T, plus split-K bitwise
+     against 4096^2), a_resident and b_resident at the LM head's E^T
+     (m 1 / 4 / 8), plus split-K bitwise
      stability
      across split counts for integer-valued inputs, and K4 bitwise equal
      to the plain `tree_sum` reduce on random fp32 slabs of depth 7 to
@@ -33,9 +34,9 @@ nonzero and prints no result:
      with CUDA events, at the main path's shapes: K1 k_inner at the LM
      head, the prefill and the decode gate/up, down and o projections, K1
      k_inner and a_resident (at its two candidate plans) at the tuner's
-     decode class 4 x 4096 x 4096, K2 at the LM head and the o projection
-     (4 x 1 rows); K4 also at slab depths 84 (dbrx's k 10752 at bk 128) and
-     101;
+     decode class 4 x 4096 x 4096, K1 k_inner and b_resident at 4096^3
+     (64, 64, 128), K2 at the LM head and the o projection (4 x 1 rows);
+     K4 also at slab depths 84 (dbrx's k 10752 at bk 128) and 101;
 then dbrx-132b's MoE layers, after phi4's weights are freed:
   3b. K5 parity — the grouped expert GEMM against its plain version at the
      dbrx decode shapes (16 experts x 8 capacity rows, gate/up and down),
@@ -54,8 +55,9 @@ then recurrentgemma-9b, after dbrx's weights are freed:
   3c. K6 / K7 parity — the RG-LRU scan (with its fp32 carry) and flash
      attention against their plain versions at the prefill shapes of the
      three served models (batch 4 x prompt 128), recurrentgemma's long
-     prefill (batch 1 x 3072, window 2048) and gemma2-27b's local layer
-     (32 / 16 heads, S 8192, window 4096, softcap 50);
+     prefill (batch 1 x 3072, window 2048), gemma2-27b's local layer
+     (32 / 16 heads, S 8192, window 4096, softcap 50), a ragged length
+     (257, window 40), a single row and the fp32 route;
   4c. serve recurrentgemma-9b (the third main path) — every published
      width and all 38 layers, seeded bf16 weights, batch 4 x prompt 128 +
      16 generated tokens, then batch 1 x prompt 3072 + 4 (the window
@@ -64,8 +66,9 @@ then recurrentgemma-9b, after dbrx's weights are freed:
      of every prefill.  Counts are zeroed just before and read just after;
   5c. whole-path parity at full width and 6 layers (two whole (rec, rec,
      attn) units), as in phase 5;
-  6c. timings — K6 and K7, their plain versions and, for K7 where the mask
-     is plain causal, `scaled_dot_product_attention`;
+  6c. timings — K6 and K7, their plain versions and, for K7 where there is
+     no softcap, `scaled_dot_product_attention` (a boolean band mask, built
+     before timing, where the window is shorter than the sequence);
 then mamba2-2.7b, after recurrentgemma's weights are freed:
   3d. K8 parity — the SSD chunked scan (with its fp32 state) against its
      plain version in bf16 and fp32 at mamba2's batch-4 prefill (4 x 128,
@@ -249,9 +252,16 @@ def phase_build() -> None:
     paths = build.build_all()
     say(f"build: {len(paths)} libraries in {time.perf_counter() - t0:.1f} s")
     for name in paths:
-        regs = [ln.strip() for ln in build.build_log(name).splitlines()
-                if "registers" in ln]
+        log = build.build_log(name).splitlines()
+        regs = [ln.strip() for ln in log if "registers" in ln]
         say(f"build {name}: {len(regs)} kernels, e.g. {regs[:1]}")
+        if name == "flash_attention":
+            # K7's kernels one by one: the bf16 route keeps S, P and O in
+            # registers, so its count (and no spill) is the design's
+            for ln in log:
+                if "Compiling entry" in ln or "registers" in ln \
+                        or "spill" in ln:
+                    say(f"build {name}:   {ln.strip()}")
 
 
 # ----------------------------------------------------------------- helpers
@@ -444,14 +454,15 @@ def phase_parity(torch, cfg) -> dict:
                   f"bf16 decode {m}x{t}x{t} blocks {blocks}")
         if m != 4:
             a = rnd((m, d), torch.bfloat16)
-            got = mm.skew_matmul_cuda(a, emb.T, bm=64, bk=64, bn=128,
-                                      schedule="a_resident",
-                                      out_dtype=torch.float32)
             want = mm.skew_matmul_plain(a, emb.T, bk=64,
                                         out_dtype=torch.float32)
-            torch.cuda.synchronize()
-            check("skew_matmul_a_resident", got, want, torch.float32,
-                  f"bf16 {m}x{d}x{v} E^T")
+            for sched in ("a_resident", "b_resident"):
+                got = mm.skew_matmul_cuda(a, emb.T, bm=64, bk=64, bn=128,
+                                          schedule=sched,
+                                          out_dtype=torch.float32)
+                torch.cuda.synchronize()
+                check(f"skew_matmul_{sched}", got, want, torch.float32,
+                      f"bf16 {m}x{d}x{v} E^T")
     del w, emb
     torch.cuda.empty_cache()
 
@@ -764,6 +775,17 @@ def phase_timings(torch, cfg, params, counts, errs) -> list[dict]:
             lambda: torch.matmul(a, w),
             (4 * t + t * t + 4 * t) * 2, 2 * 4 * t * t,
             f"decode 4x{t}x{t} {(bm, bk, bn)}"))
+    # 4096^3 at (64, 64, 128): b_resident holds each B slice while a chunk
+    # of its 64 row blocks passes, beside k_inner at the same plan
+    a = torch.randn((t, t), generator=gen, device="cuda").to(bf)
+    for sched in ("k_inner", "b_resident"):
+        rows.append(row(
+            f"skew_matmul_{sched}",
+            lambda s=sched: mm.skew_matmul_cuda(a, w, bm=64, bk=64, bn=128,
+                                                schedule=s, out_dtype=bf),
+            lambda: mm.skew_matmul_plain(a, w, bk=64, out_dtype=bf),
+            lambda: torch.matmul(a, w),
+            3 * t * t * 2, 2 * t ** 3, f"{t}^3 (64, 64, 128)"))
     del a, w
     rows.append(row(
         "skew_matmul_batched",
@@ -1084,8 +1106,12 @@ def phase_parity_seq(torch, fa_shapes, scan_shapes) -> dict:
     check = functools.partial(check_kernel, torch, errs)
     bf = torch.bfloat16
     cases = [(*shape, bf) for shape in fa_shapes]
-    cases.append(("fp32 tile at head dim 256", 1, 16, 1, 300, 256, 100, 0.0,
-                  torch.float32))
+    # ragged against the 128-row q tile, MQA 16:1, a window of 40 that
+    # cuts a 64-column kv tile in its middle; one row; the fp32 route
+    cases += [("ragged", 2, 16, 1, 257, 256, 40, 0.0, bf),
+              ("one row", 2, 16, 1, 1, 256, None, 50.0, bf),
+              ("fp32 tile at head dim 256", 1, 16, 1, 300, 256, 100, 0.0,
+               torch.float32)]
     for label, b, hq, hkv, s, d, window, cap, dtype in cases:
         q, k, v = _qkv(torch, gen, b, hq, hkv, s, d, dtype)
         got = fa.flash_attention_cuda(q, k, v, window=window, softcap=cap)
@@ -1233,26 +1259,33 @@ def phase_serve_hybrid(torch, cfg):
     return out
 
 
-def sdpa_call(F, q, k, v):
+def sdpa_call(torch, F, q, k, v, window=None):
     """One `scaled_dot_product_attention` call computing causal GQA
-    attention on q, k, v (kv heads expanded beforehand where this PyTorch
-    has no `enable_gqa`)."""
+    attention on q, k, v; with a window shorter than the sequence, through
+    a boolean band mask (col <= row, col > row - window) built here, before
+    any timing.  Kv heads are expanded beforehand where this PyTorch takes
+    no `enable_gqa` (or not with a mask)."""
+    s = q.shape[2]
+    kw = dict(is_causal=True)
+    if window is not None and window < s:
+        i = torch.arange(s, device=q.device)
+        kw = dict(attn_mask=(i[None, :] <= i[:, None])
+                  & (i[None, :] > i[:, None] - window))
     try:
-        F.scaled_dot_product_attention(q[:, :, :1], k[:, :, :1], v[:, :, :1],
-                                       is_causal=True, enable_gqa=True)
-    except TypeError:
+        F.scaled_dot_product_attention(q, k, v, enable_gqa=True, **kw)
+        torch.cuda.synchronize()
+    except (TypeError, RuntimeError):
         g = q.shape[1] // k.shape[1]
         ke, ve = k.repeat_interleave(g, 1), v.repeat_interleave(g, 1)
-        return lambda: F.scaled_dot_product_attention(q, ke, ve,
-                                                      is_causal=True)
-    return lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True,
-                                                  enable_gqa=True)
+        return lambda: F.scaled_dot_product_attention(q, ke, ve, **kw)
+    return lambda: F.scaled_dot_product_attention(q, k, v, enable_gqa=True,
+                                                  **kw)
 
 
 def phase_timings_seq(torch, fa_shapes, scan_shapes, counts,
                       errs) -> list[dict]:
-    """K7 and K6, their plain versions and (K7, plain causal masks only)
-    `scaled_dot_product_attention`, at the main paths' shapes."""
+    """K7 and K6, their plain versions and (K7, every row without a
+    softcap) `scaled_dot_product_attention`, at the main paths' shapes."""
     import torch.nn.functional as F
 
     from repro_torch.kernels import flash_attention as fa
@@ -1265,9 +1298,7 @@ def phase_timings_seq(torch, fa_shapes, scan_shapes, counts,
     rows = []
     for label, b, hq, hkv, s, d, window, cap in fa_shapes:
         q, k, v = _qkv(torch, gen, b, hq, hkv, s, d, bf)
-        lib = None
-        if cap == 0.0 and (window is None or window >= s):
-            lib = sdpa_call(F, q, k, v)
+        lib = sdpa_call(torch, F, q, k, v, window) if cap == 0.0 else None
         nbytes = 2 * (q.numel() * 2 + k.numel() + v.numel())
         ops_ = 4 * d * hq * b * visible_pairs(s, window)
         rows.append(row(

@@ -10,9 +10,10 @@
 // 16x16x16, fp32 accumulate; `strip_mma` issues the same m16n8k16 HMMA
 // through ldmatrix + mma.sync with register-resident sums); fp32 operands
 // run a plain fp32 FMA loop — true IEEE fp32, never TF32.  The redesigned
-// kernels (K1 k_inner and a_resident, K9's three schedules; k_inner's
-// device code is shared in k_inner.cuh) keep their sums in registers and
-// stream their operands through `cp.async` rings; the others still use the
+// kernels (K1's three schedules, K7's bf16 route, K9's three schedules;
+// k_inner's device code is shared in k_inner.cuh, b_resident's in
+// b_resident.cuh) keep their sums in registers and stream their operands
+// through `cp.async` rings; the others (K3, K5) still use the
 // shared-memory fp32 tile above.
 #pragma once
 
@@ -235,32 +236,6 @@ __device__ void write_empty(O* out, int i0, int j0, int bm, int bn, int m, int n
   }
 }
 
-// Fold one partial tile into the output: gk == 1 writes the epilogue
-// directly; otherwise the first k block writes the fp32 workspace, middle
-// blocks add to it, and the last adds, applies the epilogue and casts.
-// Each element is always handled by the same thread, so the workspace
-// read-modify-write needs no synchronisation.
-template <typename O>
-__device__ void combine(const float* sc, int ldc, float* ws, O* out, int kk, int gk,
-                        int i0, int j0, int bm, int bn, int m, int n, const Epi& e) {
-  for (int idx = threadIdx.x; idx < bm * bn; idx += blockDim.x) {
-    const int r = idx / bn, c = idx - r * bn;
-    const int gr = i0 + r, gc = j0 + c;
-    if (gr >= m || gc >= n) continue;
-    const long long g = (long long)gr * n + gc;
-    const float p = sc[r * ldc + c];
-    if (gk == 1) {
-      out[g] = from_f<O>(apply_epi(p, e, 0, gr, gc));
-    } else if (kk == 0) {
-      ws[g] = p;
-    } else if (kk < gk - 1) {
-      ws[g] = ws[g] + p;
-    } else {
-      out[g] = from_f<O>(apply_epi(ws[g] + p, e, 0, gr, gc));
-    }
-  }
-}
-
 // ---- register-resident accumulators (K9 a_resident) -------------------
 // One warp's 16 x 16 fp32 accumulator, 8 floats a lane.  For bf16
 // operands (AccMma) it is two m16n8 halves of `mma.sync.m16n8k16`:
@@ -315,18 +290,24 @@ __device__ __forceinline__ void mma_16816(float* d, const unsigned (&a)[4], unsi
 // in 16-deep steps in k order.  bf16: ldmatrix fragments and two
 // m16n8k16 HMMAs a step, the instruction WMMA 16x16x16 lowers to on
 // sm_90, so a sum started from zero equals mma_block's bit for bit; fp32:
-// mma_block's fmaf chain.  sA and sB rows are 16-byte aligned.  fp32 BT:
-// sB is held n-major (sB[c * ldb + k], a transposed B copied as its own
-// rows); the sums are the same.
-template <int MR>
+// mma_block's fmaf chain.  sA and sB rows are 16-byte aligned.  BT: sB is
+// held n-major (sB[c * ldb + k], a transposed B copied as its own rows),
+// which is mma.sync's column-major B, read by ldmatrix untransposed (the
+// four 8 x 8 matrices: columns 0-7 at k 0-7 and 8-15, then columns 8-15);
+// the sums are the same.
+template <int MR, bool BT = false>
 __device__ __forceinline__ void strip_mma(AccMma (&acc)[MR], const bf16* sA, int lda,
                                           const bf16* sB, int ldb, int K, int nrf) {
   const int lane = threadIdx.x % 32;
   const bf16* pa = sA + (lane % 16) * lda + (lane / 16) * 8;
-  const bf16* pb = sB + (lane % 16) * ldb + (lane / 16) * 8;
+  const bf16* pb = BT ? sB + ((lane & 7) + 8 * (lane >> 4)) * ldb + ((lane >> 3) & 1) * 8
+                      : sB + (lane % 16) * ldb + (lane / 16) * 8;
   for (int kk = 0; kk < K; kk += 16) {
     unsigned b[4];
-    ldsm_x4_trans(b, pb + kk * ldb);
+    if (BT)
+      ldsm_x4(b, pb + kk);
+    else
+      ldsm_x4_trans(b, pb + kk * ldb);
 #pragma unroll
     for (int r = 0; r < MR; ++r) {
       if (r >= nrf) break;

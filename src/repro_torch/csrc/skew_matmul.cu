@@ -33,12 +33,22 @@
 //                added to the chunk's fp32 sums, which stay in registers
 //                (no workspace), with A and B on k_inner's cp.async ring and
 //                swizzled tiles.
-//   b_resident — the mirror image: B tile resident, the CTA walks m-tiles;
-//                it keeps single-buffered tiles and WMMA from the
-//                shared-memory fp32 tile, the partial sums accumulating
-//                through an fp32 workspace when gk > 1 (one CTA owns its
-//                output tiles for every k, so no atomics).
+//   b_resident — the mirror image, redesigned for Hopper
+//                (b_resident_kernel in b_resident.cuh, K9's b_resident
+//                template walking every block): blockIdx = (chunk of row
+//                blocks, column tile).  For each k block the B slice stays
+//                in shared memory while the CTA walks the chunk's row
+//                blocks; each block's partial is formed from zero and added
+//                to that row block's fp32 sums, which stay in registers (no
+//                workspace), with A blocks and B slices on a cp.async ring
+//                (E^T copied n-major).  At decode only the 16-row granules
+//                that hold rows are copied and multiplied, and the column
+//                tile narrows until the grid fills the SMs.  Bound: bytes
+//                at the LM head (B once, 0.368 ms on the H100); at 4096^3
+//                the tensor-core rate, with B read once per chunk of row
+//                blocks.
 // TMA and wgmma are later work for all three.
+#include "b_resident.cuh"
 #include "k_inner.cuh"
 
 namespace rt {
@@ -422,49 +432,47 @@ int launch_a_resident(const ARDCfg& c, const T* a, long long sa_m, long long sa_
   return (int)cudaGetLastError();
 }
 
-template <typename T, typename O>
-__global__ void __launch_bounds__(kThreads)
-b_resident_kernel(const T* __restrict__ A, long long sa_m, long long sa_k,
-                  const T* __restrict__ B, long long sb_k, long long sb_n,
-                  O* __restrict__ out, float* __restrict__ ws, int m, int k, int n,
-                  int bm, int bk, int bn, int per_chunk, Epi e) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  Tiles<T> t(smem, bm, bk, bn);
-  const int gm = (m + bm - 1) / bm, gk = (k + bk - 1) / bk;
-  const int j0 = blockIdx.y * bn;
-  const int ib = blockIdx.x * per_chunk;
-  const int ie = min(gm, ib + per_chunk);
-  for (int kk = 0; kk < gk; ++kk) {
-    __syncthreads();
-    load_tile(t.b, t.ldb, B, sb_k, sb_n, kk * bk, j0, bk, bn, k, n);
-    for (int it = ib; it < ie; ++it) {
-      __syncthreads();
-      load_tile(t.a, t.lda, A, sa_m, sa_k, it * bm, kk * bk, bm, bk, m, k);
-      __syncthreads();
-      mma_block(t.a, t.lda, t.b, t.ldb, t.c, t.ldc, bm, bk, bn, m - it * bm, true);
-      __syncthreads();
-      combine(t.c, t.ldc, ws, out, kk, gk, it * bm, j0, bm, bn, m, n, e);
-    }
-  }
+// b_resident's shape (mirrored by `b_resident_config` in
+// kernels/skew_matmul.py): the plan's widest tile (`br_width`), narrowed as
+// k_inner's (`ki_narrow`) where one row block a CTA would leave SMs idle;
+// the warp grid over the rows a row block holds (bm, or at m < bm the
+// 16-row granules of m: at decode one granule, so mr 1 and two CTAs an
+// SM) (`br_layout`); 8 to 2 stages of those rows, two CTAs an SM where
+// they fit.  `per` row blocks a CTA: as many as the registers allow (8 /
+// mr), fewer where that leaves under 2 x sms CTAs and more chunks can be
+// had (K9's `b_resident_chunk` rule).
+struct BRDCfg {
+  BRCfg c;
+  int per, gc, gn;
+};
+
+template <typename T>
+inline BRDCfg brd_config(int m, int n, int bm, int bk, int bn, int bt, int sms) {
+  BRDCfg d{};
+  d.c.bt = bt;
+  const int gm = (m + bm - 1) / bm;
+  int tw = br_width<T>(bn);
+  if ((long long)gm * ((n + tw - 1) / tw) < sms) tw = ki_narrow(gm, n, tw, sms);
+  br_layout<T>(d.c, min(bm, (m + 15) / 16 * 16), tw);
+  br_ring<T>(d.c, bk, 0, 8);
+  d.gn = (n + d.c.tw - 1) / d.c.tw;
+  d.per = max(1, min(8 / d.c.mr, gm));
+  while (d.per > 1 && (long long)((gm + d.per - 1) / d.per) * d.gn < 2LL * sms) --d.per;
+  d.gc = (gm + d.per - 1) / d.per;
+  return d;
 }
 
 template <typename T, typename O>
 int launch(int schedule, const void* A, long long sa_b, long long sa_m, long long sa_k,
-           const void* B, long long sb_k, long long sb_n, void* out, void* ws, int nb,
-           int m, int k, int n, int bm, int bk, int bn, int chunks, const Epi& e,
-           cudaStream_t stream) {
-  const long long smem = tile_smem_bytes<T>(bm, bk, bn);
-  if (smem > kSmemMax) return (int)cudaErrorInvalidValue;
-  const int gm = (m + bm - 1) / bm, gn = (n + bn - 1) / bn;
+           const void* B, long long sb_k, long long sb_n, void* out, int nb, int m, int k,
+           int n, int bm, int bk, int bn, int sms, const Epi& e, cudaStream_t stream) {
+  if (tile_smem_bytes<T>(bm, bk, bn) > kSmemMax) return (int)cudaErrorInvalidValue;
   const T* a = static_cast<const T*>(A);
   const T* b = static_cast<const T*>(B);
   O* o = static_cast<O*>(out);
-  float* w = static_cast<float*>(ws);
-  cudaError_t err;
+  const int bt = sb_k == 1 && sb_n != 1;
   if (schedule == 0) {
-    // `chunks` is the card's SM count (the wrapper's `k_inner_config`)
-    const int bt = sb_k == 1 && sb_n != 1;
-    const KICfg c = ki_config<T>(nb * m, k, n, bm, bk, bn, bt, chunks);
+    const KICfg c = ki_config<T>(nb * m, k, n, bm, bk, bn, bt, sms);
     if (c.smem < 0 || c.smem > kSmemMax || c.gn > 65535) return (int)cudaErrorInvalidValue;
     if (c.mr == 1)
       return launch_k_inner<T, O, 1, 1, false>(c, a, sa_b, sa_m, sa_k, b, sb_k, sb_n, o, nb, m, k,
@@ -474,9 +482,7 @@ int launch(int schedule, const void* A, long long sa_b, long long sa_m, long lon
                                                n, bk, e, nullptr, nullptr, 0, bm, stream);
     return (int)cudaErrorInvalidValue;
   } else if (schedule == 1) {
-    // `chunks` is the card's SM count (the wrapper's `a_resident_config`)
-    const int bt = sb_k == 1 && sb_n != 1;
-    const ARDCfg c = ard_config<T>(m, k, n, bm, bk, bt, chunks);
+    const ARDCfg c = ard_config<T>(m, k, n, bm, bk, bt, sms);
     if (nb != 1 || c.smem < 0 || c.smem > kSmemMax || c.gm > 65535)
       return (int)cudaErrorInvalidValue;
     if (c.mr == 1)
@@ -487,45 +493,41 @@ int launch(int schedule, const void* A, long long sa_b, long long sa_m, long lon
                                         stream);
     return (int)cudaErrorInvalidValue;
   } else if (schedule == 2) {
-    err = cudaFuncSetAttribute(b_resident_kernel<T, O>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return (int)err;
-    const int per = (gm + chunks - 1) / chunks;
-    dim3 grid((gm + per - 1) / per, gn, 1);
-    b_resident_kernel<T, O><<<grid, kThreads, smem, stream>>>(
-        a, sa_m, sa_k, b, sb_k, sb_n, o, w, m, k, n, bm, bk, bn, per, e);
-  } else {
-    return (int)cudaErrorInvalidValue;
+    const BRDCfg d = brd_config<T>(m, n, bm, bk, bn, bt, sms);
+    if (nb != 1 || d.c.smem < 0 || d.gn > 65535) return (int)cudaErrorInvalidValue;
+    return launch_b_resident<T, O, false, true>(d.c, dim3(d.gc, d.gn, 1), nullptr, nullptr, 0,
+                                                A, sa_m, sa_k, B, sb_k, sb_n, out, m, k, n, bm,
+                                                bk, d.per, e, stream);
   }
-  return (int)cudaGetLastError();
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace rt
 
 // schedule: 0 k_inner (nb >= 1 stacks the batch slices' rows), 1
 // a_resident, 2 b_resident.  Strides are in elements; `out` is a
-// contiguous (nb, m, n) tensor; `ws` an fp32 (m, n) workspace for
-// b_resident with more than one k block (else null).  `chunks` is the
-// number of chunks for b_resident and the card's SM count for k_inner and
-// a_resident.  Returns the cudaError_t of the launch.
+// contiguous (nb, m, n) tensor; `sms` is the card's SM count, which each
+// schedule's shape is chosen for (the wrapper's `k_inner_config`,
+// `a_resident_config`, `b_resident_config`).  Returns the cudaError_t of
+// the launch.
 extern "C" int rt_skew_matmul(int schedule, int in_bf16, int out_bf16, const void* A,
                               long long sa_b, long long sa_m, long long sa_k,
-                              const void* B, long long sb_k, long long sb_n, void* out,
-                              void* ws, int nb, int m, int k, int n, int bm, int bk, int bn,
-                              int chunks, float scale, int has_scale, const void* bias,
-                              int bias_bf16, int act, const void* res, int res_bf16,
-                              long long rs_b, long long rs_m, long long rs_n, void* stream) {
+                              const void* B, long long sb_k, long long sb_n, void* out, int nb,
+                              int m, int k, int n, int bm, int bk, int bn, int sms,
+                              float scale, int has_scale, const void* bias, int bias_bf16,
+                              int act, const void* res, int res_bf16, long long rs_b,
+                              long long rs_m, long long rs_n, void* stream) {
   rt::Epi e{scale, has_scale, bias, bias_bf16, act, res, res_bf16, rs_b, rs_m, rs_n};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (in_bf16 && out_bf16)
-    return rt::launch<rt::bf16, rt::bf16>(schedule, A, sa_b, sa_m, sa_k, B, sb_k, sb_n, out,
-                                          ws, nb, m, k, n, bm, bk, bn, chunks, e, s);
+    return rt::launch<rt::bf16, rt::bf16>(schedule, A, sa_b, sa_m, sa_k, B, sb_k, sb_n, out, nb,
+                                          m, k, n, bm, bk, bn, sms, e, s);
   if (in_bf16)
-    return rt::launch<rt::bf16, float>(schedule, A, sa_b, sa_m, sa_k, B, sb_k, sb_n, out, ws,
-                                       nb, m, k, n, bm, bk, bn, chunks, e, s);
+    return rt::launch<rt::bf16, float>(schedule, A, sa_b, sa_m, sa_k, B, sb_k, sb_n, out, nb, m,
+                                       k, n, bm, bk, bn, sms, e, s);
   if (out_bf16)
-    return rt::launch<float, rt::bf16>(schedule, A, sa_b, sa_m, sa_k, B, sb_k, sb_n, out, ws,
-                                       nb, m, k, n, bm, bk, bn, chunks, e, s);
-  return rt::launch<float, float>(schedule, A, sa_b, sa_m, sa_k, B, sb_k, sb_n, out, ws, nb,
-                                  m, k, n, bm, bk, bn, chunks, e, s);
+    return rt::launch<float, rt::bf16>(schedule, A, sa_b, sa_m, sa_k, B, sb_k, sb_n, out, nb, m,
+                                       k, n, bm, bk, bn, sms, e, s);
+  return rt::launch<float, float>(schedule, A, sa_b, sa_m, sa_k, B, sb_k, sb_n, out, nb, m, k, n,
+                                  bm, bk, bn, sms, e, s);
 }

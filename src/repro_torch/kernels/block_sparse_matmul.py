@@ -164,14 +164,16 @@ BR_CTL_BYTES = 384
 @dataclasses.dataclass(frozen=True)
 class BRConfig:
     """b_resident's shape on the card (mirrors `br_config` in
-    csrc/block_sparse_b_resident.cu).  The CTA covers tile_w columns (bf16:
-    the widest power-of-two multiple of 16 within bn and 128; fp32: 16;
-    halved until mr fits) of a chunk of row blocks; the 8 warps form a
-    wr x wc grid over a row block's bm x tile_w tile, a warp owning 16 * mr
-    rows (mr at most 4 for bf16, 2 for fp32: the kernels built) and one
-    16-column strip.  A blocks and B slices stream through `stages` (2-4)
-    shared-memory stages, as many as leave room for two CTAs an SM, else
-    as many as fit one; `smem` is -1 when no shape fits."""
+    csrc/block_sparse_b_resident.cu, on the pieces of csrc/b_resident.cuh
+    that `skew_matmul` mirrors).  The CTA covers tile_w columns (bf16: the
+    widest power-of-two multiple of 16 within bn and 128; fp32: 16; halved
+    until mr fits) of a chunk of row blocks; the 8 warps form a wr x wc
+    grid over a row block's bm x tile_w tile, a warp owning 16 * mr rows
+    (mr at most 4 for bf16, 2 for fp32: the kernels built) and one
+    16-column strip.  A blocks and row-major B slices (a transposed B is
+    gathered into them) stream through `stages` (2-4) shared-memory stages,
+    as many as leave room for two CTAs an SM, else as many as fit one;
+    `smem` is -1 when no shape fits."""
 
     wr: int
     wc: int
@@ -190,32 +192,12 @@ class BRConfig:
 def b_resident_config(bm: int, bk: int, bn: int,
                       dtype: torch.dtype) -> BRConfig:
     size = 2 if dtype == torch.bfloat16 else 4
-    pad = 16 // size
-    bm16 = -(-bm // 16)
-    mr_max = 4 if size == 2 else 2
-    tw = 16
-    while 2 * tw <= bn and 2 * tw <= 128 and size == 2:
-        tw *= 2
-    while True:
-        wc = tw // 16
-        wr = 8 // wc
-        need = -(-bm16 // wr)
-        mr = 1
-        while mr < need:
-            mr *= 2
-        if mr <= mr_max or tw == 16:
-            break
-        tw //= 2
-    if mr > mr_max:
+    wr, wc, tw, mr = _mm.br_layout(bm, _mm.br_width(bn, size), size)
+    if mr > (4 if size == 2 else 2):
         return BRConfig(wr, wc, tw, mr, 0, -1)
-    st = (_mm._round_up(bm * (bk + pad) * size, 128)
-          + _mm._round_up(bk * (tw + pad) * size, 128))
-    for cap in ((_mm.SMEM_MAX - 1024) // 2, _mm.SMEM_MAX):
-        for stages in (4, 3, 2):
-            if stages * st + BR_CTL_BYTES <= cap:
-                return BRConfig(wr, wc, tw, mr, stages,
-                                stages * st + BR_CTL_BYTES)
-    return BRConfig(wr, wc, tw, mr, 0, -1)
+    stages, smem = _mm.br_ring(
+        _mm.br_stage_bytes(size, bm, bk, tw, False), BR_CTL_BYTES, 4)
+    return BRConfig(wr, wc, tw, mr, stages, smem)
 
 
 def b_resident_chunk(gm: int, n: int, bm: int, bk: int, bn: int,

@@ -3,9 +3,10 @@
 Kernel (CUDA C++, `csrc/flash_attention.cu`):
   K7 — online-softmax attention with a causal mask, a sliding window
        (col > row - window), a tanh soft-cap after the scale, and GQA / MQA
-       through kv head = q head // (Hq / Hkv); one CTA per (q tile, head,
-       batch row) looping over the kv tiles that some row of the tile can
-       see (replaces `repro/kernels/flash_attention.py::flash_attention`).
+       through kv head = q head // (Hq / Hkv); one CTA per (q head, batch
+       row, q tile) looping over the kv tiles that some row of the tile
+       can see (replaces `repro/kernels/flash_attention.py::
+       flash_attention`).
 
 q (B, Hq, Sq, D) and k, v (B, Hkv, Skv, D) are read through their strides
 (the model's transposed views cost no copy); D must be a multiple of 16 up
@@ -15,9 +16,14 @@ length has to divide a tile.  The kernel writes its output in (B, Sq, Hq,
 D) memory and returns the (B, Hq, Sq, D) view, so the model's transpose
 back to tokens is free.
 
-Tiles: `tiles(dtype, d)` is the largest of 64 x 64, 64 x 32, 32 x 32,
-16 x 16 (q rows x kv columns) whose shared memory fits a CTA (see the
-source note); the plain version walks the same tiles.
+Tiles (q rows x kv columns): `tiles(dtype, d)`.  bf16 (the served
+route: S, P and O in registers, K and V on a `cp.async` ring): 128 x 64 at
+every head dim (8 warps); the kernel takes q rows a multiple of 16 up to
+128 (a warp each 16 rows) and 64 kv columns, with `stages(bq, bkv, d)`
+ring stages.  fp32 (every intermediate in shared memory): the
+largest of 64 x 64, 64 x 32, 32 x 32, 16 x 16 whose shared memory fits a
+CTA.  The plain version walks the same tiles, since the online softmax's
+rounding depends on the kv tiling.
 
 `flash_attention` dispatches on the device of its input: a CUDA tensor
 always launches the kernel (or raises); a CPU tensor runs the plain
@@ -43,30 +49,66 @@ from repro_torch.kernels import build
 LAUNCHES: collections.Counter = collections.Counter()
 SMEM_MAX = 232_448
 NEG_INF = -1e30
-TILE_CHOICES = ((64, 64), (64, 32), (32, 32), (16, 16))
+TILE_CHOICES = ((64, 64), (64, 32), (32, 32), (16, 16))   # fp32
+BF16_BKV = 64
 
 
 def _align128(n: int) -> int:
     return -(-n // 128) * 128
 
 
+def _bf16_rows_bytes(rows: int, d: int) -> int:
+    return _align128(rows * (d + 8) * 2)
+
+
+def _bf16_smem(bq: int, bkv: int, d: int, stages: int) -> int:
+    return _bf16_rows_bytes(bq, d) + 2 * stages * _bf16_rows_bytes(bkv, d)
+
+
+def stages(bq: int, bkv: int, d: int) -> int:
+    """The bf16 kernel's K / V ring depth (mirrors `fa_mma_stages` in the
+    source): 4 to 2 stages within two CTAs an SM, else within one; 0 when
+    not even two fit."""
+    for cap in ((SMEM_MAX - 1024) // 2, SMEM_MAX):
+        for s in (4, 3, 2):
+            if _bf16_smem(bq, bkv, d, s) <= cap:
+                return s
+    return 0
+
+
 def smem_bytes(dtype: torch.dtype, bq: int, bkv: int, d: int) -> int:
-    """Shared memory of one CTA (mirrors `fa_smem_bytes` in the source)."""
-    es = torch.empty((), dtype=dtype).element_size()
-    pad = 16 // es
-    p_terms = 2 if es == 2 else 1           # bf16 keeps P as hi + lo
-    return (_align128(bq * (d + pad) * es) + _align128(d * (bkv + pad) * es)
-            + _align128(bkv * (d + pad) * es) + _align128(bq * (bkv + 4) * 4)
-            + p_terms * _align128(bq * (bkv + pad) * es)
+    """Shared memory of one CTA.  bf16 (mirrors `fa_mma_smem`): Q and the
+    K / V ring, rows padded by 16 bytes (two stages' worth where none
+    fits).  fp32 (mirrors `fa_smem_bytes`): Q, K^T, V, the scores S, P, O
+    and the running max and sum."""
+    if dtype == torch.bfloat16:
+        return _bf16_smem(bq, bkv, d, stages(bq, bkv, d) or 2)
+    pad = 4
+    return (_align128(bq * (d + pad) * 4) + _align128(d * (bkv + pad) * 4)
+            + _align128(bkv * (d + pad) * 4) + _align128(bq * (bkv + 4) * 4)
+            + _align128(bq * (bkv + pad) * 4)
             + _align128(bq * (d + 4) * 4) + 2 * _align128(bq * 4))
 
 
 def tiles(dtype: torch.dtype, d: int) -> tuple[int, int]:
     """The kernel's (q rows, kv columns) per tile at head dim `d`."""
+    if dtype == torch.bfloat16:
+        return 128, BF16_BKV
     for bq, bkv in TILE_CHOICES:
         if smem_bytes(dtype, bq, bkv, d) <= SMEM_MAX:
             return bq, bkv
     raise ValueError(f"no flash-attention tile fits head dim {d}")
+
+
+def takes_tiles(dtype: torch.dtype, bq: int, bkv: int, d: int) -> bool:
+    """Whether the kernel takes (bq, bkv) at head dim d: bf16 q rows a
+    multiple of 16 up to 128 and 64 kv columns, fp32 multiples of 16;
+    either within shared memory."""
+    if dtype == torch.bfloat16:
+        ok = bq % 16 == 0 and 16 <= bq <= 128 and bkv == BF16_BKV
+    else:
+        ok = bq % 16 == 0 and bkv % 16 == 0 and bq > 0 and bkv > 0
+    return ok and smem_bytes(dtype, bq, bkv, d) <= SMEM_MAX
 
 
 def _reachable(q0: int, rows: int, k0: int, bkv: int, causal: bool,
@@ -181,9 +223,11 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"window must be >= 1, got {window}")
     dq, dkv = tiles(q.dtype, d)
     bq, bkv = bq or dq, bkv or dkv
-    if bq % 16 or bkv % 16 or smem_bytes(q.dtype, bq, bkv, d) > SMEM_MAX:
-        raise ValueError(f"tiles ({bq}, {bkv}) at head dim {d} are not "
-                         f"multiples of 16 or exceed shared memory")
+    if not takes_tiles(q.dtype, bq, bkv, d):
+        raise ValueError(f"tiles ({bq}, {bkv}) at head dim {d} are not ones "
+                         f"the {q.dtype} kernel takes (bf16: q rows a "
+                         f"multiple of 16 up to 128, 64 kv columns; fp32: "
+                         f"multiples of 16) or exceed shared memory")
     scale = scale if scale is not None else d ** -0.5
     out = torch.empty((b, sq, hq, d), dtype=q.dtype,
                       device=q.device).transpose(1, 2)

@@ -22,7 +22,11 @@ keeps the sums of a chunk of column tiles in registers over the whole k
 loop (no workspace), each k block's partial formed from zero and added
 once, with A and B on the same kind of ring; `a_resident_config` gives
 its rows, tile, ring and chunks (mirroring `ard_config`).  b_resident
-still folds its partials through an fp32 (m, n) workspace.
+is its mirror image and K9 b_resident's template walking every block:
+the sums of a chunk of row blocks in registers (no workspace), each k
+block's B slice held while the chunk's row blocks pass, A blocks and B
+slices on a `cp.async` ring; `b_resident_config` gives its tile, warp
+grid, ring and chunk (mirroring `brd_config`).
 
 `skew_matmul` / `skew_matmul_batched` dispatch on the device of their
 input: a CUDA tensor always launches the kernel (or raises); a CPU tensor
@@ -82,7 +86,7 @@ def _lib() -> ctypes.CDLL:
     p, i, ll, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, \
         ctypes.c_float
     lib.rt_skew_matmul.argtypes = [
-        i, i, i, p, ll, ll, ll, p, ll, ll, p, p, i, i, i, i, i, i, i, i,
+        i, i, i, p, ll, ll, ll, p, ll, ll, p, i, i, i, i, i, i, i, i,
         f, i, p, i, i, p, i, ll, ll, ll, p]
     lib.rt_skew_matmul.restype = i
     return lib
@@ -100,9 +104,9 @@ def _round_up(a: int, b: int) -> int:
 def smem_bytes(dtype: torch.dtype, bm: int, bk: int, bn: int) -> int:
     """Shared memory of one plan block's tile set, A, B and an fp32 C
     (mirrors `tile_smem_bytes` in csrc/common.cuh): what a CTA of the
-    dense b_resident, split-K and grouped kernels uses, and the budget
-    within which k_inner's and a_resident's rings fit (`k_inner_config`,
-    `a_resident_config`)."""
+    split-K and grouped kernels uses, the budget within which k_inner's
+    ring fits (`k_inner_config`), and the limit on the blocks every dense
+    kernel takes (`check_blocks`)."""
     size = 2 if dtype == torch.bfloat16 else 4
     pad = 16 // size
     return (_round_up(bm * (bk + pad) * size, 128)
@@ -334,6 +338,115 @@ def a_resident_config(m: int, k: int, n: int, bm: int, bk: int,
                            -(-tiles // per), smem)
 
 
+# ------------------------------------------------------------ b_resident
+# The pieces K1's and K9's b_resident configs share (mirroring
+# csrc/b_resident.cuh).
+def br_width(bn: int, size: int) -> int:
+    """The widest tile a plan's bn gives: bf16 a power-of-two multiple of
+    16 within bn and 128, fp32 16 (`br_width`)."""
+    tw = 16
+    while 2 * tw <= bn and 2 * tw <= 128 and size == 2:
+        tw *= 2
+    return tw
+
+
+def br_layout(rows: int, tw: int, size: int) -> tuple[int, int, int, int]:
+    """(wr, wc, tile_w, mr): the 8 warps' grid over a row block's rows x tw
+    tile, tw halved until mr (16-row fragments a warp, a power of two)
+    fits 4 (bf16) or 2 (fp32) (`br_layout`)."""
+    mr_max = 4 if size == 2 else 2
+    bm16 = -(-rows // 16)
+    while True:
+        wc = tw // 16
+        wr = 8 // wc
+        need = -(-bm16 // wr)
+        mr = 1
+        while mr < need:
+            mr *= 2
+        if mr <= mr_max or tw == 16:
+            return wr, wc, tw, mr
+        tw //= 2
+
+
+def br_stage_bytes(size: int, rows: int, bk: int, tw: int,
+                   b_trans: bool) -> int:
+    """One stage: an A block of `rows` rows and a B slice (n-major for a
+    transposed B), rows padded by 16 bytes (`br_stage_bytes`)."""
+    pad = 16 // size
+    b = tw * (bk + pad) if b_trans else bk * (tw + pad)
+    return _round_up(rows * (bk + pad) * size, 128) + _round_up(b * size, 128)
+
+
+def br_ring(stage: int, fixed: int, smax: int) -> tuple[int, int]:
+    """(stages, smem): smax (K9 4, K1 8) to 2 stages within two CTAs an
+    SM, else within one, beside `fixed` bytes; (0, -1) when not even 2 fit
+    (`br_ring`)."""
+    for cap in ((SMEM_MAX - 1024) // 2, SMEM_MAX):
+        for stages in range(smax, 1, -1):
+            if stages * stage + fixed <= cap:
+                return stages, stages * stage + fixed
+    return 0, -1
+
+
+@dataclasses.dataclass(frozen=True)
+class BResidentConfig:
+    """K1 b_resident's shape on the card (mirrors `brd_config` in
+    csrc/skew_matmul.cu).  tile_w: K9's rule (`br_width`: bf16 the widest
+    power-of-two multiple of 16 within bn and 128, fp32 16), narrowed as
+    k_inner's where one row block a CTA would leave SMs idle; the 8 warps
+    form a wr x wc grid over a row block's `rows` x tile_w tile (rows: bm,
+    or at m < bm the 16-row granules of m, so decode holds one granule), a
+    warp owning 16 * mr rows and one 16-column strip (`br_layout`).  A
+    blocks of `rows` rows and B slices (n-major for a transposed B) stream
+    through `stages` (2-8) shared-memory stages, two CTAs an SM where they
+    fit (`br_ring`); `smem` is -1 when no shape fits.  `per` row blocks a
+    CTA: as many as its
+    registers allow (8 / mr), fewer where that would leave under 2 x SMs
+    CTAs and more chunks can be had; the grid is (`chunks`, `gn`)."""
+
+    rows: int
+    wr: int
+    wc: int
+    tile_w: int
+    mr: int
+    stages: int
+    b_trans: bool
+    per: int
+    chunks: int
+    gn: int
+    smem: int
+
+    @property
+    def max_rows(self) -> int:
+        """Row blocks a CTA may hold: 8 / mr (8 sums a lane a row block
+        and fragment)."""
+        return 8 // self.mr
+
+
+@functools.lru_cache(maxsize=4096)
+def b_resident_config(m: int, k: int, n: int, bm: int, bk: int, bn: int,
+                      dtype: torch.dtype, b_trans: bool,
+                      sms: int) -> BResidentConfig:
+    """K1 b_resident's tile, warp grid, ring and chunk for an (m, k) @
+    (k, n) product at the plan's (bm, bk, bn) on a card with `sms` SMs (k
+    does not enter: the walk covers round_up(k, bk))."""
+    size = 2 if dtype == torch.bfloat16 else 4
+    gm = -(-m // bm)
+    tw = br_width(bn, size)
+    if gm * -(-n // tw) < sms:
+        tw = _narrow_tile(gm, n, tw, sms)
+    rows = min(bm, _round_up(m, 16))
+    wr, wc, tw, mr = br_layout(rows, tw, size)
+    stages, smem = (0, -1) if mr > (4 if size == 2 else 2) else br_ring(
+        br_stage_bytes(size, rows, bk, tw, b_trans), 0, 8)
+    gn = -(-n // tw)
+    per = max(1, min(8 // mr, gm))
+    while per > 1 and -(-gm // per) * gn < 2 * sms:
+        per -= 1
+    return BResidentConfig(rows, wr, wc, tw, mr, stages, b_trans, per,
+                           -(-gm // per), gn, smem)
+
+
 def _dtype_flag(t: torch.Tensor, what: str) -> int:
     if t.dtype == torch.bfloat16:
         return 1
@@ -403,7 +516,6 @@ def _launch(schedule: str, a3: torch.Tensor, b: torch.Tensor, bias,
         raise TypeError(f"out_dtype must be bfloat16 or float32, "
                         f"got {out_dtype}")
     check_blocks(a3.dtype, bm, bk, bn)
-    gm, gn, gk = -(-m // bm), -(-n // bn), -(-k // bk)
     sid = SCHEDULE_IDS[schedule]
     sms = _sm_count(a3.device.index or 0)
     b_trans = b.stride(0) == 1 and b.stride(1) != 1
@@ -417,8 +529,16 @@ def _launch(schedule: str, a3: torch.Tensor, b: torch.Tensor, bias,
         cfg = a_resident_config(m, k, n, bm, bk, a3.dtype, b_trans, sms)
         if cfg.gm > 65535:
             raise ValueError(f"grid too large: {cfg.gm} row tiles")
-    elif gm > 65535:
-        raise ValueError(f"grid too large: gm={gm}")
+    else:
+        if nb != 1:
+            raise ValueError("b_resident takes one (m, k) operand")
+        cfg = b_resident_config(m, k, n, bm, bk, bn, a3.dtype, b_trans, sms)
+        if cfg.smem < 0:
+            raise ValueError(f"b_resident cannot take blocks {(bm, bk)} of "
+                             f"{a3.dtype}: no pipeline fits the {SMEM_MAX} "
+                             f"bytes of shared memory a CTA may use")
+        if cfg.gn > 65535:
+            raise ValueError(f"grid too large: {cfg.gn} column tiles")
     if residual is not None:
         if tuple(residual.shape[-2:]) != (m, n) or (
                 residual.dim() == 3 and residual.shape[0] != nb):
@@ -429,19 +549,12 @@ def _launch(schedule: str, a3: torch.Tensor, b: torch.Tensor, bias,
     (scale, has_scale, bias_ptr, bias_bf16, act, res_ptr, res_bf16,
      rst, keep) = epilogue_args(epilogue, bias, residual, a3.device, n)
     out = torch.empty((nb, m, n), dtype=out_dtype, device=a3.device)
-    ws = None
-    chunks = sms         # k_inner, a_resident: the SM count they tile for
-    if sid == 2:
-        chunks = max(1, min(gm, -(-2 * sms // gn)))
-        if gk > 1:
-            ws = torch.empty((m, n), dtype=torch.float32, device=a3.device)
     sa = a3.stride()
     stream = torch.cuda.current_stream(a3.device).cuda_stream
     err = _lib().rt_skew_matmul(
         sid, in_bf16, out_bf16, a3.data_ptr(), sa[0], sa[1], sa[2],
-        b.data_ptr(), b.stride(0), b.stride(1), out.data_ptr(),
-        None if ws is None else ws.data_ptr(), nb, m, k, n, bm, bk, bn,
-        chunks, scale, has_scale, bias_ptr, bias_bf16, act, res_ptr,
+        b.data_ptr(), b.stride(0), b.stride(1), out.data_ptr(), nb, m, k, n,
+        bm, bk, bn, sms, scale, has_scale, bias_ptr, bias_bf16, act, res_ptr,
         res_bf16, rst[0], rst[1], rst[2], stream)
     build.check(err, f"skew_matmul[{schedule}]")
     # `keep` (a contiguous bias copy) may be freed once the launch is

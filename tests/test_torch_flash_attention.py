@@ -124,17 +124,28 @@ def test_bf16_plain_close_to_the_oracle():
 
 
 def test_tiles_fit_shared_memory():
-    """bf16 keeps 64 x 64 up to head dim 256; fp32 drops to 64 x 32 at
+    """bf16 (S, P and O in registers, K and V on a ring) takes 128 x 64 at
+    every head dim (8 warps), with room for two CTAs an SM up to head dim
+    128; fp32 (every intermediate in shared memory) drops to 64 x 32 at
     256; every choice fits the 227 KB a CTA may hold."""
-    assert fa.tiles(torch.bfloat16, 128) == (64, 64)
-    assert fa.tiles(torch.bfloat16, 256) == (64, 64)
+    assert fa.tiles(torch.bfloat16, 128) == (128, 64)
+    assert fa.tiles(torch.bfloat16, 256) == (128, 64)
     assert fa.tiles(torch.float32, 128) == (64, 64)
     assert fa.tiles(torch.float32, 256) == (64, 32)
     for dt in (torch.bfloat16, torch.float32):
         for d in (16, 32, 64, 128, 256):
             bq, bkv = fa.tiles(dt, d)
             assert fa.smem_bytes(dt, bq, bkv, d) <= fa.SMEM_MAX
-    assert fa.smem_bytes(torch.bfloat16, 128, 64, 256) > fa.SMEM_MAX
+            assert fa.takes_tiles(dt, bq, bkv, d)
+            if dt == torch.bfloat16:
+                assert fa.stages(bq, bkv, d) >= 2
+                assert (d > 128 or fa.smem_bytes(dt, bq, bkv, d)
+                        <= (fa.SMEM_MAX - 1024) // 2)
+    assert fa.stages(128, 64, 256) == 2 and fa.stages(64, 64, 64) == 4
+    assert fa.smem_bytes(torch.float32, 64, 64, 256) > fa.SMEM_MAX
+    assert fa.takes_tiles(torch.bfloat16, 16, 64, 256)
+    assert not fa.takes_tiles(torch.bfloat16, 64, 32, 128)
+    assert not fa.takes_tiles(torch.bfloat16, 256, 64, 128)
 
 
 def test_cuda_wrapper_refuses_cpu_tensors():

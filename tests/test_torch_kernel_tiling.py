@@ -33,6 +33,13 @@
   rows (8 at decode), keeps whole k blocks in each step's fold, fits its
   ring, and chunks the column tiles so each is covered once within the
   register sums a lane may hold and the grid fits a wave of two CTAs an SM.
+* K1 b_resident: `skew_matmul.b_resident_config` (K9's template walking
+  every block) fits its ring in shared memory, lays out all 8 warps over
+  the row block, covers every row block and column once, holds no more
+  sums a lane than `AR_SUMS_PER_LANE`, and narrows the tile where one row
+  block a CTA would leave SMs idle; a numpy mirror of its dense walk
+  visits each (row block, k block) once in (k block, row block) order and
+  fetches each B slice once per chunk.
 """
 
 import numpy as np
@@ -666,3 +673,118 @@ def test_dense_a_resident_config_at_decode_and_the_lm_head():
         c = mm.a_resident_config(4, 3072, n, 64, 64, bf, False, 132)
         tiles = -(-n // c.tile_w)
         assert c.chunks * c.per >= tiles > (c.chunks - 1) * c.per
+
+
+# ------------------------------------------------------------------ K1 b_resident
+@pytest.mark.parametrize("sms", [78, 114, 132])
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("blocks", KI_BLOCKS)
+def test_dense_b_resident_config_fits_and_covers_every_row_block_once(
+        blocks, dtype, sms):
+    bm, bk, bn = blocks
+    if mm.smem_bytes(dtype, bm, bk, bn) > SMEM_MAX:
+        return                       # check_blocks refuses these blocks
+    size = 2 if dtype == torch.bfloat16 else 4
+    pad = 16 // size
+    for m, k, n, nb in KI_SHAPES:
+        if nb != 1:
+            continue
+        for b_trans in (False, True):
+            c = mm.b_resident_config(m, k, n, bm, bk, bn, dtype, b_trans,
+                                     sms)
+            # all 8 warps over the row block's bm x tile_w tile
+            assert c.wr * c.wc == 8 and c.tile_w == 16 * c.wc
+            assert c.tile_w & (c.tile_w - 1) == 0
+            assert 16 <= c.tile_w <= min(128, max(16, bn))
+            if size == 4:
+                assert c.tile_w == 16
+            assert c.mr in (1, 2, 4) and c.mr <= (4 if size == 2 else 2)
+            # the warps cover the rows a row block holds: bm, or the
+            # 16-row granules of m where there is one row block
+            assert c.rows == min(bm, -(-m // 16) * 16)
+            assert c.wr * c.mr * 16 >= c.rows
+            # the ring: 2-8 stages of an A block and a B slice, two CTAs
+            # an SM where they fit
+            b_el = (c.tile_w * (bk + pad) if b_trans
+                    else bk * (c.tile_w + pad))
+            stage = (-(-c.rows * (bk + pad) * size // 128) * 128
+                     + -(-b_el * size // 128) * 128)
+            assert 2 <= c.stages <= 8
+            assert c.smem == c.stages * stage <= SMEM_MAX
+            two_per_sm = (SMEM_MAX - 1024) // 2
+            if c.stages < 8 and c.smem <= two_per_sm:
+                assert (c.stages + 1) * stage > two_per_sm
+            # chunks: every row block once, within the sums a lane holds
+            gm = -(-m // bm)
+            assert 1 <= c.per <= min(c.max_rows, gm)
+            assert c.per * c.mr * 8 <= bsr.AR_SUMS_PER_LANE
+            assert c.chunks == -(-gm // c.per)
+            seen = [i for ch in range(c.chunks)
+                    for i in range(ch * c.per, min(gm, (ch + 1) * c.per))]
+            assert seen == list(range(gm))
+            assert c.gn == -(-n // c.tile_w)
+            if c.per > 1:
+                assert c.chunks * c.gn >= 2 * sms
+            if c.per < min(c.max_rows, gm):
+                assert -(-gm // (c.per + 1)) * c.gn < 2 * sms
+            # a tile narrower than the plan's only where the plan's grid
+            # would leave SMs idle
+            widest = mm.br_width(bn, size)
+            if gm * -(-n // widest) >= sms:
+                assert c.tile_w == mm.br_layout(c.rows, widest, size)[2]
+            else:
+                assert c.gn * gm >= min(sms, gm * -(-n // 16))
+
+
+def test_dense_b_resident_config_at_the_lm_head_and_4096():
+    bf = torch.bfloat16
+    # the LM head's E^T at (64, 64, 128): one row block whose 4 rows fill
+    # one 16-row granule, so a warp holds one 16 x 16 fragment of a
+    # 128-column tile (two CTAs an SM), 5 stages of 20 KB (16 A rows, E^T
+    # n-major), 1563 CTAs
+    c = mm.b_resident_config(4, 3072, 200064, 64, 64, 128, bf, True, 132)
+    assert (c.rows, c.wr, c.wc, c.tile_w, c.mr, c.stages, c.smem) == (
+        16, 1, 8, 128, 1, 5, 103680)
+    assert (c.per, c.chunks, c.gn) == (1, 1, 1563)
+    # 4096^3 at the same plan: 2 of the 64 row blocks a CTA (8 sums a lane
+    # a fragment, 4 fragments), 32 x 32 = 1024 CTAs
+    c = mm.b_resident_config(4096, 4096, 4096, 64, 64, 128, bf, False, 132)
+    assert (c.tile_w, c.mr, c.stages, c.per, c.chunks, c.gn) == (
+        128, 4, 4, 2, 32, 32)
+    # the decode o projection 4 x 3072 x 3072: 24 tiles of 128 would leave
+    # 108 SMs idle, so 16-column tiles (192 CTAs), a warp a 16-row fragment
+    c = mm.b_resident_config(4, 3072, 3072, 64, 64, 128, bf, False, 132)
+    assert (c.wr, c.wc, c.tile_w, c.mr, c.per, c.gn, c.stages) == (
+        8, 1, 16, 1, 1, 192, 8)
+
+
+def _dense_b_resident_walk(gm: int, gk: int, i0: int, per: int):
+    """The dense walk's steps for the CTA holding row blocks i0 .. i0 + per
+    - 1: step q is (k block q // rbn, row block q % rbn); a step opens its
+    k block's B slice when it is the block's first."""
+    rbn = min(per, gm - i0)
+    steps, opened = [], []
+    for q in range(gk * rbn):
+        kb, r = divmod(q, rbn)
+        if r == 0:
+            opened.append(kb)
+        steps.append((i0 + r, kb))
+    return steps, opened
+
+
+@pytest.mark.parametrize("gm, gk, per", [(1, 48, 1), (64, 64, 2), (7, 5, 3),
+                                         (9, 1, 8), (100, 12, 4)])
+def test_dense_b_resident_walk_is_k9s_walk_at_density_one(gm, gk, per):
+    """At density 1.0 every row's sorted list is 0 .. gk - 1, and K9's
+    merge (`_b_resident_walk`) takes the same steps in the same order as
+    the dense walk: each (row block, k block) once, each row's blocks in
+    k order, each B slice fetched once per chunk."""
+    cols = np.tile(np.arange(gk), (gm, 1))
+    nnz = np.full(gm, gk)
+    visits = []
+    for i0 in range(0, gm, per):
+        steps, opened = _dense_b_resident_walk(gm, gk, i0, per)
+        assert (steps, opened) == _b_resident_walk(cols, nnz, i0, per)
+        assert opened == list(range(gk))
+        visits += steps
+    assert sorted(visits) == [(i, kb) for i in range(gm) for kb in range(gk)]

@@ -350,18 +350,66 @@ def test_flash_attention_matches_plain(dev, dtype, case):
 
 @pytest.mark.cuda
 def test_flash_attention_explicit_tiles_and_refusals(dev):
+    """bf16 takes q rows in 16s up to 128 (a warp each 16 rows) and 64 kv
+    columns: one warp here; fp32 takes any multiple of 16 that fits."""
     q = _t((1, 4, 130, 128), torch.bfloat16, dev)
     k = _t((1, 1, 130, 128), torch.bfloat16, dev)
-    want = fa_mod.flash_attention_plain(q, k, k, window=50)
-    got = fa_mod.flash_attention_cuda(q, k, k, window=50, bq=32, bkv=16)
+    want = fa_mod.flash_attention_plain(q, k, k, window=50, bq=16, bkv=64)
+    got = fa_mod.flash_attention_cuda(q, k, k, window=50, bq=16, bkv=64)
     torch.cuda.synchronize()
     torch.testing.assert_close(got.float(), want.float(),
                                **TOL[torch.bfloat16])
+    qf, kf = q.float(), k.float()
+    want = fa_mod.flash_attention_plain(qf, kf, kf, window=50, bq=32,
+                                        bkv=16)
+    got = fa_mod.flash_attention_cuda(qf, kf, kf, window=50, bq=32, bkv=16)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, want, **TOL[torch.float32])
     with pytest.raises(ValueError, match="multiple of 16"):
         fa_mod.flash_attention_cuda(q[..., :100], k[..., :100],
                                     k[..., :100])
     with pytest.raises(ValueError, match="shared memory"):
         fa_mod.flash_attention_cuda(q, k, k, bq=256, bkv=256)
+    with pytest.raises(ValueError, match="shared memory"):
+        fa_mod.flash_attention_cuda(q, k, k, bq=64, bkv=32)
+
+
+# K7's register-resident bf16 route: (Hq, Hkv, D, kwargs); every case runs
+# at Sq = Skv = 1, 15, 65 and 257, ragged against 64- and 128-row q tiles
+# of 64 kv columns
+FA_BF16_CASES = {
+    "mqa16_d256_window": (16, 1, 256, dict(window=40)),
+    "gqa_d128_softcap": (8, 2, 128, dict(softcap=50.0)),
+    "mqa16_d64_window_softcap": (16, 1, 64, dict(window=24, softcap=5.0)),
+    "mha_d128_full": (2, 2, 128, dict(causal=False)),
+    "gqa_d64_causal": (4, 2, 64, dict()),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(FA_BF16_CASES))
+@pytest.mark.parametrize("s", [1, 15, 65, 257])
+def test_flash_attention_bf16_tiles_match_plain(dev, case, s):
+    """K7 (bf16: S, P and O in registers) against its plain version at
+    head dims 64 / 128 / 256, MQA with 16 q heads on one kv head, windows
+    of 24 and 40 that cut a 64-column kv tile in its middle, a
+    softcap, and lengths ragged against the default 64-row q tile and an
+    explicit 128-row one (8 warps)."""
+    hq, hkv, d, kw = FA_BF16_CASES[case]
+    q = _t((2, s, hq, d), torch.bfloat16, dev).transpose(1, 2)
+    k = _t((2, s, hkv, d), torch.bfloat16, dev).transpose(1, 2)
+    v = _t((2, s, hkv, d), torch.bfloat16, dev).transpose(1, 2)
+    bkv = fa_mod.BF16_BKV
+    for bq in (64, 128):
+        fa_mod.LAUNCHES.clear()
+        got = fa_mod.flash_attention(q, k, v, bq=bq, bkv=bkv, **kw)
+        want = fa_mod.flash_attention_plain(q, k, v, bq=bq, bkv=bkv, **kw)
+        torch.cuda.synchronize()
+        assert fa_mod.LAUNCHES["flash_attention"] == 1
+        assert got.shape == q.shape and got.dtype == torch.bfloat16
+        assert bool(torch.isfinite(got).all())
+        torch.testing.assert_close(got.float(), want.float(),
+                                   **TOL[torch.bfloat16])
 
 
 @pytest.mark.cuda
@@ -755,6 +803,38 @@ def test_dense_a_resident_allocates_only_its_output(dev, dtype):
         torch.cuda.synchronize()
         grown = torch.cuda.max_memory_allocated(dev) - before
         assert grown == -(-out.numel() * out.element_size() // 512) * 512
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("m", [1, 4, 17])
+def test_dense_b_resident_decode_rows_allocate_only_their_output(dev, dtype,
+                                                                m):
+    """K1 b_resident (K9's template walking every block) at decode rows
+    against its plain version, with a tied embedding read as E^T in place
+    (copied n-major) and a row-major B, keeping its sums in registers: it
+    allocates its output and no fp32 (m, n) workspace."""
+    emb = _t((3000, 1024), dtype, dev, 0.02)
+    w = _t((1024, 2048), dtype, dev, 1024 ** -0.5)
+    a = _t((m, 1024), dtype, dev)
+    for b, spec in ((emb.T, None), (w, "residual"), (w, "bias_silu")):
+        tokens, bias, res = _operands(spec, m, b.shape[1], dtype, dev)
+        for out_dtype in (dtype, torch.float32):
+            kw = dict(bm=64, bk=64, bn=128, schedule="b_resident",
+                      epilogue=tokens, out_dtype=out_dtype)
+            mm_mod.skew_matmul_cuda(a, b, bias, res, **kw)   # the build
+            torch.cuda.synchronize()
+            before = torch.cuda.memory_allocated(dev)
+            torch.cuda.reset_peak_memory_stats(dev)
+            got = mm_mod.skew_matmul_cuda(a, b, bias, res, **kw)
+            torch.cuda.synchronize()
+            grown = torch.cuda.max_memory_allocated(dev) - before
+            assert grown == -(-got.numel() * got.element_size() // 512) * 512
+            want = mm_mod.skew_matmul_plain(a, b, bias, res, bk=64,
+                                            epilogue=tokens,
+                                            out_dtype=out_dtype)
+            torch.testing.assert_close(got.float(), want.float(),
+                                       **TOL[out_dtype])
 
 
 @pytest.mark.cuda

@@ -17,8 +17,11 @@ JSON line of CUDA-event times in ms (50 calls after 5 warm-ups, queued
 behind a `torch.cuda._sleep` so the card, not the host, sets the pace):
 K1 k_inner at the LM head (E^T in place), the prefill and decode
 projections, 4096^3 and the tuner's decode class; K2 at 4 x 1 rows;
-K1 a_resident at the LM head and the decode class; K9 k_inner and
-a_resident at the tuner's layouts.  Needs one CUDA card.
+K1 a_resident at the LM head and the decode class; K1 b_resident at the
+LM head and 4096^3; K9 k_inner, a_resident and b_resident at the tuner's
+layouts (b_resident at d 0.25, 0.5 and 1.0); K7 at `chip_smoke.py`'s five
+phase-6c shapes.  The tree's kernels are built first, in parallel.  Needs
+one CUDA card.
 """
 
 import json
@@ -54,8 +57,11 @@ def main() -> None:
     if not torch.cuda.is_available():
         sys.exit("kernel_ab.py needs a CUDA card")
     from repro_torch.kernels import block_sparse_matmul as bsr
+    from repro_torch.kernels import build
+    from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import skew_matmul as mm
     from repro_torch.sparse.layout import BlockSparseLayout
+    build.build_all()
 
     g = torch.Generator(device="cuda")
     g.manual_seed(1)
@@ -80,20 +86,40 @@ def main() -> None:
     w = rnd((3072, 3072), 3072 ** -0.5)
     res["k2_4x1x3072"] = time_ms(torch, lambda: mm.skew_matmul_batched_cuda(
         h4[:, None, :], w, bm=64, bk=64, bn=128, out_dtype=bf))
-    res["ar_lm_head"] = time_ms(torch, lambda: mm.skew_matmul_cuda(
-        h4, emb.T, bm=64, bk=64, bn=128, schedule="a_resident",
-        out_dtype=torch.float32))
+    for sched in ("a_resident", "b_resident"):
+        res[f"{sched[:2]}_lm_head"] = time_ms(
+            torch, lambda: mm.skew_matmul_cuda(
+                h4, emb.T, bm=64, bk=64, bn=128, schedule=sched,
+                out_dtype=torch.float32))
+    del emb
+    a, w = rnd((4096, 4096)), rnd((4096, 4096), 4096 ** -0.5)
+    res["br_4096x4096x4096"] = time_ms(torch, lambda: mm.skew_matmul_cuda(
+        a, w, bm=64, bk=64, bn=128, schedule="b_resident", out_dtype=bf))
     a, w = rnd((4, 4096)), rnd((4096, 4096), 4096 ** -0.5)
     for bm, bk, bn in ((64, 128, 64), (64, 64, 64)):
         res[f"ar_decode_{bk}"] = time_ms(torch, lambda: mm.skew_matmul_cuda(
             a, w, bm=bm, bk=bk, bn=bn, schedule="a_resident", out_dtype=bf))
     big = rnd((4096, 4096))
-    for block, d in (((32, 128), 0.25), ((32, 128), 0.5), ((128, 128), 0.4)):
-        lay = BlockSparseLayout.random(4096, 4096, block, d)
-        for sched in ("k_inner", "a_resident"):
+    for block, d in (((32, 128), 0.25), ((32, 128), 0.5), ((128, 128), 0.4),
+                     ((32, 128), 1.0)):
+        lay = (BlockSparseLayout.random(4096, 4096, block, d) if d < 1.0
+               else BlockSparseLayout.dense(4096, 4096, block))
+        scheds = (("k_inner", "a_resident", "b_resident") if block[0] == 32
+                  else ("k_inner", "a_resident"))
+        for sched in scheds:
             res[f"bsr_{sched}_{block[0]}_{d}"] = time_ms(
                 torch, lambda: bsr.block_sparse_matmul_cuda(
                     big, w, lay, bn=64, schedule=sched, out_dtype=bf))
+    del big, a, w
+    for label, b, hq, hkv, s, d, window, cap in (
+            ("rg", 4, 16, 1, 128, 256, 2048, 0.0),
+            ("phi4", 4, 24, 8, 128, 128, None, 0.0),
+            ("dbrx", 4, 48, 8, 128, 128, None, 0.0),
+            ("rg_long", 1, 16, 1, 3072, 256, 2048, 0.0),
+            ("gemma2_local", 1, 32, 16, 8192, 128, 4096, 50.0)):
+        q, k, v = (rnd((b, s, h, d)).transpose(1, 2) for h in (hq, hkv, hkv))
+        res[f"fa_{label}"] = time_ms(torch, lambda: fa.flash_attention_cuda(
+            q, k, v, window=window, softcap=cap))
     print(json.dumps({"src": str(sys.argv[1]),
                       **{k: round(v, 5) for k, v in res.items()}}))
 
