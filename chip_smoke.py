@@ -15,11 +15,11 @@ nonzero and prints no result:
      schedule and epilogue on the path, K2 bitwise equal to one K1 call
      per batch slice, a_resident at the tuner's decode rows (m 1 / 4 / 8
      against 4096^2), a_resident and b_resident at the LM head's E^T
-     (m 1 / 4 / 8), plus split-K bitwise
-     stability
-     across split counts for integer-valued inputs, and K4 bitwise equal
-     to the plain `tree_sum` reduce on random fp32 slabs of depth 7 to
-     14600;
+     (m 1 / 4 / 8), K3's slab planes bitwise equal to K1 k_inner on each
+     slice pair (m 1 / 4 / 8 / 16 / 64, E^T and row-major B, a ragged
+     last slice, one split), plus split-K bitwise stability across split
+     counts for integer-valued inputs, and K4 bitwise equal to the plain
+     `tree_sum` reduce on random fp32 slabs of depth 7 to 14600;
   4. serve at full width (the first main path) — phi4-mini-3.8b, bf16,
      seeded weights, batch 4 x prompt 128 + 16 generated tokens through
      `repro_torch.launch.serve.serve`; then, because the gpu_h100 planner
@@ -36,11 +36,14 @@ nonzero and prints no result:
      k_inner and a_resident (at its two candidate plans) at the tuner's
      decode class 4 x 4096 x 4096, K1 k_inner and b_resident at 4096^3
      (64, 64, 128), K2 at the LM head and the o projection (4 x 1 rows);
-     K4 also at slab depths 84 (dbrx's k 10752 at bk 128) and 101;
+     K3 also at the decode gate/up and down projections (gk 24, 64); K4
+     also at slab depths 84 (dbrx's k 10752 at bk 128) and 101;
 then dbrx-132b's MoE layers, after phi4's weights are freed:
   3b. K5 parity — the grouped expert GEMM against its plain version at the
      dbrx decode shapes (16 experts x 8 capacity rows, gate/up and down),
-     the prefill shape (160 rows) and a shape ragged in m, k and n;
+     the prefill shape (160 rows) and a shape ragged in m, k and n, with
+     strided operands too; in bf16 each group bitwise equal to K1 k_inner
+     on its operands;
   4b. serve dbrx-132b (the second main path) — every published width, depth
      cut to 8 of 40 layers (the whole model is ~263 GB of bf16 weights),
      seeded bf16 weights, batch 4 x prompt 128 + 16 generated tokens
@@ -424,6 +427,9 @@ def phase_parity(torch, cfg) -> dict:
                 torch.cuda.synchronize()
                 check("gemv_splitk_partial", slab, slab_want, torch.float32,
                       f"{dn} {m}x{k}x{n} blocks {(sk.bm, sk.bk, sk.bn)}")
+                if dtype == torch.bfloat16:
+                    k3_planes_equal_k1(torch, mm, slab, a, b, sk.bk,
+                                       f"{m}x{k}x{n}")
                 got = gk.gemv_splitk_reduce_cuda(slab_want, bias, res,
                                                  epilogue=spec, out_dtype=odt)
                 want = gk.gemv_splitk_reduce_plain(slab_want, bias, res,
@@ -466,6 +472,24 @@ def phase_parity(torch, cfg) -> dict:
     del w, emb
     torch.cuda.empty_cache()
 
+    # K3 is K1's k_inner with the split walk: each plane equals K1 on its
+    # slice pair bit for bit (decode rows 1 - 64, E^T and row-major B, a
+    # ragged last slice), and one split is K1's whole product
+    emb = rnd((v, d), torch.bfloat16, 0.02)
+    for m in (1, 4, 8, 16, 64):
+        for k, n, bk, bview in ((d, v, 128, "embT"), (1000, 2050, 192, None),
+                                (f, d, 128, None)):
+            a = rnd((m, k), torch.bfloat16)
+            b = emb.T if bview else rnd((k, n), torch.bfloat16, k ** -0.5)
+            slab = gk.gemv_splitk_partial_cuda(a, b, bm=64, bk=bk, bn=128)
+            k3_planes_equal_k1(torch, mm, slab, a, b, bk,
+                               f"{m}x{k}x{n} bk {bk}{' E^T' if bview else ''}")
+    a = rnd((4, 256), torch.bfloat16)
+    slab = gk.gemv_splitk_partial_cuda(a, emb.T[:256], bm=64, bk=256, bn=128)
+    k3_planes_equal_k1(torch, mm, slab, a, emb.T[:256], 256, "gk 1 E^T")
+    del emb, slab
+    torch.cuda.empty_cache()
+
     # split-K bitwise stability across split counts (integer inputs)
     a = torch.randint(-8, 8, (4, d), generator=gen, device=dev).float()
     b = torch.randint(-8, 8, (d, 2048), generator=gen, device=dev).float()
@@ -493,6 +517,21 @@ def phase_parity(torch, cfg) -> dict:
     say(f"parity K4 bitwise equal to the plain reduce at slabs "
         f"{[s[0] for s in K4_BITWISE_SLABS]} (fp32 and bf16 out)")
     return errs
+
+
+def k3_planes_equal_k1(torch, mm, slab, a, b, bk: int, tag: str) -> None:
+    """K3's plane s against K1 k_inner on the slice pair A[:, s bk:(s + 1)
+    bk] @ B[s bk:(s + 1) bk], bit for bit (the same chain over the slice)."""
+    for s in range(slab.shape[0]):
+        k1 = mm.skew_matmul_cuda(a[:, s * bk:(s + 1) * bk],
+                                 b[s * bk:(s + 1) * bk], bm=64, bk=bk,
+                                 bn=128, out_dtype=torch.float32)
+        torch.cuda.synchronize()
+        if not torch.equal(slab[s], k1):
+            fail(f"K3 plane {s} is not bitwise equal to K1 on its slice "
+                 f"({tag})")
+    say(f"parity K3 bitwise equal to K1 k_inner on each of {slab.shape[0]} "
+        f"slices ({tag})")
 
 
 # K4's bitwise check (phase 3): the phi4 LM-head slab, dbrx's down
@@ -826,6 +865,23 @@ def phase_timings(torch, cfg, params, counts, errs) -> list[dict]:
         else None,
         4 * d * 2 + d * v * 2 + gk_n * 4 * v * 4, lm_flops,
         f"LM head 4x{d}x{v} gk={gk_n} blocks {(sk.bm, sk.bk, sk.bn)}"))
+    # K3 at the decode gate/up and down projections at bk 128 (gk 24 and
+    # 64): narrow grids, whose splits are cut into groups over grid z
+    for k, n in ((d, f), (f, d)):
+        a = torch.randn((4, k), generator=gen, device="cuda").to(bf)
+        w = (torch.randn((k, n), generator=gen, device="cuda")
+             * k ** -0.5).to(bf)
+        gkk = k // 128
+        rows.append(row(
+            "gemv_splitk_partial",
+            lambda a=a, w=w: gk.gemv_splitk_partial_cuda(a, w, bm=64,
+                                                         bk=128, bn=128),
+            lambda a=a, w=w: gk.gemv_splitk_partial_plain(a, w, bk=128),
+            lambda a=a, w=w, g=gkk: torch.matmul(
+                a.view(4, g, 128).transpose(0, 1), w.view(g, 128, n)),
+            (4 * k + k * n) * 2 + gkk * 4 * n * 4, 2 * 4 * k * n,
+            f"decode 4x{k}x{n} gk={gkk} (64, 128, 128)"))
+    del a, w
     rows.append(row(
         "gemv_splitk_reduce",
         lambda: gk.gemv_splitk_reduce_cuda(slab, out_dtype=torch.float32),
@@ -869,6 +925,7 @@ def phase_parity_grouped(torch, cfg) -> dict:
     down), the prefill shape, and a ragged shape in bf16 and fp32 with the
     epilogues none / gelu / scale / residual."""
     from repro_torch.kernels import grouped_matmul as gmm
+    from repro_torch.kernels import skew_matmul as mm
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev)
@@ -882,16 +939,22 @@ def phase_parity_grouped(torch, cfg) -> dict:
         return (torch.randn(shape, generator=gen, device=dev) * scale
                 ).to(dtype)
 
-    cases = [  # (g, m, k, n, in dtype, out dtype, epilogue)
-        (e, 8, d, f, bf, fp, ()), (e, 8, f, d, bf, fp, ()),
-        (e, 160, d, f, bf, fp, ())]
+    cases = [  # (g, m, k, n, in dtype, out dtype, epilogue, strided)
+        (e, 8, d, f, bf, fp, (), False), (e, 8, f, d, bf, fp, (), False),
+        (e, 160, d, f, bf, fp, (), False), (e, 8, d, 1000, bf, bf, (), True)]
     for dtype in (bf, fp):
         for spec in ((), (("gelu", None),), (("scale", 0.5),),
                      (("residual", None),)):
-            cases.append((4, 40, 1000, 700, dtype, dtype, spec))
-    for g, m, k, n, dtype, odt, spec in cases:
-        a = rnd((g, m, k), dtype)
-        b = rnd((g, k, n), dtype, k ** -0.5)
+            cases.append((4, 40, 1000, 700, dtype, dtype, spec, False))
+    cases += [(4, 40, 1000, 700, bf, bf, (("residual", None),), True),
+              (4, 160, 1000, 700, bf, fp, (), True)]
+    for g, m, k, n, dtype, odt, spec, strided in cases:
+        if strided:   # A a slice of a wider buffer, B a transposed view
+            a = rnd((g, m, k + 64), dtype)[:, :, 64:]
+            b = rnd((g, n, k), dtype, k ** -0.5).transpose(1, 2)
+        else:
+            a = rnd((g, m, k), dtype)
+            b = rnd((g, k, n), dtype, k ** -0.5)
         res = rnd((g, m, n), dtype) if "residual" in dict(spec) else None
         bm, bk, bn = grouped_blocks(g, m, k, n, a.element_size())
         got = gmm.grouped_matmul_cuda(a, b, res, bm=bm, bk=bk, bn=bn,
@@ -900,8 +963,21 @@ def phase_parity_grouped(torch, cfg) -> dict:
                                         out_dtype=odt)
         torch.cuda.synchronize()
         dn = str(dtype).split(".")[-1]
-        check("grouped_matmul", got, want, odt,
-              f"{dn} {g}x{m}x{k}x{n} {(bm, bk, bn)} {[t for t, _ in spec]}")
+        tag = (f"{dn} {g}x{m}x{k}x{n} {(bm, bk, bn)} {[t for t, _ in spec]}"
+               f"{' strided' if strided else ''}")
+        check("grouped_matmul", got, want, odt, tag)
+        if dtype == bf:
+            # K5 is K1's k_inner with the grouped walk (or, m > 16, the
+            # prefill tile): group i equals K1 on A[i] @ B[i] bit for bit
+            for i in range(g):
+                k1 = mm.skew_matmul_cuda(
+                    a[i], b[i], residual=None if res is None else res[i],
+                    bm=bm, bk=bk, bn=bn, epilogue=spec, out_dtype=odt)
+                torch.cuda.synchronize()
+                if not torch.equal(got[i], k1):
+                    fail(f"K5 group {i} is not bitwise equal to K1 ({tag})")
+            say(f"parity K5 bitwise equal to K1 k_inner in each of {g} "
+                f"groups ({tag})")
         del a, b, res, got, want
     torch.cuda.empty_cache()
     return errs

@@ -68,8 +68,8 @@ template <typename T, typename O, int MR, int NS>
 int launch_mr(const KICfg& c, const int* cols, const int* nnz, int s_max, const T* a,
               long long sa_m, long long sa_k, const T* b, long long sb_k, long long sb_n, O* o,
               int m, int k, int n, int bm, int bk, const Epi& e, cudaStream_t stream) {
-  return launch_k_inner<T, O, MR, NS, true>(c, a, 0, sa_m, sa_k, b, sb_k, sb_n, o, 1, m, k, n,
-                                            bk, e, cols, nnz, s_max, bm, stream);
+  return launch_k_inner<T, O, MR, NS, KiWalk::kSparse>(c, a, 0, sa_m, sa_k, b, sb_k, sb_n, o, 1, m,
+                                                      k, n, bk, e, cols, nnz, s_max, bm, stream);
 }
 
 template <typename T, typename O>

@@ -1,25 +1,17 @@
 // Shared device code for the port's Hopper kernels (sm_90a).
 //
-// Tiles: a plan block is one CTA tile.  A and B blocks are staged in shared
-// memory in their input type with a 16-byte row pad; the fp32 accumulator
-// block lives in shared memory too (the cost model's fp32 "scratch
-// accumulator"), so the shared-memory footprint never exceeds the plan's
-// modeled working set (which counts double buffers this kernel does not use).
-//
-// Products: bf16 operands go through warp-level tensor-core MMA (WMMA
-// 16x16x16, fp32 accumulate; `strip_mma` issues the same m16n8k16 HMMA
+// Products: bf16 operands go through tensor-core MMA (`strip_mma` and the
+// k_inner / b_resident / flash-attention kernels issue m16n8k16 HMMAs
 // through ldmatrix + mma.sync with register-resident sums); fp32 operands
-// run a plain fp32 FMA loop — true IEEE fp32, never TF32.  The redesigned
-// kernels (K1's three schedules, K7's bf16 route, K9's three schedules;
-// k_inner's device code is shared in k_inner.cuh, b_resident's in
-// b_resident.cuh) keep their sums in registers and stream their operands
-// through `cp.async` rings; the others (K3, K5) still use the
-// shared-memory fp32 tile above.
+// run a plain fp32 FMA chain — true IEEE fp32, never TF32.  The matmul
+// kernels (K1-K3, K5, K9; k_inner's device code is shared in k_inner.cuh,
+// b_resident's in b_resident.cuh) and K7's bf16 route stream their
+// operands through `cp.async` rings; K7's fp32 route keeps its fp32 tiles
+// in shared memory (`mma_block`, `load_tile`).
 #pragma once
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <mma.h>
 #include <stdint.h>
 
 namespace rt {
@@ -38,8 +30,8 @@ template <> __device__ __forceinline__ bf16 from_f<bf16>(float x) {
   return __float2bfloat16_rn(x);
 }
 
-// Row pad in elements: 16 bytes, keeps rows 16-byte aligned for vector
-// stores and WMMA's ldm rule (multiple of 8 bf16 / 4 fp32).
+// Row pad in elements: 16 bytes, keeps padded rows 16-byte aligned for
+// vector copies.
 template <typename T> __host__ __device__ constexpr int pad() {
   return 16 / (int)sizeof(T);
 }
@@ -48,7 +40,9 @@ __host__ __device__ inline long long align128(long long b) {
   return (b + 127) / 128 * 128;
 }
 
-// Shared-memory bytes of one (bm, bk, bn) tile set: A, B, fp32 C.
+// Shared-memory bytes of one plan block's (bm, bk, bn) tile set, A, B and
+// an fp32 C (the cost model's working set): the limit on the blocks the
+// matmul kernels take, and K1 k_inner's ring budget.
 template <typename T>
 __host__ __device__ inline long long tile_smem_bytes(int bm, int bk, int bn) {
   return align128((long long)bm * (bk + pad<T>()) * sizeof(T)) +
@@ -139,60 +133,10 @@ __device__ void load_tile(T* s, int ld, const T* g, long long s_r, long long s_c
   }
 }
 
-// sC[BM x BN] (+)= sA[BM x BK] @ sB[BK x BN].  Each warp owns 32x32
-// regions (2x2 WMMA fragments); rows at or past `mrows` (the block's valid
-// row count) are skipped, which is what keeps decode (m of a few rows
-// inside a 64-row block) from paying for the padding.  zero_init starts
-// the sum at 0 instead of reading sC.  BM, BK, BN are multiples of 16.
-__device__ inline void mma_block(const bf16* sA, int lda, const bf16* sB, int ldb,
-                                 float* sC, int ldc, int BM, int BK, int BN,
-                                 int mrows, bool zero_init) {
-  using namespace nvcuda;
-  const int warp = threadIdx.x / 32, nwarps = blockDim.x / 32;
-  const int rm = (BM + 31) / 32, rn = (BN + 31) / 32;
-  const int mlim = mrows < BM ? mrows : BM;
-  for (int reg = warp; reg < rm * rn; reg += nwarps) {
-    const int r0 = (reg / rn) * 32, c0 = (reg % rn) * 32;
-    if (r0 >= mlim) continue;
-    const bool r2 = r0 + 16 < mlim;
-    const bool c2 = c0 + 16 < BN;
-    wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[2][2];
-    wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> fa[2];
-    wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> fb[2];
-#pragma unroll
-    for (int i = 0; i < 2; ++i)
-#pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        if ((i && !r2) || (j && !c2)) continue;
-        if (zero_init)
-          wmma::fill_fragment(acc[i][j], 0.0f);
-        else
-          wmma::load_matrix_sync(acc[i][j], sC + (r0 + 16 * i) * ldc + c0 + 16 * j, ldc,
-                                 wmma::mem_row_major);
-      }
-    for (int kk = 0; kk < BK; kk += 16) {
-      wmma::load_matrix_sync(fa[0], sA + r0 * lda + kk, lda);
-      if (r2) wmma::load_matrix_sync(fa[1], sA + (r0 + 16) * lda + kk, lda);
-      wmma::load_matrix_sync(fb[0], sB + kk * ldb + c0, ldb);
-      if (c2) wmma::load_matrix_sync(fb[1], sB + kk * ldb + c0 + 16, ldb);
-      wmma::mma_sync(acc[0][0], fa[0], fb[0], acc[0][0]);
-      if (c2) wmma::mma_sync(acc[0][1], fa[0], fb[1], acc[0][1]);
-      if (r2) wmma::mma_sync(acc[1][0], fa[1], fb[0], acc[1][0]);
-      if (r2 && c2) wmma::mma_sync(acc[1][1], fa[1], fb[1], acc[1][1]);
-    }
-#pragma unroll
-    for (int i = 0; i < 2; ++i)
-#pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        if ((i && !r2) || (j && !c2)) continue;
-        wmma::store_matrix_sync(sC + (r0 + 16 * i) * ldc + c0 + 16 * j, acc[i][j], ldc,
-                                wmma::mem_row_major);
-      }
-  }
-}
-
-// fp32 operands: lane l of a warp owns column c0 + l of a 32x32 region and
-// keeps its 32 row sums in registers; A values are warp-wide broadcasts.
+// sC[BM x BN] (+)= sA[BM x BK] @ sB[BK x BN] for fp32 operands: lane l of
+// a warp owns column c0 + l of a 32x32 region and keeps its 32 row sums in
+// registers; A values are warp-wide broadcasts.  Rows at or past `mrows`
+// are skipped; zero_init starts the sum at 0 instead of reading sC.
 __device__ inline void mma_block(const float* sA, int lda, const float* sB, int ldb,
                                  float* sC, int ldc, int BM, int BK, int BN,
                                  int mrows, bool zero_init) {
@@ -288,9 +232,8 @@ __device__ __forceinline__ void mma_16816(float* d, const unsigned (&a)[4], unsi
 
 // acc[r] += sA[16 r .. 16 r + 16, 0 .. K) @ sB[0 .. K, 0 .. 16) for r < nrf,
 // in 16-deep steps in k order.  bf16: ldmatrix fragments and two
-// m16n8k16 HMMAs a step, the instruction WMMA 16x16x16 lowers to on
-// sm_90, so a sum started from zero equals mma_block's bit for bit; fp32:
-// mma_block's fmaf chain.  sA and sB rows are 16-byte aligned.  BT: sB is
+// m16n8k16 HMMAs a step (the instruction WMMA 16x16x16 lowers to on
+// sm_90); fp32: an fmaf chain.  sA and sB rows are 16-byte aligned.  BT: sB is
 // held n-major (sB[c * ldb + k], a transposed B copied as its own rows),
 // which is mma.sync's column-major B, read by ldmatrix untransposed (the
 // four 8 x 8 matrices: columns 0-7 at k 0-7 and 8-15, then columns 8-15);
@@ -451,23 +394,5 @@ __device__ void load_tile_async(T* s, int ld, const T* g, long long s_r, long lo
     cp_async16(s + r * ld + c, src, valid * (int)sizeof(T));
   }
 }
-
-// Carve the dynamic shared memory into the A, B and fp32 C tiles.
-template <typename T>
-struct Tiles {
-  T* a;
-  T* b;
-  float* c;
-  int lda, ldb, ldc;
-  __device__ Tiles(unsigned char* smem, int bm, int bk, int bn) {
-    lda = bk + pad<T>();
-    ldb = bn + pad<T>();
-    ldc = bn + 4;
-    a = reinterpret_cast<T*>(smem);
-    b = reinterpret_cast<T*>(smem + align128((long long)bm * lda * sizeof(T)));
-    c = reinterpret_cast<float*>(reinterpret_cast<unsigned char*>(b) +
-                                 align128((long long)bk * ldb * sizeof(T)));
-  }
-};
 
 }  // namespace rt

@@ -9,10 +9,26 @@
 //
 // Bound on the H100: bytes.  At decode m is a handful of rows, so pass 1
 // streams B once (k x n weights) for 2*m*k*n operations — far below the
-// card's ~295 FLOP/byte ridge — plus one fp32 write and one read of the
-// slab.  Pass 1 keeps B's read coalesced (16-byte loads on its unit-stride
-// axis, strided views read in place), spreads K over the grid so a narrow
-// n still fills the card, and skips the MMA for padded rows.
+// card's ~295 FLOP/byte ridge — plus one fp32 write of the (gk, m, n) slab
+// (pass 2 reads it once).  At the phi4 LM head (4 x 3072 x 200064, E^T in
+// place, gk 24) that is 1.229 GB + 76.8 MB: 0.390 ms at 3.35 TB/s.
+//
+// Pass 1 is K1's k_inner kernel (csrc/k_inner.cuh) with the split walk
+// (KiWalk::kSplit, a template flag): blockIdx = (row tile, column tile,
+// split group).  A CTA walks the k range of its group's `sp` splits in
+// ks-deep slices (ks divides bk) through k_inner's >= 3-stage cp.async ring
+// of XOR-swizzled tiles, straight across split boundaries, so copies stay
+// in flight; at each split's end each warp stores its register sums raw
+// (fp32, no epilogue) to that split's plane of the slab and starts again
+// from zero.  Rows follow k_inner's rule (8 at m <= 8: the MMA's other 8
+// rows read a zero row, so only real rows are copied; m is never blocked),
+// a transposed B (E^T in place) is copied n-major with the tile narrowed
+// until a slice is 128 bytes deep, and the ring fits two CTAs an SM.  The
+// (row, column) tiles fill the grid; where they leave part of a wave of two
+// CTAs an SM idle (a narrow n), the splits are cut into groups over grid z
+// until it fills (`sk_config`).  Each partial is one fp32 chain over its bk
+// slice in 16-deep MMA steps, so plane s equals K1 k_inner on the slice
+// pair A[:, s bk:(s + 1) bk] @ B[s bk:(s + 1) bk] bit for bit.
 //
 // Pass 2 (splitk_reduce_kernel) is a pure stream: gk*m*n fp32 in, m*n
 // out.  Each CTA stages a strip of W flat output elements of every split
@@ -33,29 +49,83 @@
 // unchanged to the next level — so with no epilogue its output equals the
 // plain `tree_sum` bit for bit for any fp32 slab, and for integer-valued
 // inputs the output is bitwise identical across split counts.
-#include "common.cuh"
+#include "k_inner.cuh"
 
 namespace rt {
 
+// K3's shape on the card (mirrored by `splitk_config` in
+// kernels/gemv_splitk.py):
+//   rows, mr — k_inner's rule: bf16 8 when m fits in 8, else the plan's bm,
+//            at most 64, within the 16-row granules m fills (mr 4); fp32 16
+//            (mr 1).  Split-K's bm >= m, so up to 64 rows one row tile
+//            covers m;
+//   tw     — the widest power-of-two multiple of 16 within bn and 128; a
+//            transposed B narrows it until a slice is 128 bytes deep;
+//   ks     — the deepest power of two up to 256 that divides bk (no slice
+//            straddles two splits) and leaves room for >= 3 stages (at most
+//            8) within two CTAs an SM (`kSkBudget`);
+//   sp, gz — splits a CTA walks, and the split groups over grid z: the
+//            most splits a group (so the fewest groups) with which the
+//            grid still fills a wave of two CTAs an SM, one split a group
+//            where none does.  At the LM head the 1563 column tiles alone
+//            fill it: one group walks all 24 splits.
+constexpr long long kSkBudget = (kSmemMax - 1024) / 2;
+
+struct SKCfg {
+  KICfg c;
+  int sp, gz;
+};
+
 template <typename T>
-__global__ void __launch_bounds__(kThreads)
-splitk_partial_kernel(const T* __restrict__ A, long long sa_m, long long sa_k,
-                      const T* __restrict__ B, long long sb_k, long long sb_n,
-                      float* __restrict__ slab, int m, int k, int n, int bm, int bk, int bn) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  Tiles<T> t(smem, bm, bk, bn);
-  const int j0 = blockIdx.x * bn, k0 = blockIdx.y * bk;
-  load_tile(t.a, t.lda, A, sa_m, sa_k, 0, k0, bm, bk, m, k);
-  load_tile(t.b, t.ldb, B, sb_k, sb_n, k0, j0, bk, bn, k, n);
-  __syncthreads();
-  mma_block(t.a, t.lda, t.b, t.ldb, t.c, t.ldc, bm, bk, bn, m, true);
-  __syncthreads();
-  float* dst = slab + (long long)blockIdx.y * m * n;
-  for (int idx = threadIdx.x; idx < bm * bn; idx += blockDim.x) {
-    const int r = idx / bn, c = idx - r * bn;
-    const int gc = j0 + c;
-    if (r < m && gc < n) dst[(long long)r * n + gc] = t.c[r * t.ldc + c];
+inline SKCfg sk_config(int m, int k, int n, int bm, int bk, int bn, int bt, int sms) {
+  SKCfg s{};
+  KICfg& c = s.c;
+  if (!kKiSwz<T>)
+    c.rows = 16;
+  else if (m <= 8)
+    c.rows = 8;
+  else
+    c.rows = min(min(bm, 64), (m + 15) / 16 * 16);
+  c.mr = c.rows <= 16 ? 1 : 4;
+  c.bt = bt;
+  int tw = 16;
+  while (2 * tw <= bn && 2 * tw <= 128) tw *= 2;
+  c.gm = (m + c.rows - 1) / c.rows;
+  c.smem = -1;
+  if (!ki_ring<T>(c, tw, bk, kSkBudget)) return s;
+  while (bt && tw > 16 && c.ks * (int)sizeof(T) < 128) {
+    tw /= 2;
+    if (!ki_ring<T>(c, tw, bk, kSkBudget)) return s;
   }
+  c.tw = tw;
+  c.gn = (n + tw - 1) / tw;
+  const int gk = (k + bk - 1) / bk;
+  const long long tiles = (long long)c.gm * c.gn;
+  s.sp = gk;
+  while (s.sp > 1 && tiles * ((gk + s.sp - 1) / s.sp) < 2LL * sms) --s.sp;
+  s.gz = (gk + s.sp - 1) / s.sp;
+  return s;
+}
+
+template <typename T>
+int launch_partial(const T* a, long long sa_m, long long sa_k, const T* b, long long sb_k,
+                   long long sb_n, float* slab, int m, int k, int n, int bm, int bk, int bn,
+                   int sms, cudaStream_t stream) {
+  if (bm < m || tile_smem_bytes<T>(bm, bk, bn) > kSmemMax) return (int)cudaErrorInvalidValue;
+  const int bt = sb_k == 1 && sb_n != 1;
+  const SKCfg s = sk_config<T>(m, k, n, bm, bk, bn, bt, sms);
+  if (s.c.smem < 0 || s.c.smem > kSmemMax || s.c.gn > 65535 || s.gz > 65535)
+    return (int)cudaErrorInvalidValue;
+  const KIWalkArgs w{0, 0, s.sp};
+  if (s.c.mr == 1)
+    return launch_k_inner<T, float, 1, 1, KiWalk::kSplit>(s.c, a, 0, sa_m, sa_k, b, sb_k, sb_n,
+                                                          slab, 1, m, k, n, bk, Epi{}, nullptr,
+                                                          nullptr, 0, 0, stream, s.gz, w);
+  if constexpr (kKiSwz<T>)
+    return launch_k_inner<T, float, 4, 1, KiWalk::kSplit>(s.c, a, 0, sa_m, sa_k, b, sb_k, sb_n,
+                                                          slab, 1, m, k, n, bk, Epi{}, nullptr,
+                                                          nullptr, 0, 0, stream, s.gz, w);
+  return (int)cudaErrorInvalidValue;
 }
 
 // Strip width of the staged reduce: the largest multiple of 4 up to 256
@@ -123,32 +193,21 @@ splitk_reduce_kernel(const float* __restrict__ slab, O* __restrict__ out, int gk
 }  // namespace rt
 
 // Pass 1.  `slab` is a contiguous fp32 (gk, m, n) tensor with
-// gk = ceil(k / bk); bm = m rounded up to a multiple of 16.
+// gk = ceil(k / bk); bm >= m; `sms` is the card's SM count (the wrapper's
+// `splitk_config`).  Returns the cudaError_t of the launch.
 extern "C" int rt_splitk_partial(int in_bf16, const void* A, long long sa_m, long long sa_k,
                                  const void* B, long long sb_k, long long sb_n, void* slab,
-                                 int m, int k, int n, int bm, int bk, int bn, void* stream) {
-  const long long smem = in_bf16 ? rt::tile_smem_bytes<rt::bf16>(bm, bk, bn)
-                                 : rt::tile_smem_bytes<float>(bm, bk, bn);
-  if (smem > rt::kSmemMax) return (int)cudaErrorInvalidValue;
-  dim3 grid((n + bn - 1) / bn, (k + bk - 1) / bk, 1);
+                                 int m, int k, int n, int bm, int bk, int bn, int sms,
+                                 void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err;
-  if (in_bf16) {
-    err = cudaFuncSetAttribute(rt::splitk_partial_kernel<rt::bf16>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return (int)err;
-    rt::splitk_partial_kernel<rt::bf16><<<grid, rt::kThreads, smem, s>>>(
-        static_cast<const rt::bf16*>(A), sa_m, sa_k, static_cast<const rt::bf16*>(B), sb_k,
-        sb_n, static_cast<float*>(slab), m, k, n, bm, bk, bn);
-  } else {
-    err = cudaFuncSetAttribute(rt::splitk_partial_kernel<float>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return (int)err;
-    rt::splitk_partial_kernel<float><<<grid, rt::kThreads, smem, s>>>(
-        static_cast<const float*>(A), sa_m, sa_k, static_cast<const float*>(B), sb_k, sb_n,
-        static_cast<float*>(slab), m, k, n, bm, bk, bn);
-  }
-  return (int)cudaGetLastError();
+  float* o = static_cast<float*>(slab);
+  if (in_bf16)
+    return rt::launch_partial(static_cast<const rt::bf16*>(A), sa_m, sa_k,
+                              static_cast<const rt::bf16*>(B), sb_k, sb_n, o, m, k, n, bm, bk,
+                              bn, sms, s);
+  return rt::launch_partial(static_cast<const float*>(A), sa_m, sa_k,
+                            static_cast<const float*>(B), sb_k, sb_n, o, m, k, n, bm, bk, bn,
+                            sms, s);
 }
 
 // Pass 2.  `out` is a contiguous (m, n) tensor.  `scratch` is an fp32

@@ -1,29 +1,46 @@
-// The k_inner device code shared by K1 / K2 (csrc/skew_matmul.cu) and K9's
-// k_inner (csrc/block_sparse_k_inner.cu), and the swizzled-tile MMA that
-// K1's a_resident uses too.
+// The k_inner device code shared by K1 / K2 (csrc/skew_matmul.cu), K3
+// (csrc/gemv_splitk.cu), K5 (csrc/grouped_matmul.cu) and K9's k_inner
+// (csrc/block_sparse_k_inner.cu), and the swizzled-tile MMA that K1's
+// a_resident uses too.
 //
-// One kernel template, `k_inner_kernel`, whose walk over k is its only
-// difference between the two: dense (K1, K2) steps through round_up(k, bk)
-// in ks-deep slices; SPARSE (K9) steps through the nonzero blocks of the
-// CTA's row block, slice `sl` of block s at k = cols[i, s] * bk + sl * ks,
-// s ascending (ks divides bk, so no slice straddles two blocks).  At
-// density 1.0 cols[i, s] == s and the two walks are the same slices in the
-// same order: each output is one fp32 chain over k in 16-deep MMA steps in
-// both, so K9 equals K1 bit for bit by construction.
+// One kernel template, `k_inner_kernel`, whose walk over k (a template
+// flag, `KiWalk`) is its only difference between them:
+//   kDense   (K1, K2) steps through round_up(k, bk) in ks-deep slices;
+//   kSparse  (K9) steps through the nonzero blocks of the CTA's row block,
+//            slice `sl` of block s at k = cols[i, s] * bk + sl * ks, s
+//            ascending (ks divides bk, so no slice straddles two blocks);
+//   kSplit   (K3) steps through the k range of the CTA's splits (blockIdx.z
+//            a group of `sp` bk-deep splits, ks divides bk) and, at each
+//            split's end, stores the raw fp32 sums to that split's plane of
+//            the (gk, m, n) slab and starts again from zero, the ring
+//            running on across the boundary;
+//   kGrouped (K5) is the dense walk over group blockIdx.z's operands: A, B,
+//            the output and the residual offset by their group strides.
+// Every output is one fp32 chain over k in 16-deep MMA steps in ascending
+// order in all four (a split's from its first slice), so K9 at density
+// 1.0, K3's plane s and K5's group g equal K1 on the same operands bit for
+// bit by construction.  A second warp layout (WR = 2: two rows of four
+// warps, each holding 16 MR rows x NS strips) is K5's prefill tile.
 #pragma once
+
+#include <type_traits>
 
 #include "common.cuh"
 
 namespace rt {
 
 // A k_inner CTA's shape (chosen by `ki_config` in csrc/skew_matmul.cu for
-// K1 / K2 and `bki_config` in csrc/block_sparse_k_inner.cu for K9; both
-// mirrored in Python):
-//   rows   — the CTA's rows; a warp holds mr = rows / 16 fragments of 16
-//            rows (an 8-row bf16 tile reads a zero row for the MMA's other
-//            8 rows);
+// K1 / K2, `sk_config` in csrc/gemv_splitk.cu for K3, `grouped_config` in
+// csrc/grouped_matmul.cu for K5 and `bki_config` in
+// csrc/block_sparse_k_inner.cu for K9; all mirrored in Python):
+//   rows   — the CTA's rows; a warp holds mr fragments of 16 rows (an
+//            8-row bf16 tile reads a zero row for the MMA's other 8 rows),
+//            every row of the tile (rows = 16 mr), or, in K5's prefill
+//            tile, half of them (rows = 32 mr);
 //   tw     — the tile's columns: 16-column strips, strip s owned by warp
-//            s % 8, so a warp owns one strip at tw <= 128 and two at 256;
+//            s % 8, so a warp owns one strip at tw <= 128 and two at 256
+//            (K5's prefill tile: warp w owns strips w % 4 + 4 j, j < NS,
+//            in the rows of half w / 4);
 //   ks     — the k slice of one stage, stages — the ring's depth (>= 3);
 //   bt     — B is a transposed view (unit stride along k), copied n-major.
 // bf16 tiles have no row pad: their 16-byte chunks are XOR-swizzled
@@ -32,6 +49,14 @@ namespace rt {
 struct KICfg {
   int rows, mr, tw, ks, stages, bt, gm, gn;
   long long smem;  // dynamic shared memory in bytes
+};
+enum class KiWalk { kDense, kSparse, kSplit, kGrouped };
+// What the split and grouped walks add to the kernel's arguments (unused by
+// the other two): A's and B's group strides (kGrouped), and the splits a
+// CTA walks (kSplit).
+struct KIWalkArgs {
+  long long sa_g, sb_g;
+  int sp;
 };
 template <typename T> constexpr bool kKiSwz = sizeof(T) == 2;
 template <typename T> constexpr int kKiPad = kKiSwz<T> ? 0 : pad<T>();
@@ -77,6 +102,69 @@ inline bool ki_ring(KICfg& c, int tw, int kp, long long plan) {
     }
   }
   return false;  // not reached: ks = 16 always fits the budget
+}
+
+// K5's prefill tile (WR = 2): a warp owns NS strips, `strip` + 4 j, of
+// its MR row fragments.  Each 16-deep step reads the NS B fragments and
+// the MR A fragments once and issues the 2 MR NS MMAs (MR 5, NS 4: 40 MMAs
+// from 9 ldmatrix), in the same k order as ki_mma.
+template <int MR, int NS, bool BT>
+__device__ __forceinline__ void ki_mma_wide(AccMma (&acc)[NS][MR], const bf16* sA, int lda,
+                                            int lga, const bf16* sB, int ldb, int lgb,
+                                            int strip, int K, int nrf) {
+  const int lane = threadIdx.x % 32, l8 = lane & 7, h = lane >> 4;
+  const int ar = lane & 15;
+  const bf16* pa = sA + ar * lda;
+  const int fa = ki_swz(l8, lga);
+  const int fb = ki_swz(l8, lgb), hb = (lane >> 3) & 1;
+  const bf16* pb[NS];
+#pragma unroll
+  for (int j = 0; j < NS; ++j) {
+    const int s = strip + 4 * j;
+    pb[j] = BT ? sB + (16 * s + l8 + 8 * h) * ldb : sB + ar * ldb + (((2 * s + h) ^ fb) << 3);
+  }
+  for (int kk = 0; kk < K; kk += 16) {
+    unsigned b[NS][4];
+#pragma unroll
+    for (int j = 0; j < NS; ++j) {
+      if (BT)
+        ldsm_x4(b[j], pb[j] + ((((kk >> 3) | hb) ^ fb) << 3));
+      else
+        ldsm_x4_trans(b[j], pb[j] + kk * ldb);
+    }
+    const int ca = (((kk >> 3) | h) ^ fa) << 3;
+#pragma unroll
+    for (int r = 0; r < MR; ++r) {
+      if (r >= nrf) break;
+      unsigned a[4];
+      ldsm_x4(a, pa + 16 * r * lda + ca);
+#pragma unroll
+      for (int j = 0; j < NS; ++j) {
+        mma_16816(acc[j][r].x, a, b[j][0], b[j][1]);
+        mma_16816(acc[j][r].x + 4, a, b[j][2], b[j][3]);
+      }
+    }
+  }
+}
+
+// Below a grid of `tw`-wide tiles that leaves SMs idle (K1, K5): the widest
+// narrower power of two whose grid fills the card with its CTAs spread
+// evenly (the busiest SM at most 1 / 0.85 of the mean), else the most even
+// of those that fill it (16 columns, the MMA strip, at the least).
+inline int ki_narrow(int gm, int n, int tw, int sms) {
+  int best = 16;
+  double best_bal = -1.0;
+  for (int w = tw / 2; w >= 16; w /= 2) {
+    const long long ctas = (long long)gm * ((n + w - 1) / w);
+    if (ctas < sms && w > 16) continue;
+    const double bal = (double)ctas / ((double)sms * ((ctas + sms - 1) / sms));
+    if (bal >= 0.85) return w;
+    if (bal > best_bal) {
+      best = w;
+      best_bal = bal;
+    }
+  }
+  return best;
 }
 
 // One warp's 16-column strip of the bf16 product over one stage: acc[r] +=
@@ -165,31 +253,82 @@ __device__ __forceinline__ void ki_mma2(AccMma (&acc)[2][MR], const bf16* sA, in
   }
 }
 
-// blockIdx = (row tile, column tile): the row tiles that share a column
+// K3's split planes: one warp's raw fp32 sums at (gr0, gc0) of a contiguous
+// (m, n) fp32 plane, masked at the edges, no epilogue.  Inlined, unlike
+// store_acc: it runs inside the k loop, once a split.  bf16 operands store
+// neighbouring columns in pairs (8 bytes) where n is even.
+__device__ __forceinline__ void store_raw(const AccMma& a, float* out, int gr0, int gc0, int m,
+                                          int n) {
+  const int lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
+#pragma unroll
+  for (int h = 0; h < 2; ++h)
+#pragma unroll
+    for (int rr = 0; rr < 2; ++rr) {
+      const int row = gr0 + g + 8 * rr, col = gc0 + 8 * h + 2 * t;
+      if (row >= m || col >= n) continue;
+      float* p = out + (long long)row * n + col;
+      const float v0 = a.x[4 * h + 2 * rr], v1 = a.x[4 * h + 2 * rr + 1];
+      if ((n & 1) == 0) {
+        *reinterpret_cast<float2*>(p) = make_float2(v0, v1);
+      } else {
+        p[0] = v0;
+        if (col + 1 < n) p[1] = v1;
+      }
+    }
+}
+__device__ __forceinline__ void store_raw(const AccF32& a, float* out, int gr0, int gc0, int m,
+                                          int n) {
+  const int lane = threadIdx.x % 32, col = gc0 + lane % 16;
+#pragma unroll
+  for (int x = 0; x < 8; ++x) {
+    const int row = gr0 + lane / 16 + 2 * x;
+    if (row < m && col < n) out[(long long)row * n + col] = a.x[x];
+  }
+}
+
+// blockIdx = (row tile, column tile, z): the row tiles that share a column
 // tile run next to each other, so B streams from device memory once.
 // Rows are the nb * m rows of every batch slice in order (row r is row
 // r % m of slice r / m, read through sa_b and sa_m from a per-row offset
 // table); at decode (nb * m <= 16) one CTA takes every slice's rows, so
 // K2 reads B once per launch, not once per slice.  SPARSE: nb == 1, the
 // tile lies in row block i = r0 / bm (rows divides bm) and walks only its
-// nnz[i] blocks; a row block with none writes epilogue(0).  The copies of
-// the next stages - 1 slices are in flight (cp.async, one commit group a
-// step) while step q multiplies; the zero-filled tail of a ragged last k
-// block is part of the walk, as the plan's blocks had it.  Warp w owns the
-// tile's strip w (warps past tw / 16 only copy), and w + 8 too at tw 256,
-// and every row of them, and keeps its fp32 sums in registers from the
-// first slice to the epilogue: each output's sum is one chain over k in
-// ascending order in 16-deep MMA steps, the chain the shared-memory WMMA
-// kernel formed, so the output is the same bit for bit.
-template <typename T, typename O, int MR, int NS, bool SPARSE>
+// nnz[i] blocks; a row block with none writes epilogue(0).  SPLIT: nb == 1,
+// z is a group of w.sp splits, `out` the fp32 slab.  GROUPED: nb == 1, z is
+// the group; A, B, the output (rows z * m .. z * m + m of a contiguous
+// (g * m, n) matrix) and the residual (e.rs_b the group stride) are offset
+// to group z's.  The copies of the next stages - 1 slices are in flight
+// (cp.async, one commit group a step) while step q multiplies; the
+// zero-filled tail of a ragged last k block is part of the walk, as the
+// plan's blocks had it.  WR = 1: warp w owns the tile's strip w (warps
+// past tw / 16 only copy), and w + 8 too at tw 256, and every row of them.
+// WR = 2 (K5's prefill tile, tw = 64 NS): warp w owns strips w % 4 + 4 j
+// (j < NS) of rows 16 MR (w / 4) .. 16 MR (w / 4 + 1).  Each keeps its
+// fp32 sums in registers from the first slice to the epilogue (SPLIT: to
+// its split's end): each output's sum is one chain over k in ascending
+// order in 16-deep MMA steps in every walk and warp layout, so the walks
+// agree bit for bit on the same operands.  What only the split and
+// grouped walks or WR = 2 need lies under `if constexpr` (or is a dead
+// variable), so the dense and sparse instantiations do not depend on it:
+// an edit to a line they share moves their register allocation and their
+// time.
+template <typename T, typename O, int MR, int NS, KiWalk W, int WR = 1>
 __global__ void __launch_bounds__(kThreads, MR * NS <= 4 ? 2 : 1)
 k_inner_kernel(const T* __restrict__ A, long long sa_b, long long sa_m, long long sa_k,
                const T* __restrict__ B, long long sb_k, long long sb_n,
                O* __restrict__ out, int nb, int m, int k, int n, int bk, KICfg cfg, Epi e,
-               const int* __restrict__ cols, const int* __restrict__ nnz, int s_max, int bm) {
+               const int* __restrict__ cols, const int* __restrict__ nnz, int s_max, int bm,
+               KIWalkArgs w) {
   constexpr int V = 16 / (int)sizeof(T);
   constexpr bool SW = kKiSwz<T>;
-  static_assert(NS == 1 || (SW && NS == 2), "fp32 tiles: one strip a warp");
+  constexpr bool SPARSE = W == KiWalk::kSparse;
+  constexpr bool SPLIT = W == KiWalk::kSplit;
+  constexpr bool GROUPED = W == KiWalk::kGrouped;
+  static_assert(NS == 1 || (SW && NS == 2) || (SW && NS == 4 && WR == 2),
+                "fp32 tiles: one strip a warp");
+  static_assert(WR == 1 || (WR == 2 && NS >= 2 && GROUPED), "two warp rows: K5's prefill tile");
+  static_assert(!SPLIT || (std::is_same<O, float>::value && NS == 1),
+                "split planes: fp32, one strip a warp");
   using Acc = typename AccFrag<T>::type;
   extern __shared__ __align__(128) unsigned char smem[];
   const int rows = cfg.rows, tw = cfg.tw, ks = cfg.ks, S = cfg.stages;
@@ -201,6 +340,15 @@ k_inner_kernel(const T* __restrict__ A, long long sa_b, long long sa_m, long lon
   T* zrow = rows < 16 ? reinterpret_cast<T*>(smem + S * st_bytes + align128(rows * 8LL))
                       : nullptr;
   const int warp = threadIdx.x / 32;
+  if constexpr (GROUPED) {
+    // group z: its operands, its rows of the contiguous (g * m, n) output
+    // and its residual (e.rs_b the group stride)
+    A += blockIdx.z * w.sa_g;
+    B += blockIdx.z * w.sb_g;
+    out += (long long)blockIdx.z * m * n;
+    if (e.res)
+      e.res = static_cast<const char*>(e.res) + blockIdx.z * e.rs_b * (e.res_bf16 ? 2 : 4);
+  }
 
   const int M = nb * m;
   const int r0 = blockIdx.x * rows, c0 = blockIdx.y * tw;
@@ -229,6 +377,16 @@ k_inner_kernel(const T* __restrict__ A, long long sa_b, long long sa_m, long lon
     steps = nnz[i] * nks;
   } else {
     steps = (k + bk - 1) / bk * bk / ks;
+  }
+  // SPLIT: this CTA's splits (w.sp of the gk, from split z * w.sp); the k
+  // offset of its first slice; the split its sums belong to
+  int kbase = 0, split = 0;
+  if constexpr (SPLIT) {
+    const int gk = (k + bk - 1) / bk;
+    split = blockIdx.z * w.sp;
+    nks = bk / ks;
+    kbase = split * bk;
+    steps = (min(gk, split + w.sp) - split) * nks;
   }
   const int lgk = log2_exact(ks / V), lgn = log2_exact(tw / V);
   const int lgb = cfg.bt ? lgk : lgn;
@@ -259,6 +417,7 @@ k_inner_kernel(const T* __restrict__ A, long long sa_b, long long sa_m, long lon
     } else {
       k0 = q * ks;
     }
+    if constexpr (SPLIT) k0 += kbase;
     if (a_vec) {
       for (int idx = threadIdx.x; idx < (vrows << lgk); idx += kThreads) {
         const int r = idx >> lgk, c = (idx & ((1 << lgk) - 1)) * V;
@@ -303,6 +462,10 @@ k_inner_kernel(const T* __restrict__ A, long long sa_b, long long sa_m, long lon
   // this warp's strips: warp (warps past tw / 16 only copy), and warp + 8
   // in a 256-column tile (NS = 2)
   const bool mma_warp = 16 * warp < tw;
+  // WR = 2: warp w holds strips w % 4 + 4 j of the rows of half w / 4
+  // (`wnrf` of its fragments hold valid rows)
+  const int wrow = WR == 2 ? warp / 4 * 16 * MR : 0;
+  const int wnrf = WR == 2 ? max(0, min(MR, (vrows - wrow + 15) / 16)) : nrf;
   for (int q = 0; q < S - 1; ++q) {
     if (q < steps) issue(q);
     cp_async_commit();
@@ -316,7 +479,16 @@ k_inner_kernel(const T* __restrict__ A, long long sa_b, long long sa_m, long lon
     const unsigned char* st = smem + cslot * st_bytes;
     const T* sa = reinterpret_cast<const T*>(st);
     const T* sb = reinterpret_cast<const T*>(st + a_bytes);
-    if (mma_warp) {
+    if constexpr (WR == 2) {
+      if (wnrf > 0) {
+        if (cfg.bt)
+          ki_mma_wide<MR, NS, true>(run, sa + wrow * lda, lda, lgk, sb, ldb, lgb, warp % 4, ks,
+                                    wnrf);
+        else
+          ki_mma_wide<MR, NS, false>(run, sa + wrow * lda, lda, lgk, sb, ldb, lgb, warp % 4, ks,
+                                     wnrf);
+      }
+    } else if (mma_warp) {
       if constexpr (SW && NS == 1) {
         if (cfg.bt)
           ki_mma<MR, true>(run[0], sa, lda, lgk, zrow, sb, ldb, lgb, warp, ks, nrf);
@@ -334,6 +506,34 @@ k_inner_kernel(const T* __restrict__ A, long long sa_b, long long sa_m, long lon
       }
     }
     if (++cslot == S) cslot = 0;
+    if constexpr (SPLIT) {
+      // the split's last slice: its raw sums to plane `split`, then zero
+      if (q % nks == nks - 1) {
+        if (mma_warp) {
+          float* plane = out + (long long)split * M * n;
+#pragma unroll
+          for (int r = 0; r < MR; ++r) {
+            if (r >= nrf) break;
+            store_raw(run[0][r], plane, r0 + 16 * r, c0 + 16 * warp, M, n);
+            acc_zero(run[0][r]);
+          }
+        }
+        ++split;
+      }
+    }
+  }
+  if constexpr (SPLIT) return;  // every split's sums are stored
+  if constexpr (WR == 2) {
+    if (wnrf == 0) return;
+#pragma unroll
+    for (int j = 0; j < NS; ++j) {
+#pragma unroll
+      for (int r = 0; r < MR; ++r) {
+        if (r >= wnrf) break;
+        store_acc(run[j][r], out, r0 + wrow + 16 * r, c0 + 16 * (warp % 4 + 4 * j), M, n, e);
+      }
+    }
+    return;
   }
   // (the early return, not a test in the loop: it keeps NS = 1 at the
   // register count of the dense kernel this template replaced)
@@ -348,18 +548,21 @@ k_inner_kernel(const T* __restrict__ A, long long sa_b, long long sa_m, long lon
   }
 }
 
-template <typename T, typename O, int MR, int NS, bool SPARSE>
+// Launch k_inner_kernel on a (c.gm, c.gn, gz) grid; `w` carries the split
+// and grouped walks' arguments.
+template <typename T, typename O, int MR, int NS, KiWalk W, int WR = 1>
 int launch_k_inner(const KICfg& c, const T* a, long long sa_b, long long sa_m,
                    long long sa_k, const T* b, long long sb_k, long long sb_n, O* o, int nb,
                    int m, int k, int n, int bk, const Epi& e, const int* cols, const int* nnz,
-                   int s_max, int bm, cudaStream_t stream) {
+                   int s_max, int bm, cudaStream_t stream, int gz = 1,
+                   const KIWalkArgs& w = KIWalkArgs{}) {
   const cudaError_t err =
-      cudaFuncSetAttribute(k_inner_kernel<T, O, MR, NS, SPARSE>,
+      cudaFuncSetAttribute(k_inner_kernel<T, O, MR, NS, W, WR>,
                            cudaFuncAttributeMaxDynamicSharedMemorySize, (int)c.smem);
   if (err != cudaSuccess) return (int)err;
-  dim3 grid(c.gm, c.gn, 1);
-  k_inner_kernel<T, O, MR, NS, SPARSE><<<grid, kThreads, c.smem, stream>>>(
-      a, sa_b, sa_m, sa_k, b, sb_k, sb_n, o, nb, m, k, n, bk, c, e, cols, nnz, s_max, bm);
+  dim3 grid(c.gm, c.gn, gz);
+  k_inner_kernel<T, O, MR, NS, W, WR><<<grid, kThreads, c.smem, stream>>>(
+      a, sa_b, sa_m, sa_k, b, sb_k, sb_n, o, nb, m, k, n, bk, c, e, cols, nnz, s_max, bm, w);
   return (int)cudaGetLastError();
 }
 

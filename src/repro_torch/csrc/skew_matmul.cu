@@ -20,7 +20,7 @@
 // Loop orders (the Pallas grid's sequential dims become loops in the CTA,
 // its parallel dims become blockIdx):
 //   k_inner    — redesigned for Hopper (k_inner_kernel in k_inner.cuh, the
-//                template K9's k_inner shares): blockIdx = (row tile,
+//                template K3, K5 and K9's k_inner share): blockIdx = (row tile,
 //                column tile) with the batch slices' rows stacked (K2),
 //                CTA tiles narrowed until the grid fills the SMs, the fp32
 //                sums in registers with every warp on its own columns, and
@@ -75,26 +75,6 @@ namespace rt {
 // The budget is the plan's own tile set (`tile_smem_bytes`: A, B and the
 // fp32 C tile this kernel no longer keeps), or, for blocks too small to
 // hold three 16-deep stages, those three stages.
-
-// Below a grid of `tw`-wide tiles that leaves SMs idle: the widest
-// narrower power of two whose grid fills the card with its CTAs spread
-// evenly (the busiest SM at most 1 / 0.85 of the mean), else the most even
-// of those that fill it (16 columns, the MMA strip, at the least).
-inline int ki_narrow(int gm, int n, int tw, int sms) {
-  int best = 16;
-  double best_bal = -1.0;
-  for (int w = tw / 2; w >= 16; w /= 2) {
-    const long long ctas = (long long)gm * ((n + w - 1) / w);
-    if (ctas < sms && w > 16) continue;
-    const double bal = (double)ctas / ((double)sms * ((ctas + sms - 1) / sms));
-    if (bal >= 0.85) return w;
-    if (bal > best_bal) {
-      best = w;
-      best_bal = bal;
-    }
-  }
-  return best;
-}
 
 template <typename T>
 inline KICfg ki_config(int M, int k, int n, int bm, int bk, int bn, int bt, int sms) {
@@ -475,11 +455,13 @@ int launch(int schedule, const void* A, long long sa_b, long long sa_m, long lon
     const KICfg c = ki_config<T>(nb * m, k, n, bm, bk, bn, bt, sms);
     if (c.smem < 0 || c.smem > kSmemMax || c.gn > 65535) return (int)cudaErrorInvalidValue;
     if (c.mr == 1)
-      return launch_k_inner<T, O, 1, 1, false>(c, a, sa_b, sa_m, sa_k, b, sb_k, sb_n, o, nb, m, k,
-                                               n, bk, e, nullptr, nullptr, 0, bm, stream);
+      return launch_k_inner<T, O, 1, 1, KiWalk::kDense>(c, a, sa_b, sa_m, sa_k, b, sb_k, sb_n, o,
+                                                        nb, m, k, n, bk, e, nullptr, nullptr, 0,
+                                                        bm, stream);
     if constexpr (kKiSwz<T>)
-      return launch_k_inner<T, O, 4, 1, false>(c, a, sa_b, sa_m, sa_k, b, sb_k, sb_n, o, nb, m, k,
-                                               n, bk, e, nullptr, nullptr, 0, bm, stream);
+      return launch_k_inner<T, O, 4, 1, KiWalk::kDense>(c, a, sa_b, sa_m, sa_k, b, sb_k, sb_n, o,
+                                                        nb, m, k, n, bk, e, nullptr, nullptr, 0,
+                                                        bm, stream);
     return (int)cudaErrorInvalidValue;
   } else if (schedule == 1) {
     const ARDCfg c = ard_config<T>(m, k, n, bm, bk, bt, sms);

@@ -103,10 +103,9 @@ def _round_up(a: int, b: int) -> int:
 
 def smem_bytes(dtype: torch.dtype, bm: int, bk: int, bn: int) -> int:
     """Shared memory of one plan block's tile set, A, B and an fp32 C
-    (mirrors `tile_smem_bytes` in csrc/common.cuh): what a CTA of the
-    split-K and grouped kernels uses, the budget within which k_inner's
-    ring fits (`k_inner_config`), and the limit on the blocks every dense
-    kernel takes (`check_blocks`)."""
+    (mirrors `tile_smem_bytes` in csrc/common.cuh): the budget within
+    which K1 k_inner's ring fits (`k_inner_config`), and the limit on the
+    blocks every matmul kernel takes (`check_blocks`)."""
     size = 2 if dtype == torch.bfloat16 else 4
     pad = 16 // size
     return (_round_up(bm * (bk + pad) * size, 128)

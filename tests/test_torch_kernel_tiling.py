@@ -40,6 +40,17 @@
   block a CTA would leave SMs idle; a numpy mirror of its dense walk
   visits each (row block, k block) once in (k block, row block) order and
   fetches each B slice once per chunk.
+* K3 (`gemv_splitk_partial`): `gemv_splitk.splitk_config` (K1's k_inner
+  with the split walk) fits its ring in shared memory, divides bk into
+  its slices, covers every output and every split exactly once, and fills
+  a 132-SM card at the LM head and the decode projections; a mirror of its
+  walk visits each split's slices in ascending k and stores the split's
+  plane at its end, K1's dense walk over the slice pair.
+* K5 (`grouped_matmul`): `grouped_matmul.grouped_config` fits, covers
+  every output once, fills a 132-SM card at dbrx's decode and prefill
+  shapes, and its prefill tile pads under a fifth of its MMA rows at
+  m = 160; the prefill tile's two rows of four warps cover each (row,
+  column) of the tile once.
 """
 
 import numpy as np
@@ -48,6 +59,7 @@ import torch
 
 from repro_torch.kernels import block_sparse_matmul as bsr
 from repro_torch.kernels import gemv_splitk as gk_mod
+from repro_torch.kernels import grouped_matmul as gmm_mod
 from repro_torch.kernels import skew_matmul as mm
 
 SMEM_MAX = 232_448
@@ -788,3 +800,239 @@ def test_dense_b_resident_walk_is_k9s_walk_at_density_one(gm, gk, per):
         assert opened == list(range(gk))
         visits += steps
     assert sorted(visits) == [(i, kb) for i in range(gm) for kb in range(gk)]
+
+
+# ------------------------------------------------------------------ K3
+SK_SHAPES = [(4, 3072, 200064), (4, 3072, 8192), (4, 8192, 3072),
+             (1, 3072, 3072), (8, 1000, 700), (16, 768, 256), (64, 300, 2050),
+             (3, 16, 16), (37, 5000, 130)]
+SK_BLOCKS = [(64, 128, 128), (64, 64, 128), (64, 192, 64), (16, 48, 64),
+             (128, 256, 128), (64, 64, 256), (64, 16, 16)]
+
+
+@pytest.mark.parametrize("sms", [78, 114, 132])
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("blocks", SK_BLOCKS)
+def test_splitk_config_fits_and_covers_every_output_and_split_once(
+        blocks, dtype, sms):
+    bm, bk, bn = blocks
+    size = 2 if dtype == torch.bfloat16 else 4
+    for m, k, n in SK_SHAPES:
+        if m > bm:
+            continue                      # split-K never blocks m: bm >= m
+        for b_trans in (False, True):
+            c = gk_mod.splitk_config(m, k, n, bm, bk, bn, dtype, b_trans,
+                                     sms)
+            # the ring: >= 3 stages of a power-of-two slice that divides
+            # bk (no slice straddles two splits), within two CTAs an SM
+            assert c.stages >= 3 and c.ks & (c.ks - 1) == 0 and c.ks >= 16
+            assert bk % c.ks == 0
+            stage = mm._ki_stage_bytes(size, c.rows, c.tile_w, c.ks, b_trans)
+            assert c.smem == mm._ki_fixed_bytes(size, c.rows, c.ks) \
+                + c.stages * stage
+            assert c.smem <= max(gk_mod.SPLITK_BUDGET,
+                                 mm._ki_fixed_bytes(size, c.rows, 16) + 3
+                                 * mm._ki_stage_bytes(size, c.rows, c.tile_w,
+                                                      16, b_trans))
+            assert c.smem <= SMEM_MAX
+            # k_inner's rows: 8 bf16 rows at m <= 8, else 16-row granules
+            # within bm and 64 (fp32: 16); a warp holds 1 or 4 fragments
+            if size == 2 and m <= 8:
+                assert c.rows == 8
+            else:
+                assert c.rows % 16 == 0
+                assert c.rows <= min(bm, 64 if size == 2 else 16)
+            assert c.mr == (1 if c.rows <= 16 else 4)
+            assert c.tile_w % 16 == 0 and c.tile_w & (c.tile_w - 1) == 0
+            assert c.tile_w <= min(128, max(16, bn))
+            if b_trans and c.tile_w > 16:     # runs of 128 bytes along k
+                assert c.ks * size >= 128
+            # every row, every column and every split exactly once
+            rows = [c.rows * i + r for i in range(c.gm)
+                    for r in range(c.rows) if c.rows * i + r < m]
+            assert rows == list(range(m))
+            cols = [c.tile_w * j + x for j in range(c.gn)
+                    for x in range(c.tile_w) if c.tile_w * j + x < n]
+            assert cols == list(range(n))
+            gk = -(-k // bk)
+            splits = [z * c.per_group + s for z in range(c.groups)
+                      for s in range(c.per_group) if z * c.per_group + s < gk]
+            assert splits == list(range(gk))
+            assert (c.groups - 1) * c.per_group < gk
+            # the most splits a group with which the grid fills a wave of
+            # two CTAs an SM (one where none does)
+            tiles = c.gm * c.gn
+            assert tiles * c.groups >= min(2 * sms, tiles * gk)
+            assert c.per_group == gk or \
+                tiles * -(-gk // (c.per_group + 1)) < 2 * sms
+
+
+def test_splitk_config_fills_a_132_sm_card_at_decode():
+    bf = torch.bfloat16
+    # the LM head: its 128-column tiles alone fill the card, so one split
+    # group walks all 24 splits and B streams once; E^T is read 128 deep
+    c = gk_mod.splitk_config(4, 3072, 200064, 64, 128, 128, bf, True, 132)
+    assert (c.rows, c.tile_w, c.ks, c.gn, c.groups, c.per_group) == (
+        8, 128, 128, 1563, 1, 24)
+    # the decode projections: the splits are cut over grid z until the
+    # grid fills a wave of two CTAs an SM
+    for k, n, gk in ((3072, 8192, 24), (8192, 3072, 64)):
+        c = gk_mod.splitk_config(4, k, n, 64, 128, 128, bf, False, 132)
+        assert c.gm * c.gn < 132
+        assert c.gm * c.gn * c.groups >= 2 * 132
+        assert c.groups * c.per_group >= gk > (c.groups - 1) * c.per_group
+    for m, k, n in ((1, 3072, 200064), (4, 3072, 200064), (8, 3072, 200064),
+                    (4, 3072, 3072), (16, 8192, 3072)):
+        c = gk_mod.splitk_config(m, k, n, 64, 128, 128, bf, False, 132)
+        assert c.gm * c.gn * c.groups >= 132
+
+
+def _splitk_walk(k: int, bk: int, ks: int, z: int, per: int):
+    """K3's walk for split group z: the kernel's copy cursor (k0 = the
+    group's first k + q * ks) and its compute cursor, which stores the sums
+    to plane `split` after the split's last slice.  Returns the (plane,
+    slice offsets) list in store order."""
+    gk = -(-k // bk)
+    first = z * per
+    steps = (min(gk, first + per) - first) * (bk // ks)
+    planes, cur, split, csl = [], [], first, 0
+    for q in range(steps):
+        cur.append(first * bk + q * ks)
+        csl += 1
+        if csl == bk // ks:
+            planes.append((split, cur))
+            cur, csl, split = [], 0, split + 1
+    assert not cur                     # the last step ends a split
+    return planes
+
+
+@pytest.mark.parametrize("k, bk, ks, per", [
+    (3072, 128, 128, 24), (3072, 128, 64, 5), (8192, 128, 128, 6),
+    (1000, 128, 32, 3), (1000, 192, 64, 1), (300, 64, 16, 7),
+    (16, 16, 16, 1), (5000, 256, 256, 4)])
+def test_splitk_walk_stores_each_split_after_its_ascending_slices(k, bk, ks,
+                                                                   per):
+    gk = -(-k // bk)
+    groups = -(-gk // per)
+    stored = []
+    for z in range(groups):
+        for split, offsets in _splitk_walk(k, bk, ks, z, per):
+            # ascending, ks apart, inside the split: K1's dense walk over
+            # the slice pair A[:, s bk:(s + 1) bk] @ B[s bk:(s + 1) bk]
+            assert offsets == [split * bk + o for o in range(0, bk, ks)]
+            assert all(o // bk == (o + ks - 1) // bk == split
+                       for o in offsets)
+            stored.append(split)
+    assert stored == list(range(gk))   # each plane once, in order
+
+
+# ------------------------------------------------------------------ K5
+G_SHAPES = [(16, 8, 6144, 10752), (16, 8, 10752, 6144),
+            (16, 160, 6144, 10752), (16, 160, 10752, 6144),
+            (4, 40, 1000, 700), (3, 8, 256, 300), (2, 100, 320, 200),
+            (2, 16, 96, 40), (1, 1, 16, 16), (8, 17, 64, 1000),
+            (4, 161, 200, 129), (2, 320, 512, 384)]
+
+
+@pytest.mark.parametrize("sms", [78, 132])
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("blocks", [(64, 64, 128), (64, 64, 64),
+                                    (128, 128, 128), (16, 16, 16)])
+def test_grouped_config_fits_and_covers_every_output_once(blocks, dtype,
+                                                          sms):
+    bm, bk, bn = blocks
+    size = 2 if dtype == torch.bfloat16 else 4
+    for g, m, k, n in G_SHAPES:
+        for b_trans in (False, True):
+            c = gmm_mod.grouped_config(g, m, k, n, bk, bn, dtype, b_trans,
+                                       sms)
+            assert c.stages >= 3 and c.ks & (c.ks - 1) == 0 and c.ks >= 16
+            assert -(-k // bk) * bk % c.ks == 0
+            stage = mm._ki_stage_bytes(size, c.rows, c.tile_w, c.ks, b_trans)
+            assert c.smem == mm._ki_fixed_bytes(size, c.rows, c.ks) \
+                + c.stages * stage <= SMEM_MAX
+            if c.wide:
+                # the prefill tile: bf16 rows past one granule; two rows of
+                # four warps, each 16 mr rows x two strips of 16 columns
+                assert size == 2 and m > 16
+                assert c.mr in (2, 5) and c.rows == 32 * c.mr
+                assert c.tile_w == (256 if c.mr == 5 else 128)
+                if c.mr == 2:                  # two CTAs an SM
+                    assert c.smem <= gmm_mod.GROUPED_BUDGET
+            else:
+                assert c.mr == 1
+                assert c.rows == (8 if size == 2 and m <= 8 else 16)
+                assert size == 4 or m <= 16
+                assert c.tile_w % 16 == 0 and c.tile_w & (c.tile_w - 1) == 0
+                assert c.tile_w <= min(128, max(16, bn))
+                assert c.smem <= max(gmm_mod.GROUPED_BUDGET,
+                                     mm._ki_fixed_bytes(size, c.rows, 16) + 3
+                                     * mm._ki_stage_bytes(size, c.rows,
+                                                          c.tile_w, 16,
+                                                          b_trans))
+                if b_trans and c.tile_w > 16:
+                    assert c.ks * size >= 128
+            rows = [c.rows * i + r for i in range(c.gm)
+                    for r in range(c.rows) if c.rows * i + r < m]
+            assert rows == list(range(m))
+            cols = [c.tile_w * j + x for j in range(c.gn)
+                    for x in range(c.tile_w) if c.tile_w * j + x < n]
+            assert cols == list(range(n))
+
+
+def test_grouped_config_fills_a_132_sm_card_at_dbrx():
+    bf = torch.bfloat16
+    # decode: 8 capacity rows a group, the 8-row granule; 84 (48) column
+    # tiles of 128 x 16 groups
+    for k, n, gn in ((6144, 10752, 84), (10752, 6144, 48)):
+        c = gmm_mod.grouped_config(16, 8, k, n, 64, 128, bf, False, 132)
+        assert (c.wide, c.rows, c.tile_w, c.gm, c.gn) == (False, 8, 128, 1,
+                                                          gn)
+        assert 16 * c.gm * c.gn >= 132
+    # prefill: 160 capacity rows a group in one 160-row tile, so each
+    # expert's B tile is read once; 256 columns a CTA, so A is read from
+    # L2 42 (24) times, not 84 (48)
+    for k, n, gn in ((6144, 10752, 42), (10752, 6144, 24)):
+        c = gmm_mod.grouped_config(16, 160, k, n, 64, 128, bf, False, 132)
+        assert (c.wide, c.rows, c.mr, c.tile_w, c.gm, c.gn) == (
+            True, 160, 5, 256, 1, gn)
+        assert 16 * c.gm * c.gn >= 132
+    # a narrow decode grid narrows its tile until it fills the card
+    c = gmm_mod.grouped_config(2, 4, 3072, 3072, 64, 128, bf, False, 132)
+    assert 2 * c.gm * c.gn >= 132 and c.tile_w < 128
+
+
+@pytest.mark.parametrize("m", [17, 32, 40, 64, 100, 128, 150, 160, 200, 320,
+                               480, 1000])
+def test_grouped_prefill_tile_pads_the_fewest_rows(m):
+    c = gmm_mod.grouped_config(16, m, 6144, 10752, 64, 128, torch.bfloat16,
+                               False, 132)
+    padded = c.gm * c.rows - m
+    assert c.wide and padded == min(-(-m // r) * r - m for r in (64, 160))
+    if m == 160:
+        # dbrx's prefill: no padded MMA rows (a 128-row tile would pad
+        # 37.5%: 256 rows for 160)
+        assert padded == 0 and padded / (c.gm * c.rows) < 0.2
+
+
+@pytest.mark.parametrize("mr", [2, 5])
+def test_grouped_prefill_warps_cover_the_tile_once(mr):
+    """The prefill tile (WR = 2 in csrc/k_inner.cuh, ns = tile_w / 64
+    strips a warp): warp w owns rows 16 mr (w // 4) .. 16 mr (w // 4 + 1)
+    and strips w % 4 + 4 j, j < ns; together the 8 warps hold each (row,
+    column) of the tile once, 40 MMAs a 16-deep step from 9 ldmatrix at
+    mr 5."""
+    c = gmm_mod.grouped_config(16, 160 if mr == 5 else 64, 6144, 10752, 64,
+                               128, torch.bfloat16, False, 132)
+    assert c.mr == mr
+    ns, wc_n = c.tile_w // 64, 4
+    held = np.zeros((c.rows, c.tile_w), int)
+    for w in range(8):
+        rbase = w // wc_n * 16 * mr
+        for j in range(ns):
+            strip = w % wc_n + wc_n * j
+            held[rbase:rbase + 16 * mr, 16 * strip:16 * strip + 16] += 1
+    assert (held == 1).all()
+    mmas = mr * ns * 2            # fragments x strips x two n8 halves
+    ldsm = mr + ns                # one A fragment a row block, one B a strip
+    assert (mmas, ldsm) == ((40, 9) if mr == 5 else (8, 4))

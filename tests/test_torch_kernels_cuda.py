@@ -22,7 +22,9 @@ against the sequential recurrence in fp64: within 1e-6 of the largest |y|,
 and no further than the chunked form with an fp32 prefix sum.  The
 block-sparse matmul (K9) sums the same fp32 products as its plain version
 in another order, so the dense bounds hold; at density 1.0 it is held
-bitwise equal to K1.
+bitwise equal to K1.  K3's slab planes and K5's groups are held bitwise
+equal to K1 k_inner on the same operands (the same chains); K5's bf16
+epilogues within two bf16 ulps of plain at the largest magnitude.
 """
 
 import os
@@ -225,6 +227,53 @@ def test_splitk_bitwise_across_split_counts(dev):
         assert torch.equal(got, want), bk
 
 
+def _k3_operands(dtype, dev, m, k, n, b_trans):
+    a = _t((m, k), dtype, dev)
+    b = (_t((n, k), dtype, dev, k ** -0.5).T if b_trans
+         else _t((k, n), dtype, dev, k ** -0.5))
+    return a, b
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b_trans", [False, True])
+@pytest.mark.parametrize("m", [1, 4, 8, 16, 64])
+def test_splitk_partial_planes_bitwise_equal_k1_on_each_slice(dev, m,
+                                                              b_trans):
+    """K3 is K1's k_inner with the split walk: plane s is one chain over
+    the s-th bk slice in 16-deep steps, so it equals K1 k_inner on the
+    slice pair bit for bit, a ragged last slice (k 1000 at bk 128 and
+    192) included; the fp32 slab is within 1e-4 of the plain partials."""
+    for k, n, bk in ((1000, 700, 128), (1000, 2050, 192), (3072, 333, 128)):
+        a, b = _k3_operands(torch.bfloat16, dev, m, k, n, b_trans)
+        slab = gk_mod.gemv_splitk_partial_cuda(a, b, bm=64, bk=bk, bn=128)
+        for s in range(slab.shape[0]):
+            k1 = mm_mod.skew_matmul_cuda(
+                a[:, s * bk:(s + 1) * bk], b[s * bk:(s + 1) * bk], bm=64,
+                bk=bk, bn=128, out_dtype=torch.float32)
+            assert torch.equal(slab[s], k1), (k, n, bk, s)
+        want = gk_mod.gemv_splitk_partial_plain(a, b, bk=bk)
+        torch.testing.assert_close(slab, want, **TOL[torch.float32])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b_trans", [False, True])
+def test_splitk_partial_one_split_is_k1_and_fp32_is_true_fp32(dev, dtype,
+                                                              b_trans):
+    """With bk >= k the slab's one plane is K1 k_inner's product bit for
+    bit (both routes); the decode projections' split groups (4 x 8192 x
+    3072 at gk 64: groups over grid z) agree with plain within 1e-4."""
+    a, b = _k3_operands(dtype, dev, 4, 256, 3000, b_trans)
+    slab = gk_mod.gemv_splitk_partial_cuda(a, b, bm=64, bk=256, bn=64)
+    k1 = mm_mod.skew_matmul_cuda(a, b, bm=64, bk=256, bn=64,
+                                 out_dtype=torch.float32)
+    assert slab.shape[0] == 1 and torch.equal(slab[0], k1)
+    a, b = _k3_operands(dtype, dev, 4, 8192, 3072, b_trans)
+    slab = gk_mod.gemv_splitk_partial_cuda(a, b, bm=64, bk=128, bn=128)
+    want = gk_mod.gemv_splitk_partial_plain(a, b, bk=128)
+    torch.testing.assert_close(slab, want, **TOL[torch.float32])
+
+
 # K4 at many slab depths: odd and even levels, a depth past the 1816 that
 # keeps a 32-wide strip, and one past the 14528 at which not even 4
 # columns fit (folded level by level through a scratch first); n is
@@ -307,6 +356,65 @@ def test_grouped_strided_operands_and_decode_rows(dev, dtype):
                                         out_dtype=torch.float32)
     torch.cuda.synchronize()
     torch.testing.assert_close(got, want, **TOL[dtype])
+
+
+def _two_ulps(want: torch.Tensor) -> float:
+    """Two bf16 ulps at the largest magnitude of `want`."""
+    scale = want.float().abs().max().item()
+    return 2.0 * 2.0 ** (np.floor(np.log2(scale)) - 7)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", [(16, 8, 6144, 1000), (4, 160, 1024, 700),
+                                  (4, 40, 1000, 700), (3, 8, 256, 300),
+                                  (2, 100, 320, 200)])
+def test_grouped_bitwise_equals_k1_per_group(dev, case):
+    """K5 is K1's k_inner with the grouped walk (decode rows) or with the
+    prefill tile's two rows of warps (m > 16): each output is one chain over
+    k in 16-deep steps, so group g equals K1 k_inner on A[g] @ B[g] bit for
+    bit, with strided operands (A a slice of a wider buffer, B a transposed
+    view) and with the residual epilogue too."""
+    g, m, k, n = case
+    for strided in (False, True):
+        if strided:
+            b = _t((g, n, k), torch.bfloat16, dev, k ** -0.5).transpose(1, 2)
+            a = _t((g, m, k + 64), torch.bfloat16, dev)[:, :, 64:]
+        else:
+            a = _t((g, m, k), torch.bfloat16, dev)
+            b = _t((g, k, n), torch.bfloat16, dev, k ** -0.5)
+        res = _t((g, m, n), torch.bfloat16, dev)
+        for spec, r, odt in (((), None, torch.float32),
+                             ((("residual", None),), res, torch.bfloat16)):
+            got = gmm_mod.grouped_matmul_cuda(a, b, r, bm=64, bk=64, bn=128,
+                                              epilogue=spec, out_dtype=odt)
+            for i in range(g):
+                k1 = mm_mod.skew_matmul_cuda(
+                    a[i], b[i], residual=None if r is None else r[i], bm=64,
+                    bk=64, bn=128, epilogue=spec, out_dtype=odt)
+                assert torch.equal(got[i], k1), (case, strided, spec, i)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("spec", [(("gelu", None),), (("scale", 0.5),),
+                                  (("residual", None),)])
+@pytest.mark.parametrize("m", [8, 40, 160])
+def test_grouped_epilogues_within_two_bf16_ulps(dev, spec, m):
+    """bf16 out of K5 (decode and prefill tiles) against plain: both sum in
+    fp32 in another order and round once, so within two bf16 ulps at the
+    largest magnitude; the fp32 route within 1e-4 of it."""
+    g, k, n = 4, 1000, 700
+    for dtype in (torch.bfloat16, torch.float32):
+        a, b = _t((g, m, k), dtype, dev), _t((g, k, n), dtype, dev, k ** -0.5)
+        res = _t((g, m, n), dtype, dev) if spec[0][0] == "residual" else None
+        got = gmm_mod.grouped_matmul_cuda(a, b, res, bm=64, bk=64, bn=128,
+                                          epilogue=spec, out_dtype=dtype)
+        want = gmm_mod.grouped_matmul_plain(a, b, res, bk=64, epilogue=spec,
+                                            out_dtype=dtype)
+        diff = (got.float() - want.float()).abs().max().item()
+        if dtype == torch.bfloat16:
+            assert diff <= _two_ulps(want), (m, spec, diff)
+        else:
+            assert diff <= 1e-4 * want.abs().max().item(), (m, spec, diff)
 
 
 @pytest.mark.cuda

@@ -20,7 +20,9 @@ projections, 4096^3 and the tuner's decode class; K2 at 4 x 1 rows;
 K1 a_resident at the LM head and the decode class; K1 b_resident at the
 LM head and 4096^3; K9 k_inner, a_resident and b_resident at the tuner's
 layouts (b_resident at d 0.25, 0.5 and 1.0); K7 at `chip_smoke.py`'s five
-phase-6c shapes.  The tree's kernels are built first, in parallel.  Needs
+phase-6c shapes; last, K3 at the LM head (gk 24, (64, 128, 128)) and K5
+at dbrx-132b's decode gate/up and down (16 x 8 rows) and prefill gate/up
+(16 x 160 rows).  The tree's kernels are built first, in parallel.  Needs
 one CUDA card.
 """
 
@@ -59,6 +61,8 @@ def main() -> None:
     from repro_torch.kernels import block_sparse_matmul as bsr
     from repro_torch.kernels import build
     from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import gemv_splitk as gk
+    from repro_torch.kernels import grouped_matmul as gmm
     from repro_torch.kernels import skew_matmul as mm
     from repro_torch.sparse.layout import BlockSparseLayout
     build.build_all()
@@ -120,6 +124,22 @@ def main() -> None:
         q, k, v = (rnd((b, s, h, d)).transpose(1, 2) for h in (hq, hkv, hkv))
         res[f"fa_{label}"] = time_ms(torch, lambda: fa.flash_attention_cuda(
             q, k, v, window=window, softcap=cap))
+    del q, k, v
+    # K3 and K5 last: the rows above then run after the same work in any
+    # tree (a tree whose K5 keeps the tensor cores busier warms the card
+    # for the rows that follow it)
+    emb = rnd((200064, 3072), 0.02)
+    res["k3_lm_head"] = time_ms(torch, lambda: gk.gemv_splitk_partial_cuda(
+        h4, emb.T, bm=64, bk=128, bn=128))
+    del emb
+    w_up = rnd((16, 6144, 10752), 6144 ** -0.5)
+    w_down = rnd((16, 10752, 6144), 10752 ** -0.5)
+    for label, m, w in (("decode_gate_up", 8, w_up),
+                        ("decode_down", 8, w_down),
+                        ("prefill_gate_up", 160, w_up)):
+        a = rnd((16, m, w.shape[1]))
+        res[f"k5_{label}"] = time_ms(torch, lambda: gmm.grouped_matmul_cuda(
+            a, w, bm=64, bk=64, bn=128, out_dtype=torch.float32))
     print(json.dumps({"src": str(sys.argv[1]),
                       **{k: round(v, 5) for k, v in res.items()}}))
 
