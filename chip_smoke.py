@@ -60,36 +60,51 @@ then recurrentgemma-9b, after dbrx's weights are freed:
      three served models (batch 4 x prompt 128), recurrentgemma's long
      prefill (batch 1 x 3072, window 2048), gemma2-27b's local layer
      (32 / 16 heads, S 8192, window 4096, softcap 50), a ragged length
-     (257, window 40), a single row and the fp32 route;
+     (257, window 40), a single row and the fp32 route; K6 also at an odd
+     width (single-channel loads) and in fp32;
   4c. serve recurrentgemma-9b (the third main path) — every published
      width and all 38 layers, seeded bf16 weights, batch 4 x prompt 128 +
      16 generated tokens, then batch 1 x prompt 3072 + 4 (the window
      masks bite in K7 and the 2048-slot ring caches wrap at decode).  K6
      must launch once per recurrent layer and K7 once per attention layer
      of every prefill.  Counts are zeroed just before and read just after;
+     then one prefill and one decode step are counted apart (K6 26 and 0);
   5c. whole-path parity at full width and 6 layers (two whole (rec, rec,
      attn) units), as in phase 5;
   6c. timings — K6 and K7, their plain versions and, for K7 where there is
      no softcap, `scaled_dot_product_attention` (a boolean band mask, built
-     before timing, where the window is shorter than the sequence);
+     before timing, where the window is shorter than the sequence); K6's
+     inputs are rotated over copies that together pass twice the 50 MB L2,
+     so each call reads them from device memory as the bound assumes;
 then mamba2-2.7b, after recurrentgemma's weights are freed:
   3d. K8 parity — the SSD chunked scan (with its fp32 state) against its
      plain version in bf16 and fp32 at mamba2's batch-4 prefill (4 x 128,
-     one chunk), its long prompt (1 x 3000: 23 whole chunks and a 56-row
-     tail), a grouped ragged shape (16 heads, 4 groups, L 200) and a strong
-     decay whose y and state must stay finite; under the strong decay (fp32
-     inputs, chunk 128) K8's y is also held against the sequential
-     recurrence in fp64 and must come no further from it than the chunked
-     form with an fp32 torch.cumsum;
+     one chunk: the readout alone), its long prompt (1 x 3000: 23 whole
+     chunks and a 56-row tail, through all three kernels), a grouped
+     ragged shape (16 heads, 4 groups, L 200), a strong decay whose y and
+     state must stay finite, exactly two chunks, the long prompt under the
+     strong decay, and batch 1 at odd sizes (P 40, S 72, chunk 48; P 3, S
+     5, chunk 2); under the strong decay (fp32 inputs) K8's y is also held
+     against the sequential recurrence in fp64 and must come no further
+     from it than the chunked form with an fp32 torch.cumsum.  Wherever
+     there is more than one chunk the chunk-state kernel and the state
+     pass are each held against their plain pieces too;
   4d. serve mamba2-2.7b (the fourth main path) — every published width and
      all 64 layers, seeded bf16 weights, batch 4 x prompt 128 + 16
-     generated tokens, then batch 1 x prompt 3000 + 4.  K8 must launch once
-     per layer of every prefill and never at decode.  Counts are zeroed
-     just before and read just after; then one prefill and one decode step
-     are counted apart (64 and 0);
+     generated tokens, then batch 1 x prompt 3000 + 4.  K8's readout must
+     launch once per layer of every prefill, its chunk-state kernel and
+     state pass once per layer of the 1 x 3000 prefill only, and none of
+     them at decode.  Counts are zeroed just before and read just after;
+     then one batch-4 prefill and one decode step are counted apart
+     (64 / 0 / 0 and 0 / 0 / 0);
   5d. whole-path parity at full width and 8 layers, as in phase 5;
-  6d. timings — K8, its plain version and its bound at the 3d shapes (no
-     single PyTorch call computes the SSD scan);
+  6d. timings — K8, its plain version and its bound at the 3d shapes (the
+     whole call: the readout alone at one chunk, all three kernels at 1 x
+     3000), and the chunk-state kernel and the state pass alone at 1 x
+     3000 (no single PyTorch call computes the SSD scan or its pieces);
+     K8's bf16 route runs every product on the tensor cores, its fp32
+     operands as two bf16 terms, so its operations bound is taken at the
+     bf16 rate over the MMA terms it needs (`ssd_split_ops`);
 then the measured autotuner and the block-sparse matmul:
   3e. K9 parity — the block-sparse matmul against its plain version, every
      schedule, bf16 and fp32, the bias_silu and residual epilogues,
@@ -112,8 +127,8 @@ then the measured autotuner and the block-sparse matmul:
      plain version, its bound and `torch.matmul` of the pre-masked dense
      A; k_inner at the (128, 128, 64) fail-over plan on a (128, 128) d 0.4
      layout; K1 at the dense planner's 4096^3 plan beside it;
-  7. the `kernels` JSON line (K1-K9; launches summed over the five main
-     paths), then the device line.
+  7. the `kernels` JSON line (K1-K9, K8's three kernels apart; launches
+     summed over the five main paths), then the device line.
 Phi4's and dbrx's prefills reach K7 too (phases 4, 4b).
 """
 
@@ -134,6 +149,7 @@ SRC = ROOT / "src"
 PEAK_BF16 = 989e12          # H100 SXM data sheet, dense
 PEAK_FP32 = 67e12           # the same, fp32 outside the tensor cores
 HBM_BW = 3.35e12
+L2_BYTES = 50e6
 # fp32 operations per element of the RG-LRU scan, counting exp, log1p,
 # sqrt and a division as one each: two sigmoids (3 each), log a (2), a and
 # exp(2 log a) (2), the clamped sqrt (3), the gated input and h (4).
@@ -194,6 +210,12 @@ KERNELS = {
     "ssd_scan": (
         "src/repro_torch/csrc/ssd_scan.cu",
         "src/repro/kernels/ssd_scan.py:96"),
+    "ssd_chunk_state": (
+        "src/repro_torch/csrc/ssd_scan.cu",
+        "src/repro/kernels/ssd_scan.py:96"),
+    "ssd_state_pass": (
+        "src/repro_torch/csrc/ssd_scan.cu",
+        "src/repro/kernels/ssd_scan.py:96"),
     "block_sparse_matmul_k_inner": (
         "src/repro_torch/csrc/block_sparse_k_inner.cu",
         "src/repro/sparse/kernels.py:223"),
@@ -205,10 +227,12 @@ KERNELS = {
         "src/repro/sparse/kernels.py:271"),
 }
 # The dense kernels and K7 run on phi4's main path, K5 on dbrx's, K6 (and
-# K7) on recurrentgemma's, K8 on mamba2's, K9 on the tuner's.
+# K7) on recurrentgemma's, K8's three kernels on mamba2's, K9 on the
+# tuner's.
 BSR_KERNELS = tuple(n for n in KERNELS if n.startswith("block_sparse"))
+SSD_KERNELS = ("ssd_scan", "ssd_chunk_state", "ssd_state_pass")
 PHI4_KERNELS = tuple(n for n in KERNELS if n not in (
-    "grouped_matmul", "rglru_scan", "ssd_scan") + BSR_KERNELS)
+    "grouped_matmul", "rglru_scan") + SSD_KERNELS + BSR_KERNELS)
 # dbrx-132b: 40 layers of 6.52 GB (bf16) do not fit one 80 GB card; the
 # serve keeps every width and cuts depth to 8 layers (54.6 GB), the
 # whole-path parity to 2 (an fp32 copy fits beside the bf16 one).
@@ -1196,12 +1220,15 @@ def phase_parity_seq(torch, fa_shapes, scan_shapes) -> dict:
         check("flash_attention", got, want, dtype,
               f"{label} {b}x{hq}/{hkv}x{s}x{d} w={window} cap={cap}")
         del q, k, v, got, want
-    for label, b, length, d in scan_shapes + [("ragged", 3, 37, 200)]:
-        x, r, i, lam = _scan_inputs(torch, gen, b, length, d)
+    # ragged; an odd width (one channel a thread); the fp32 route
+    for label, b, length, d, dtype in [(*sh, bf) for sh in scan_shapes] + [
+            ("ragged", 3, 37, 200, bf), ("odd width", 2, 300, 201, bf),
+            ("fp32", 2, 300, 200, torch.float32)]:
+        x, r, i, lam = _scan_inputs(torch, gen, b, length, d, dtype)
         y, h = rg.rglru_scan_cuda(x, r, i, lam, return_state=True)
         want, hw = rg.rglru_scan_plain(x, r, i, lam, return_state=True)
         torch.cuda.synchronize()
-        check("rglru_scan", y, want, bf, f"{label} y {b}x{length}x{d}")
+        check("rglru_scan", y, want, dtype, f"{label} y {b}x{length}x{d}")
         check("rglru_scan", h, hw, torch.float32,
               f"{label} fp32 carry {b}x{d}")
     torch.cuda.empty_cache()
@@ -1330,9 +1357,34 @@ def phase_serve_hybrid(torch, cfg):
             fail(f"{name} launched {counts[name]} times, expected {n} (one "
                  f"per {'recurrent' if name == 'rglru_scan' else 'attention'}"
                  f" layer of each of {len(runs)} prefills)")
-    say(f"K6 launches: {n_rec} per prefill, K7: {n_attn} per prefill "
-        f"({n_rec} rec + {n_attn} attn_local layers)")
+    per_prefill, per_decode = prefill_decode_counts(torch, cfg, out["params"])
+    if per_prefill["rglru_scan"] != n_rec or per_decode["rglru_scan"] != 0:
+        fail(f"K6 launched {per_prefill['rglru_scan']} times in a prefill "
+             f"and {per_decode['rglru_scan']} in a decode step, expected "
+             f"{n_rec} and 0")
+    say(f"K6 launches: {n_rec} per prefill, 0 per decode step; K7: "
+        f"{n_attn} per prefill ({n_rec} rec + {n_attn} attn_local layers)")
     return out
+
+
+def prefill_decode_counts(torch, cfg, params) -> tuple[dict, dict]:
+    """Launch counts of one batch-4 x 128 prefill and of the decode step
+    after it, each counted apart (zeroed just before, read just after)."""
+    import numpy as np
+
+    from repro_torch.kernels import ops
+    from repro_torch.serve import engine
+
+    toks = torch.tensor(np.random.default_rng(1).integers(
+        0, cfg.vocab_size, (4, 128)), dtype=torch.long, device="cuda")
+    ops.reset_launch_counts()
+    cache, logits = engine.prefill(params, cfg, toks, max_len=129)
+    torch.cuda.synchronize()
+    per_prefill = ops.launch_counts()
+    ops.reset_launch_counts()
+    engine.decode_step(params, cfg, cache, torch.argmax(logits, -1), 128)
+    torch.cuda.synchronize()
+    return per_prefill, ops.launch_counts()
 
 
 def sdpa_call(torch, F, q, k, v, window=None):
@@ -1387,16 +1439,26 @@ def phase_timings_seq(torch, fa_shapes, scan_shapes, counts,
             f"{label} {b}x{hq}/{hkv}x{s}x{d} w={window} cap={cap}"))
         del q, k, v
     for label, b, length, d in scan_shapes:
-        x, r, i, lam = _scan_inputs(torch, gen, b, length, d)
         n = b * length * d
+        # copies of the inputs that together pass twice the L2, called in
+        # turn: every call reads its inputs from device memory
+        copies = max(2, math.ceil(2 * L2_BYTES / (3 * n * 2)))
+        sets = [_scan_inputs(torch, gen, b, length, d)
+                for _ in range(copies)]
+        turn = iter(range(1 << 62))
+
+        def kernel(sets=sets, turn=turn):
+            x, r, i, lam = sets[next(turn) % len(sets)]
+            return rg.rglru_scan_cuda(x, r, i, lam, return_state=True)
+        say(f"time rglru_scan {label}: inputs rotated over {copies} copies "
+            f"({copies * 3 * n * 2 / 1e6:.1f} MB) past the "
+            f"{L2_BYTES / 1e6:.0f} MB L2")
         rows.append(row(
-            "rglru_scan",
-            lambda x=x, r=r, i=i, lam=lam: rg.rglru_scan_cuda(
-                x, r, i, lam, return_state=True),
-            lambda x=x, r=r, i=i, lam=lam: rg.rglru_scan_plain(
-                x, r, i, lam, return_state=True),
+            "rglru_scan", kernel,
+            lambda x=sets[0]: rg.rglru_scan_plain(*x, return_state=True),
             None, 4 * n * 2 + d * 4 + b * d * 4, RGLRU_OPS * n,
             f"{label} {b}x{length}x{d} bf16 + fp32 carry", peak=PEAK_FP32))
+        del sets
     torch.cuda.empty_cache()
     return rows
 
@@ -1432,27 +1494,32 @@ def _ssd_inputs(torch, gen, b, length, h, p, g, s, strong, dtype):
 
 
 def ssd_ops(b: int, length: int, h: int, p: int, s: int,
-            chunk: int) -> tuple[int, int]:
+            chunk: int) -> tuple[int, int, int, int]:
     """Operations the SSD scan needs over (b, length) and h heads, as (C B^T,
-    the rest): per chunk of n rows, 2 S per causal (row, col) pair for
-    C B^T, whose operands are the inputs; then 2 P per pair for the scores
-    times x dt, 2 n S P for the carried state's readout (none in the first
-    chunk, whose state is zero) and 2 n S P for the state update, each with
-    an fp32 operand."""
-    cb = rest = 0
+    the scores times x dt, the carried state's readout, the state update):
+    per chunk of n rows, 2 S per causal (row, col) pair for C B^T, whose
+    operands are the inputs; 2 P per pair for the scores times x dt; 2 n S
+    P for the readout of the carried state (none in the first chunk, whose
+    state is zero) and 2 n S P for the state update, those three with an
+    fp32 operand."""
+    cb = yi = ys = ds = 0
     for c0 in range(0, length, chunk):
         n = min(chunk, length - c0)
         pairs = n * (n + 1) // 2
         cb += pairs * 2 * s
-        rest += pairs * 2 * p + 2 * n * s * p * (2 if c0 else 1)
-    return b * h * cb, b * h * rest
+        yi += pairs * 2 * p
+        ys += 2 * n * s * p if c0 else 0
+        ds += 2 * n * s * p
+    return b * h * cb, b * h * yi, b * h * ys, b * h * ds
 
 
-def ssd_fp32_ops(cb: int, rest: int) -> float:
-    """The SSD scan's operations with bf16 inputs in fp32-rate units: C B^T
-    could run exactly on the tensor cores at the bf16 rate, the rest needs
-    the fp32 rate, so the least time is cb / PEAK_BF16 + rest / PEAK_FP32."""
-    return cb * PEAK_FP32 / PEAK_BF16 + rest
+def ssd_split_ops(cb: int, yi: int, ys: int, ds: int) -> int:
+    """The SSD scan's tensor-core operations with bf16 inputs, all at the
+    bf16 rate: K8 keeps fp32 operands as two bf16 terms (hi, lo), so C B^T
+    takes one MMA term (bf16 inputs, exact), the scores times x dt three
+    (two fp32 operands: hi hi, hi lo, lo hi), and the state's readout and
+    update two each (one fp32 operand)."""
+    return cb + 3 * yi + 2 * (ys + ds)
 
 
 def ssd_exact_check(torch, args, y, chunk: int, label: str) -> None:
@@ -1477,34 +1544,67 @@ def ssd_exact_check(torch, args, y, chunk: int, label: str) -> None:
 
 
 def phase_parity_ssd(torch, shapes, chunk: int) -> dict:
-    """K8 against its plain version on the card, y and the fp32 state."""
+    """K8 against its plain version on the card, y and the fp32 state; with
+    more than one chunk also its chunk-state kernel and its state pass
+    against their plain pieces."""
     from repro_torch.kernels import ssd_scan as ssd
 
     gen = torch.Generator(device="cuda")
     gen.manual_seed(1357)
     errs: dict = {}
     check = functools.partial(check_kernel, torch, errs)
-    for label, b, length, h, p, g, s, strong in shapes:
+    mamba = shapes[1][1:-1]                 # (B, L, H, P, G, S), 1 x 3000
+    cases = [(*sh, chunk) for sh in shapes] + [
+        ("two chunks", 2, 256, 8, 64, 2, 128, False, 128),
+        ("long prefill, strong decay", *mamba, True, chunk),
+        ("odd sizes, batch 1", 1, 77, 6, 40, 3, 72, False, 48),
+        ("P 3, S 5, chunk 2", 1, 5, 2, 3, 1, 5, False, 2)]
+    for label, b, length, h, p, g, s, strong, ch in cases:
         for dtype in (torch.bfloat16, torch.float32):
             args = _ssd_inputs(torch, gen, b, length, h, p, g, s, strong,
                                dtype)
-            y, st = ssd.ssd_scan_cuda(*args, chunk=chunk, return_state=True)
-            want, st_want = ssd.ssd_scan_plain(*args, chunk=chunk,
+            y, st = ssd.ssd_scan_cuda(*args, chunk=ch, return_state=True)
+            want, st_want = ssd.ssd_scan_plain(*args, chunk=ch,
                                                return_state=True)
             torch.cuda.synchronize()
             if not (bool(torch.isfinite(y).all())
                     and bool(torch.isfinite(st).all())):
                 fail(f"ssd_scan: non-finite output at {label}")
             dn = str(dtype).split(".")[-1]
-            shape = f"{b}x{length}x{h}x{p} G{g} S{s}"
+            shape = f"{b}x{length}x{h}x{p} G{g} S{s} chunk {ch}"
             check("ssd_scan", y, want, dtype, f"{label} {dn} y {shape}")
             check("ssd_scan", st, st_want, torch.float32,
                   f"{label} {dn} fp32 state")
+            if length > ch:
+                ssd_pieces_check(torch, check, args, ch, f"{label} {dn}")
             if strong and dtype == torch.float32:
-                ssd_exact_check(torch, args, y, chunk, label)
+                ssd_exact_check(torch, args, y, ch, label)
             del args, y, st, want, st_want
     torch.cuda.empty_cache()
     return errs
+
+
+def ssd_pieces_check(torch, check, args, chunk: int, tag: str) -> None:
+    """K8's chunk-state kernel (every chunk's dS and decay) and its state
+    pass (each chunk's incoming state and the final state) against their
+    plain pieces on the same inputs."""
+    from repro_torch.kernels import ssd_scan as ssd
+
+    x, dt, a_log, b_mat, _ = args
+    p = x.shape[-1]
+    ws, decay = ssd.ssd_chunk_state_cuda(x, dt, a_log, b_mat, chunk=chunk)
+    ds, dec = ssd.ssd_chunk_state_plain(x, dt, a_log, b_mat, chunk=chunk)
+    torch.cuda.synchronize()
+    check("ssd_chunk_state", ws[..., :p], ds, torch.float32,
+          f"{tag} chunk states")
+    check("ssd_chunk_state", decay, dec, torch.float32, f"{tag} decays")
+    inc, st_want = ssd.ssd_state_pass_plain(ws[..., :p].clone(), decay,
+                                            ws.shape[2])
+    st = ssd.ssd_state_pass_cuda(ws, decay, p)
+    torch.cuda.synchronize()
+    check("ssd_state_pass", ws[:, :, 1:, :, :p], inc[:, :, 1:],
+          torch.float32, f"{tag} incoming states")
+    check("ssd_state_pass", st, st_want, torch.float32, f"{tag} last state")
 
 
 def ssm_serve_bounds(cfg, params, batch: int, prompt: int,
@@ -1539,33 +1639,30 @@ def phase_serve_ssm(torch, cfg):
     """The fourth main path: mamba2-2.7b at every published width and all
     64 layers, served at batch 4 x 128 and at batch 1 x 3000; then one
     prefill and one decode step with K8's launches counted apart."""
-    import numpy as np
-
-    from repro_torch.kernels import ops
-    from repro_torch.serve import engine
-
     runs = ((4, 128, 16), (1, 3000, 4))
     out = serve_runs(torch, cfg, runs, ssm_serve_bounds)
-    counts, params = out["counts"], out["params"]
-    if counts["ssd_scan"] != cfg.n_layers * len(runs):
-        fail(f"ssd_scan launched {counts['ssd_scan']} times, expected "
-             f"{cfg.n_layers * len(runs)} (one per layer of each of "
-             f"{len(runs)} prefills, none at decode)")
-    toks = torch.tensor(np.random.default_rng(1).integers(
-        0, cfg.vocab_size, (4, 128)), dtype=torch.long, device="cuda")
-    ops.reset_launch_counts()
-    cache, logits = engine.prefill(params, cfg, toks, max_len=129)
-    torch.cuda.synchronize()
-    per_prefill = ops.launch_counts()["ssd_scan"]
-    ops.reset_launch_counts()
-    engine.decode_step(params, cfg, cache, torch.argmax(logits, -1), 128)
-    torch.cuda.synchronize()
-    per_decode = ops.launch_counts()["ssd_scan"]
-    if per_prefill != cfg.n_layers or per_decode != 0:
-        fail(f"K8 launched {per_prefill} times in a prefill and "
-             f"{per_decode} in a decode step, expected {cfg.n_layers} and 0")
-    say(f"K8 launches: {per_prefill} per prefill ({cfg.n_layers} ssm "
-        f"layers), {per_decode} per decode step")
+    counts, n = out["counts"], cfg.n_layers
+    # the readout once per layer of each prefill; the chunk states and the
+    # state pass once per layer of the prefill longer than one chunk
+    multi = sum(p > cfg.ssm_chunk for _, p, _ in runs)
+    want = {"ssd_scan": n * len(runs), "ssd_chunk_state": n * multi,
+            "ssd_state_pass": n * multi}
+    for name, k in want.items():
+        if counts[name] != k:
+            fail(f"{name} launched {counts[name]} times over the serve runs, "
+                 f"expected {k} (per prefill: b4 p128 "
+                 f"{n if name == 'ssd_scan' else 0}, b1 p3000 {n}; none at "
+                 f"decode)")
+    per_prefill, per_decode = prefill_decode_counts(torch, cfg, out["params"])
+    want_prefill = {"ssd_scan": n, "ssd_chunk_state": 0, "ssd_state_pass": 0}
+    for name, k in want_prefill.items():
+        if per_prefill[name] != k or per_decode[name] != 0:
+            fail(f"{name} launched {per_prefill[name]} times in a batch-4 "
+                 f"prefill and {per_decode[name]} in a decode step, "
+                 f"expected {k} and 0")
+    say(f"K8 launches per prefill (readout / chunk states / state pass): "
+        f"b4 p128 {n} / 0 / 0, b1 p3000 {n} / {n} / {n} ({n} ssm layers); "
+        f"0 / 0 / 0 per decode step")
     return out
 
 
@@ -1584,18 +1681,55 @@ def phase_timings_ssd(torch, shapes, chunk: int, counts,
                            torch.bfloat16)
         nbytes = (2 * b * length * h * p * 2 + b * length * h * 4
                   + 2 * b * length * g * s * 2 + h * 4 + b * h * s * p * 4)
+        shape = f"{label} {b}x{length}x{h}x{p} G{g} S{s}"
         rows.append(row(
             "ssd_scan",
             lambda args=args: ssd.ssd_scan_cuda(*args, chunk=chunk,
                                                 return_state=True),
             lambda args=args: ssd.ssd_scan_plain(*args, chunk=chunk,
                                                  return_state=True),
-            None, nbytes, ssd_fp32_ops(*ssd_ops(b, length, h, p, s, chunk)),
-            f"{label} {b}x{length}x{h}x{p} G{g} S{s} bf16 + fp32 state",
-            peak=PEAK_FP32))
+            None, nbytes, ssd_split_ops(*ssd_ops(b, length, h, p, s, chunk)),
+            f"{shape} bf16 + fp32 state"))
+        if label.endswith("long prefill"):
+            rows += ssd_piece_rows(torch, row, args, chunk, shape)
         del args
     torch.cuda.empty_cache()
     return rows
+
+
+def ssd_piece_rows(torch, row, args, chunk: int, shape: str) -> list[dict]:
+    """K8's chunk-state kernel and its state pass alone, beside their plain
+    pieces and bounds: the chunk states read x, dt and B once and write the
+    fp32 workspace, 2 S P operations per chunk row and head in two MMA
+    terms at the bf16 rate (`ssd_split_ops`); the state pass reads and
+    writes the workspace once (two fp32 operations an element and
+    chunk)."""
+    from repro_torch.kernels import ssd_scan as ssd
+
+    x, dt, a_log, b_mat, _ = args
+    b, length, h, p = x.shape
+    g, s = b_mat.shape[2], b_mat.shape[3]
+    ws, decay = ssd.ssd_chunk_state_cuda(x, dt, a_log, b_mat, chunk=chunk)
+    ds, dec = ssd.ssd_chunk_state_plain(x, dt, a_log, b_mat, chunk=chunk)
+    nc, ldp = ws.shape[2], ws.shape[4]
+    ws_bytes = b * h * nc * s * ldp * 4
+    in_bytes = (b * length * h * p * 2 + b * length * h * 4
+                + b * length * g * s * 2 + h * 4)
+    return [
+        row("ssd_chunk_state",
+            lambda: ssd.ssd_chunk_state_cuda(x, dt, a_log, b_mat,
+                                             chunk=chunk),
+            lambda: ssd.ssd_chunk_state_plain(x, dt, a_log, b_mat,
+                                              chunk=chunk),
+            None, in_bytes + ws_bytes + b * h * nc * 4,
+            2 * (2 * b * h * length * s * p),
+            f"{shape} bf16 -> fp32 workspace"),
+        row("ssd_state_pass",
+            lambda: ssd.ssd_state_pass_cuda(ws, decay, p),
+            lambda: ssd.ssd_state_pass_plain(ds, dec, nc),
+            None, 2 * ws_bytes + b * h * nc * 4 + b * h * s * p * 4,
+            2 * b * h * nc * s * p, f"{shape} fp32 workspace, {nc} chunks",
+            peak=PEAK_FP32)]
 
 
 # ----------------------------------------------------------------- tune

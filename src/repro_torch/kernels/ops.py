@@ -229,7 +229,8 @@ def launch_counts() -> dict[str, int]:
     out.update({f"block_sparse_matmul_{s}": 0 for s in _bsr.SCHEDULE_IDS})
     for name in ("skew_matmul_batched", "gemv_splitk_partial",
                  "gemv_splitk_reduce", "grouped_matmul", "flash_attention",
-                 "rglru_scan", "ssd_scan"):
+                 "rglru_scan", "ssd_scan", "ssd_chunk_state",
+                 "ssd_state_pass"):
         out[name] = 0
     for counter in _counters():
         out.update(counter)

@@ -19,7 +19,9 @@ both, so the same bounds hold there; the scan's fp32 carry is held at
 products in both versions and rounds y once, so the same bounds hold for
 y; its fp32 state is held at 1e-4.  Under a strong decay it is also held
 against the sequential recurrence in fp64: within 1e-6 of the largest |y|,
-and no further than the chunked form with an fp32 prefix sum.  The
+and no further than the chunked form with an fp32 prefix sum.  Its
+chunk-state kernel and state pass sum the same fp32 products as their
+plain pieces in another order: 1e-4.  The
 block-sparse matmul (K9) sums the same fp32 products as its plain version
 in another order, so the dense bounds hold; at density 1.0 it is held
 bitwise equal to K1.  K3's slab planes and K5's groups are held bitwise
@@ -542,6 +544,25 @@ def test_rglru_scan_and_carry_match_plain(dev, dtype, length):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(1, 3072, 4096), (2, 300, 201)],
+                         ids=["b1_p3072", "odd_width"])
+def test_rglru_scan_batch1_long_and_odd_width_match_plain(dev, dtype, shape):
+    """recurrentgemma-9b's 1 x 3072 prefill (16-channel tiles, 12 blocks of
+    steps) and an odd width (one channel a thread) with the fp32 carry."""
+    x, r, i = (_t(shape, dtype, dev) for _ in range(3))
+    lam = _t((shape[-1],), torch.float32, dev)
+    rg_mod.LAUNCHES.clear()
+    y, h = rg_mod.rglru_scan(x, r, i, lam, return_state=True)
+    want, hw = rg_mod.rglru_scan_plain(x, r, i, lam, return_state=True)
+    torch.cuda.synchronize()
+    assert rg_mod.LAUNCHES["rglru_scan"] == 1
+    assert y.dtype == dtype and h.dtype == torch.float32
+    torch.testing.assert_close(y.float(), want.float(), **TOL[dtype])
+    torch.testing.assert_close(h, hw, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.cuda
 def test_rglru_scan_strong_decay_stays_finite(dev):
     """sigmoid(r) ~ 1 and softplus(4) ~ 4: a ~ e^-32, the regime that the
     clamp under the square root keeps finite."""
@@ -557,13 +578,19 @@ def test_rglru_scan_strong_decay_stays_finite(dev):
 
 # (B, L, H, P, G, S, chunk): mamba2-2.7b's batch-4 prefill (one chunk), its
 # long prompt (23 whole chunks and a 56-row tail), a grouped ragged shape,
-# and odd sizes under the kernel's limits.
+# and odd sizes under the kernel's limits; exactly two chunks, the odd
+# sizes at batch 1, and a head dim that is not a multiple of 4 over
+# chunks of 2 rows.
 SSD_CASES = {
     "mamba2_b4_p128": (4, 128, 80, 64, 1, 128, 128),
     "mamba2_b1_p3000": (1, 3000, 80, 64, 1, 128, 128),
     "grouped_ragged": (2, 200, 16, 64, 4, 64, 128),
     "odd_sizes": (3, 77, 6, 40, 3, 72, 48),
+    "two_chunks": (2, 256, 8, 64, 2, 128, 128),
+    "odd_sizes_b1": (1, 77, 6, 40, 3, 72, 48),
+    "p3_s5_chunk2": (1, 5, 2, 3, 1, 5, 2),
 }
+MULTI_CHUNK = [c for c, v in SSD_CASES.items() if v[1] > v[-1]]
 
 
 def _ssd_inputs(case, dtype, dev, strong_decay=False):
@@ -660,6 +687,90 @@ def test_ssd_scan_is_nearer_the_exact_answer_than_an_fp32_cumsum(dev):
     err = ((y.double() - exact).abs().max() / scale).item()
     err32 = ((y32.double() - exact).abs().max() / scale).item()
     assert err <= err32 and err < 1e-6, (err, err32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("return_state", [True, False])
+@pytest.mark.parametrize("case", list(SSD_CASES))
+def test_ssd_scan_launch_counts(dev, case, return_state):
+    """One readout launch per call; the chunk-state kernel and the state
+    pass once each, only with more than one chunk."""
+    chunk = SSD_CASES[case][-1]
+    args = _ssd_inputs(case, torch.bfloat16, dev)
+    ssd_mod.LAUNCHES.clear()
+    ssd_mod.ssd_scan(*args, chunk=chunk, return_state=return_state)
+    torch.cuda.synchronize()
+    multi = int(case in MULTI_CHUNK)
+    want = {"ssd_scan": 1, "ssd_chunk_state": multi, "ssd_state_pass": multi}
+    assert {k: ssd_mod.LAUNCHES[k] for k in want} == want
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", MULTI_CHUNK)
+def test_ssd_chunk_states_and_state_pass_match_their_plain_pieces(
+        dev, dtype, case):
+    """The chunk-state kernel (every chunk's dS, columns past P zero, and
+    exp(cum_last)) and the state pass (each chunk's incoming state, the
+    final state) against their plain pieces on the same inputs."""
+    chunk, p = SSD_CASES[case][-1], SSD_CASES[case][3]
+    x, dt, a_log, bm, _ = _ssd_inputs(case, dtype, dev)
+    ssd_mod.LAUNCHES.clear()
+    ws, decay = ssd_mod.ssd_chunk_state_cuda(x, dt, a_log, bm, chunk=chunk)
+    ds, dec = ssd_mod.ssd_chunk_state_plain(x, dt, a_log, bm, chunk=chunk)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(ws[..., :p], ds, rtol=1e-4, atol=1e-4)
+    assert (ws[..., p:] == 0).all()
+    torch.testing.assert_close(decay, dec, rtol=1e-5, atol=0)
+    incoming, st_want = ssd_mod.ssd_state_pass_plain(ws[..., :p].clone(),
+                                                     decay, ws.shape[2])
+    st = ssd_mod.ssd_state_pass_cuda(ws, decay, p)
+    torch.cuda.synchronize()
+    assert dict(ssd_mod.LAUNCHES) == {"ssd_chunk_state": 1,
+                                      "ssd_state_pass": 1}
+    torch.testing.assert_close(ws[:, :, 1:, :, :p], incoming[:, :, 1:],
+                               rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(st, st_want, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ssd_scan_long_prompt_under_strong_decay(dev, dtype):
+    """mamba2's 1 x 3000 prompt (24 chunks through the state pass) under a
+    strong decay: y and the state stay finite and match the plain version;
+    in fp32 K8 comes at least as near the fp64 recurrence as the chunked
+    form with an fp32 torch.cumsum."""
+    x, dt, a_log, bm, cm = _ssd_inputs("mamba2_b1_p3000", dtype, dev,
+                                       strong_decay=True)
+    y, st = ssd_mod.ssd_scan_cuda(x, dt, a_log, bm, cm, return_state=True)
+    want, st_want = ssd_mod.ssd_scan_plain(x, dt, a_log, bm, cm,
+                                           return_state=True)
+    torch.cuda.synchronize()
+    assert torch.isfinite(y).all() and torch.isfinite(st).all()
+    torch.testing.assert_close(y.float(), want.float(), **TOL[dtype])
+    torch.testing.assert_close(st, st_want, rtol=1e-4, atol=1e-4)
+    if dtype == torch.float32:
+        exact = ref.ssd_ref(x.double(), dt.double(), a_log.double(),
+                            bm.double(), cm.double())
+        y32 = ssd_mod.ssd_scan_plain(x, dt, a_log, bm, cm,
+                                     cum_dtype=torch.float32)
+        scale = exact.abs().max()
+        err = ((y.double() - exact).abs().max() / scale).item()
+        err32 = ((y32.double() - exact).abs().max() / scale).item()
+        assert err <= err32 and err < 1e-6, (err, err32)
+
+
+@pytest.mark.cuda
+def test_ssd_pieces_refuse_what_they_do_not_take(dev):
+    x, dt, a_log, bm, _ = _ssd_inputs("mamba2_b4_p128", torch.bfloat16, dev)
+    with pytest.raises(ValueError, match="one chunk"):
+        ssd_mod.ssd_chunk_state_cuda(x, dt, a_log, bm, chunk=128)
+    x, dt, a_log, bm, _ = _ssd_inputs("two_chunks", torch.bfloat16, dev)
+    ws, decay = ssd_mod.ssd_chunk_state_cuda(x, dt, a_log, bm, chunk=128)
+    with pytest.raises(ValueError, match="workspace"):
+        ssd_mod.ssd_state_pass_cuda(ws, decay, 60)
+    with pytest.raises(ValueError, match="workspace"):
+        ssd_mod.ssd_state_pass_cuda(ws, decay[:, :1], 64)
 
 
 @pytest.mark.cuda

@@ -20,7 +20,11 @@ projections, 4096^3 and the tuner's decode class; K2 at 4 x 1 rows;
 K1 a_resident at the LM head and the decode class; K1 b_resident at the
 LM head and 4096^3; K9 k_inner, a_resident and b_resident at the tuner's
 layouts (b_resident at d 0.25, 0.5 and 1.0); K7 at `chip_smoke.py`'s five
-phase-6c shapes; last, K3 at the LM head (gk 24, (64, 128, 128)) and K5
+phase-6c shapes; K6 at recurrentgemma-9b's 4 x 128 x 4096 and 1 x 3072 x
+4096 (bf16, fp32 carry; inputs rotated over copies that pass twice the
+50 MB L2, as in phase 6c) and K8 at mamba2-2.7b's 4 x 128 and 1 x 3000 x
+80 x 64, G 1, S 128 (bf16, fp32 state; phase 6d); last, K3 at the LM
+head (gk 24, (64, 128, 128)) and K5
 at dbrx-132b's decode gate/up and down (16 x 8 rows) and prefill gate/up
 (16 x 160 rows).  The tree's kernels are built first, in parallel.  Needs
 one CUDA card.
@@ -63,7 +67,9 @@ def main() -> None:
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import gemv_splitk as gk
     from repro_torch.kernels import grouped_matmul as gmm
+    from repro_torch.kernels import rglru_scan as rg
     from repro_torch.kernels import skew_matmul as mm
+    from repro_torch.kernels import ssd_scan as ssd
     from repro_torch.sparse.layout import BlockSparseLayout
     build.build_all()
 
@@ -125,6 +131,24 @@ def main() -> None:
         res[f"fa_{label}"] = time_ms(torch, lambda: fa.flash_attention_cuda(
             q, k, v, window=window, softcap=cap))
     del q, k, v
+    for label, b, length in (("rg", 4, 128), ("rg_long", 1, 3072)):
+        n = b * length * 4096
+        sets = [(rnd((b, length, 4096)), rnd((b, length, 4096)),
+                 rnd((b, length, 4096)),
+                 torch.rand((4096,), generator=g, device="cuda") * 4 - 2)
+                for _ in range(max(2, -(-100_000_000 // (6 * n))))]
+        turn = iter(range(1 << 62))
+        res[f"k6_{label}"] = time_ms(torch, lambda: rg.rglru_scan_cuda(
+            *sets[next(turn) % len(sets)], return_state=True))
+        del sets
+    for label, b, length in (("mamba2", 4, 128), ("mamba2_long", 1, 3000)):
+        x = rnd((b, length, 80, 64))
+        dt = torch.rand((b, length, 80), generator=g,
+                        device="cuda") * 0.2 + 0.001
+        a_log = torch.rand((80,), generator=g, device="cuda") - 0.5
+        bm, cm = rnd((b, length, 1, 128), 0.5), rnd((b, length, 1, 128), 0.5)
+        res[f"k8_{label}"] = time_ms(torch, lambda: ssd.ssd_scan_cuda(
+            x, dt, a_log, bm, cm, chunk=128, return_state=True))
     # K3 and K5 last: the rows above then run after the same work in any
     # tree (a tree whose K5 keeps the tensor cores busier warms the card
     # for the rows that follow it)
