@@ -26,7 +26,14 @@ nonzero and prints no result:
      picks neither split-K nor the batched grid at these shapes, a batch-1
      serve and explicit-plan calls through `ops` at the LM-head shape for
      each kernel still without a launch.  Launch counts are zeroed just
-     before this phase and read just after it;
+     before this phase and read just after it.  `serve` decodes through a
+     CUDA graph (`serve.graphs.DecodeGraph`: one warm-up step on a scratch
+     cache, one capture, a replay a token); after the counts are read,
+     every serve run of this and the later serve phases is decoded once
+     more by an eager loop over `engine.decode_step` (`graph_vs_eager`):
+     tokens and first and last decode logits must be bitwise equal, the
+     graph's launches per step equal to an eager step's, and both decode
+     ms per token are printed;
   5. whole-path parity — prefill and first-decode logits of the "cuda"
      backend against the "torch" backend on the same weights;
   6. timings — each kernel, its plain version and one PyTorch call
@@ -48,7 +55,11 @@ then dbrx-132b's MoE layers, after phi4's weights are freed:
      cut to 8 of 40 layers (the whole model is ~263 GB of bf16 weights),
      seeded bf16 weights, batch 4 x prompt 128 + 16 generated tokens
      through `serve(cfg=...)`; K5 must launch 3 times per MoE layer per
-     step.  Counts are zeroed just before and read just after;
+     step (the prefill, the graph's warm-up step and every replay).
+     Counts are zeroed just before and read just after.  Graphed against
+     eager decode as in phase 4, but the last logits are held to phase
+     5's bounds, not bitwise: the MoE combine is an fp32 `index_add_`
+     whose order on CUDA is not fixed;
   5b. whole-path parity at full width and 2 layers — "cuda", "torch" and an
      fp32 run of the same weights, plus the share of top-k routing choices
      on which "cuda" and "torch" agree (information, not a gate);
@@ -69,6 +80,7 @@ then recurrentgemma-9b, after dbrx's weights are freed:
      must launch once per recurrent layer and K7 once per attention layer
      of every prefill.  Counts are zeroed just before and read just after;
      then one prefill and one decode step are counted apart (K6 26 and 0);
+     graphed against eager decode bitwise, as in phase 4;
   5c. whole-path parity at full width and 6 layers (two whole (rec, rec,
      attn) units), as in phase 5;
   6c. timings — K6 and K7, their plain versions and, for K7 where there is
@@ -96,7 +108,8 @@ then mamba2-2.7b, after recurrentgemma's weights are freed:
      state pass once per layer of the 1 x 3000 prefill only, and none of
      them at decode.  Counts are zeroed just before and read just after;
      then one batch-4 prefill and one decode step are counted apart
-     (64 / 0 / 0 and 0 / 0 / 0);
+     (64 / 0 / 0 and 0 / 0 / 0); graphed against eager decode bitwise, as
+     in phase 4;
   5d. whole-path parity at full width and 8 layers, as in phase 5;
   6d. timings — K8, its plain version and its bound at the 3d shapes (the
      whole call: the readout alone at one chunk, all three kernels at 1 x
@@ -127,9 +140,30 @@ then the measured autotuner and the block-sparse matmul:
      plain version, its bound and `torch.matmul` of the pre-masked dense
      A; k_inner at the (128, 128, 64) fail-over plan on a (128, 128) d 0.4
      layout; K1 at the dense planner's 4096^3 plan beside it;
-  7. the `kernels` JSON line (K1-K9, K8's three kernels apart; launches
-     summed over the five main paths), then the device line.
-Phi4's and dbrx's prefills reach K7 too (phases 4, 4b).
+then the dense archs, each after the last one's weights are freed:
+  4f. serve gemma2-27b (the sixth main path) — every published width and
+     all 46 layers (54.5 GB of bf16, checked against the card's memory on
+     the meta device first), batch 4 x prompt 128 + 16 generated tokens,
+     then batch 1 x prompt 4608 + 4 (the 4096 window bites in K7 at
+     prefill and the local layers' 4096-slot rings wrap at decode): the
+     first served post-norms, softcaps 50 / 30, sqrt(d) embedding scale
+     and (local, global) alternation.  K7 must launch once per layer of
+     every prefill and never at decode; graphed against eager decode
+     bitwise as in phase 4;
+  5f. whole-path parity at full width and 4 layers (two (local, global)
+     units), as in phase 5;
+  4g. / 5g. granite-34b (the seventh) — every width, depth cut to 8 of 88
+     layers (MQA with one kv head, the non-gated GELU MLP), batch 4 x 128
+     + 16, as in phase 4f; parity at 2 layers;
+  4h. / 5h. command-r-35b (the eighth) — every width and all 40 layers
+     where they fit beside 12 GB (else cut, and the cut printed), batch 4
+     x 128 + 16, as in phase 4f; parity at 2 layers;
+  7. the served decode ms per token, graphed and eager, of every run; the
+     `kernels` JSON line (K1-K9, K8's three kernels apart; launches summed
+     over the eight main paths), then the device line.
+Phi4's and dbrx's prefills reach K7 too (phases 4, 4b).  With --profile,
+each served model also profiles one batch-4 prefill, one eager decode
+step and one replay of a decode graph.
 """
 
 from __future__ import annotations
@@ -243,6 +277,20 @@ HYBRID_PARITY_UNITS = 2
 # mamba2-2.7b: all 64 layers (5.40 GB of bf16) fit; the whole-path parity
 # keeps 8 of them.
 SSM_PARITY_LAYERS = 8
+# The dense archs after the tuner.  gemma2-27b: all 46 layers (54.5 GB of
+# bf16) fit; its parity keeps two (local, global) units.  granite-34b:
+# every width, depth cut to 8 of 88 layers (the whole model is ~68 GB);
+# MQA and the non-gated GELU MLP at 6144 x 24576 do not change with depth.
+# command-r-35b: all 40 layers (60.6 GB) where they fit beside
+# DENSE_RESERVE bytes for caches, activations and the decode graph, else
+# cut (and the cut printed).  Their parity keeps 2 layers.
+GEMMA2_PARITY_UNITS = 2
+GRANITE_LAYERS = 8
+DENSE_PARITY_LAYERS = 2
+DENSE_RESERVE = 12e9
+# serve()'s sampling in every run here; the eager decode that phases 4-4h
+# hold the graphed one against draws from the same seeded sampler.
+SERVE_SEED, SERVE_TEMPERATURE = 0, 0.8
 
 
 def fail(msg: str) -> None:
@@ -604,7 +652,8 @@ def phase_serve(torch, cfg):
     # ---- the main path: counts zeroed above, read after the last drive.
     with skewmm.plan_capture() as log:
         res = serve_mod.serve(cfg=cfg, params=params, batch=batch,
-                              prompt_len=prompt, gen=gen, seed=0)
+                              prompt_len=prompt, gen=gen, seed=SERVE_SEED,
+                              temperature=SERVE_TEMPERATURE)
     peak = torch.cuda.max_memory_allocated()
     if not res["logits_finite"]:
         fail("serve produced non-finite logits")
@@ -629,7 +678,8 @@ def phase_serve(torch, cfg):
         say("the gpu_h100 planner picked no split-K and no batched-grid "
             "plan at batch 4: serving once more at batch 1")
         res1 = serve_mod.serve(cfg=cfg, params=params, batch=1,
-                               prompt_len=prompt, gen=4, seed=0)
+                               prompt_len=prompt, gen=4, seed=SERVE_SEED,
+                               temperature=SERVE_TEMPERATURE)
         if not res1["logits_finite"]:
             fail("batch-1 serve produced non-finite logits")
         out["serve_b1"] = res1
@@ -674,6 +724,11 @@ def phase_serve(torch, cfg):
         if counts.get(name, 0) <= 0:
             fail(f"kernel {name} was not launched on the main path")
     out["counts"] = counts
+    out["graph"] = [graph_vs_eager(torch, cfg, params, res, batch, prompt,
+                                   gen, bitwise=True)]
+    if "serve_b1" in out:
+        out["graph"].append(graph_vs_eager(torch, cfg, params, res1, 1,
+                                           prompt, 4, bitwise=True))
     return out
 
 
@@ -694,6 +749,75 @@ def splitk_plan(m: int, k: int, n: int, dtype_bytes: int):
 
 def lm_head_splitk_plan(cfg):
     return splitk_plan(4, cfg.d_model, cfg.vocab_size, 2)
+
+
+def graph_vs_eager(torch, cfg, params, res, batch: int, prompt: int,
+                   gen: int, bitwise: bool) -> dict:
+    """`serve()` decoded through its CUDA graph; decode the same prompt once
+    more with an eager loop over `engine.decode_step`: the same prefill,
+    the served tokens fed back step by step, and the same seeded sampler
+    choosing a token from each step's logits.
+
+    bitwise: the eager choices and the first and last decode logits must
+    equal the graphed run's bit for bit (the same kernels in the same
+    order).  Otherwise (dbrx, whose MoE combine is an fp32 `index_add_`
+    in no fixed order on CUDA) the last logits are held to phase 5's
+    bounds.  Either way the graph's launches per step must equal those of
+    one eager step.  Prints and returns both decode ms per token (host
+    clock, each loop ending in a synchronise)."""
+    import numpy as np
+
+    from repro_torch.kernels import ops
+    from repro_torch.serve import engine
+
+    rng = np.random.default_rng(SERVE_SEED)
+    toks = torch.tensor(rng.integers(0, cfg.vocab_size, (batch, prompt)),
+                        dtype=torch.long, device="cuda")
+    sampler = torch.Generator(device="cuda")
+    sampler.manual_seed(SERVE_SEED + 1)
+    cache, logits = engine.prefill(params, cfg, toks, max_len=prompt + gen)
+    served = res["tokens"].to("cuda")
+    chosen = [torch.argmax(logits, -1)]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(gen):
+        if i == 0:
+            ops.reset_launch_counts()
+        logits, _ = engine.decode_step(params, cfg, cache, served[:, i],
+                                       prompt + i)
+        if i == 0:
+            step_counts = {k: v for k, v in ops.launch_counts().items() if v}
+            first = logits
+        probs = torch.softmax(logits / SERVE_TEMPERATURE, dim=-1)
+        chosen.append(torch.multinomial(probs, 1, generator=sampler)[:, 0])
+    torch.cuda.synchronize()
+    eager_ms = (time.perf_counter() - t0) / gen * 1e3
+    graph_ms = res["decode_s_per_token"] * 1e3
+    same_tokens = torch.equal(torch.stack(chosen[:gen], 1).cpu(),
+                              res["tokens"])
+    last = res["last_decode_logits"]
+    diff = (logits - last).abs()
+    rel_max = diff.max().item() / last.abs().max().item()
+    rel_mean = diff.mean().item() / last.abs().mean().item()
+    tag = f"{cfg.name} ({cfg.n_layers} layers) b{batch} p{prompt} g{gen}"
+    say(f"graph~eager {tag}: decode {graph_ms:.2f} ms/token graphed, "
+        f"{eager_ms:.2f} eager (warm-up and capture "
+        f"{res['decode_setup_s'] * 1e3:.1f} ms); tokens equal "
+        f"{same_tokens}, last logits max|diff| {diff.max().item():.3e} "
+        f"(rel max {rel_max:.3e}, mean {rel_mean:.3e}); launches a step "
+        f"{res['decode_launches_per_step']}")
+    if res["decode_launches_per_step"] != step_counts:
+        fail(f"{tag}: the graph replays {res['decode_launches_per_step']} "
+             f"launches a step, an eager step {step_counts}")
+    if bitwise:
+        if not (same_tokens and torch.equal(first, res["first_decode_logits"])
+                and torch.equal(logits, last)):
+            fail(f"{tag}: graphed decode is not bitwise equal to eager")
+    elif rel_max > PATH_TOL_MAX or rel_mean > PATH_TOL_MEAN:
+        fail(f"{tag}: graphed and eager decode logits disagree past phase "
+             f"5's bounds")
+    return {"tag": tag, "graph_ms": graph_ms, "eager_ms": eager_ms,
+            "tokens_equal": same_tokens, "max_diff": diff.max().item()}
 
 
 # ----------------------------------------------------------------- phase 5
@@ -1077,7 +1201,8 @@ def phase_serve_moe(torch, cfg):
     # ---- the main path: counts zeroed above, read right after it.
     with skewmm.plan_capture() as log:
         res = serve_mod.serve(cfg=cfg, params=params, batch=batch,
-                              prompt_len=prompt, gen=gen, seed=0)
+                              prompt_len=prompt, gen=gen, seed=SERVE_SEED,
+                              temperature=SERVE_TEMPERATURE)
     counts = ops.launch_counts()
     # ---- end of the main path.
     peak = torch.cuda.max_memory_allocated()
@@ -1098,11 +1223,18 @@ def phase_serve_moe(torch, cfg):
     for key, c in seen.items():
         say(f"plan {key}: {c.explain()}")
     say(f"launch counts on the dbrx main path: {counts}")
-    steps = 1 + gen
+    # the prefill, the decode graph's warm-up steps and its replays
+    steps = 1 + res["decode_warmup_steps"] + gen
     want_k5 = 3 * cfg.n_layers * steps
     if counts["grouped_matmul"] != want_k5:
         fail(f"K5 launched {counts['grouped_matmul']} times, expected "
-             f"{want_k5} (3 per MoE layer per step, {steps} steps)")
+             f"{want_k5} (3 per MoE layer per step, {steps} steps: the "
+             f"prefill, {res['decode_warmup_steps']} warm-up, {gen} "
+             f"replays)")
+    if res["decode_launches_per_step"]["grouped_matmul"] != 3 * cfg.n_layers:
+        fail(f"the decode graph replays "
+             f"{res['decode_launches_per_step']['grouped_matmul']} K5 "
+             f"launches a step, expected {3 * cfg.n_layers}")
     say(f"K5 launches: {counts['grouped_matmul'] // steps} per step "
         f"({cfg.n_layers} MoE layers x 3 expert GEMMs)")
     used = {"grouped_matmul", "flash_attention"}
@@ -1118,9 +1250,11 @@ def phase_serve_moe(torch, cfg):
     for name in sorted(used):
         if counts.get(name, 0) <= 0:
             fail(f"kernel {name} was not launched on the dbrx main path")
+    graph = [graph_vs_eager(torch, cfg, params, res, batch, prompt, gen,
+                            bitwise=False)]
     return {"serve": res, "peak": peak, "bounds": (pre_b, dec_b),
             "params": params, "params_bytes": pbytes, "kv_bytes": kv,
-            "counts": counts}
+            "counts": counts, "graph": graph}
 
 
 def first_layers(params, n: int) -> dict:
@@ -1242,31 +1376,40 @@ def visible_pairs(s: int, window: int | None) -> int:
     return w * (w + 1) // 2 + (s - w) * w
 
 
-def hybrid_serve_bounds(cfg, params, batch: int, prompt: int,
-                        kv_bytes: int) -> tuple[float, float]:
-    """(prefill bound ms, decode bound ms per token) of the hybrid serve.
+def layer_serve_bounds(cfg, params, batch: int, prompt: int,
+                       kv_bytes: int) -> tuple[float, float]:
+    """(prefill bound ms, decode bound ms per token) of the hybrid and the
+    dense serves, counted layer by layer.
 
-    Bytes: every weight once (the tied embedding is the LM head), plus the
-    decode caches at decode.  Operations: 2 per token and weight of every
-    layer tensor of two or more dims (projections, MLP, the block-diagonal
-    gates and the conv taps), attention's 4 * D per visible (row, col) pair
-    and q head, and the LM head on the last positions; the elementwise
-    scan is left out (tiny beside them)."""
+    Bytes: every weight once (a tied embedding is the LM head; of an
+    untied input embedding only the token rows are read), plus the decode
+    caches at decode.  Operations: 2 per token and weight of every layer
+    tensor of two or more dims (projections, MLP, the block-diagonal gates
+    and the conv taps), attention's 4 * D per visible (row, col) pair and
+    q head (a local layer's window cuts the pairs), and the LM head on the
+    last positions; the elementwise scan is left out (tiny beside
+    them)."""
     from repro_torch.models import transformer
     from repro_torch.models.model import param_bytes
     d, v, hd, h = cfg.d_model, cfg.vocab_size, cfg.head_dim, cfg.n_heads
-    layer_w = n_attn = 0
+    layer_w = pre_pairs = dec_pairs = 0
     for kind, p, *_ in transformer.layer_iter(params, cfg):
         layer_w += sum(t.numel() for t in _leaves(p) if t.dim() >= 2)
-        n_attn += kind != "rec"
-    pbytes = param_bytes(params)
-    win = cfg.local_window
+        if kind != "rec":
+            win = cfg.local_window if kind == "attn_local" else None
+            pre_pairs += visible_pairs(prompt, win)
+            dec_pairs += min(prompt + 1, win or prompt + 1)
+    pbytes = pre_bytes = dec_bytes = param_bytes(params)
+    if not cfg.tie_embeddings:
+        emb = params["embed"]
+        row = emb.shape[1] * emb.element_size()
+        pre_bytes = pbytes - emb.shape[0] * row + batch * prompt * row
+        dec_bytes = pbytes - emb.shape[0] * row + batch * row
     pre_ops = (2 * batch * prompt * layer_w + 2 * batch * d * v
-               + n_attn * 4 * hd * h * batch * visible_pairs(prompt, win))
-    pre = max(pre_ops / PEAK_BF16, pbytes / HBM_BW)
-    dec_ops = (2 * batch * (layer_w + d * v)
-               + n_attn * 4 * hd * h * batch * min(prompt + 1, win))
-    dec = max(dec_ops / PEAK_BF16, (pbytes + kv_bytes) / HBM_BW)
+               + 4 * hd * h * batch * pre_pairs)
+    pre = max(pre_ops / PEAK_BF16, pre_bytes / HBM_BW)
+    dec_ops = 2 * batch * (layer_w + d * v) + 4 * hd * h * batch * dec_pairs
+    dec = max(dec_ops / PEAK_BF16, (dec_bytes + kv_bytes) / HBM_BW)
     return pre * 1e3, dec * 1e3
 
 
@@ -1284,7 +1427,8 @@ def serve_runs(torch, cfg, runs, bounds_fn) -> dict:
     read just after them.  Prints each run's times beside its bounds
     (`bounds_fn(cfg, params, batch, prompt, cache_bytes)`), the peak
     memory and the plans, and fails if a run's logits are not finite or a
-    planned K1-K4 kernel never launched."""
+    planned K1-K4 kernel never launched.  Then holds each run's graphed
+    decode bitwise equal to an eager one (`graph_vs_eager`)."""
     from repro_torch.core import skewmm
     from repro_torch.kernels import ops
     from repro_torch.launch import serve as serve_mod
@@ -1305,7 +1449,8 @@ def serve_runs(torch, cfg, runs, bounds_fn) -> dict:
     # ---- the main path: counts zeroed above, read right after it.
     with skewmm.plan_capture() as log:
         results = [serve_mod.serve(cfg=cfg, params=params, batch=b,
-                                   prompt_len=p, gen=g, seed=0)
+                                   prompt_len=p, gen=g, seed=SERVE_SEED,
+                                   temperature=SERVE_TEMPERATURE)
                    for b, p, g in runs]
     counts = ops.launch_counts()
     # ---- end of the main path.
@@ -1338,15 +1483,18 @@ def serve_runs(torch, cfg, runs, bounds_fn) -> dict:
             name = f"skew_matmul_{c.plan.schedule}"
         if counts.get(name, 0) <= 0:
             fail(f"kernel {name} was not launched on the {cfg.name} path")
+    graph = [graph_vs_eager(torch, cfg, params, res, b, p, g, bitwise=True)
+             for (b, p, g), res in zip(runs, results)]
     return {"serve": results, "peak": peak, "bounds": bounds,
-            "params": params, "params_bytes": pbytes, "counts": counts}
+            "params": params, "params_bytes": pbytes, "counts": counts,
+            "graph": graph}
 
 
 def phase_serve_hybrid(torch, cfg):
     """The third main path: recurrentgemma-9b at every published width and
     all 38 layers, served at batch 4 x 128 and at batch 1 x 3072."""
     runs = ((4, 128, 16), (1, 3072, 4))
-    out = serve_runs(torch, cfg, runs, hybrid_serve_bounds)
+    out = serve_runs(torch, cfg, runs, layer_serve_bounds)
     counts = out["counts"]
     kinds = [u for unit, n in cfg.stage_list() for _ in range(n) for u in unit]
     n_rec, n_attn = kinds.count("rec"), len(kinds) - kinds.count("rec")
@@ -2060,6 +2208,65 @@ def phase_timings_bsr(torch, counts, errs) -> list[dict]:
     return rows
 
 
+# ----------------------------------------------------------------- dense
+def dense_depth(torch, cfg) -> int:
+    """The layers of `cfg` to serve: all of them where their bf16 weights
+    fit the card beside DENSE_RESERVE bytes, else as many whole units as
+    fit.  Counted on the meta device, before any weight is made."""
+    from repro_torch.models import transformer
+    from repro_torch.models.model import param_bytes
+    p = transformer.init_lm(cfg, None, "meta")
+    full = param_bytes(p)
+    unit = param_bytes(p["stage0"][0])
+    outside = full - sum(param_bytes(u) for k, v in p.items()
+                         if k.startswith("stage") for u in v)
+    room = torch.cuda.get_device_properties(0).total_memory - DENSE_RESERVE
+    n_units = cfg.n_layers // len(cfg.layer_pattern)
+    units = min(n_units, int((room - outside) // unit))
+    say(f"{cfg.name}: {full / 1e9:.3f} GB of bf16 weights at all "
+        f"{cfg.n_layers} layers; the card holds {room / 1e9:.1f} GB beside "
+        f"{DENSE_RESERVE / 1e9:.0f} GB for caches and activations: serving "
+        f"{units * len(cfg.layer_pattern)} layers")
+    return units * len(cfg.layer_pattern)
+
+
+def phase_serve_dense(torch, cfg, runs, of_layers: int,
+                      parity_layers: int) -> dict:
+    """A dense arch at every published width and `cfg.n_layers` of its
+    `of_layers` layers, served through `serve(cfg=...)` (`serve_runs`):
+    K7 must launch once per layer of every prefill and never at decode.
+    Then whole-path parity (phase 5) at `parity_layers` layers of the same
+    weights."""
+    say(f"config: {cfg.name} L={cfg.n_layers} (of {of_layers}) "
+        f"{cfg.layer_pattern} d={cfg.d_model} "
+        f"H={cfg.n_heads}/{cfg.n_kv_heads} hd={cfg.head_dim} "
+        f"mlp={cfg.mlp_type} ff={cfg.d_ff} V={cfg.vocab_size} "
+        f"window={cfg.local_window} softcap={cfg.attn_softcap}/"
+        f"{cfg.final_softcap} post_norm={cfg.use_post_norm} "
+        f"tied={cfg.tie_embeddings}")
+    out = serve_runs(torch, cfg, runs, layer_serve_bounds)
+    want = cfg.n_layers * len(runs)
+    if out["counts"]["flash_attention"] != want:
+        fail(f"K7 launched {out['counts']['flash_attention']} times on the "
+             f"{cfg.name} path, expected {want} (one per layer of each of "
+             f"{len(runs)} prefills)")
+    for res in out["serve"]:
+        if res["decode_launches_per_step"].get("flash_attention", 0):
+            fail(f"{cfg.name}: the decode graph launches K7")
+    say(f"K7 launches: {cfg.n_layers} per prefill ({len(runs)} prefills), "
+        f"0 per decode step")
+    if "--profile" in sys.argv[1:]:
+        profile_steps(torch, cfg, out["params"])
+    params = first_layers(out.pop("params"),
+                          parity_layers // len(cfg.layer_pattern))
+    torch.cuda.empty_cache()
+    phase_path_parity(torch, dataclasses.replace(cfg, n_layers=parity_layers),
+                      params)
+    del params
+    torch.cuda.empty_cache()
+    return out
+
+
 # ----------------------------------------------------------------- --profile
 def profile_steps(torch, cfg, params) -> None:
     """torch.profiler over one prefill and one decode step (batch 4): device
@@ -2068,20 +2275,24 @@ def profile_steps(torch, cfg, params) -> None:
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    from repro_torch.serve import engine
+    from repro_torch.serve import engine, graphs
     toks = torch.randint(0, cfg.vocab_size, (4, 128), device="cuda")
     cache, logits = engine.prefill(params, cfg, toks, max_len=144)
     nxt = torch.argmax(logits, -1)
     engine.decode_step(params, cfg, cache, nxt, 128)
+    graph = graphs.DecodeGraph(params, cfg, cache, 4)
+    graph.step(nxt, 129)
     torch.cuda.synchronize()
-    for what in ("prefill", "decode"):
+    for what in ("prefill", "decode", "decode-graph"):
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
             if what == "prefill":
                 engine.prefill(params, cfg, toks, max_len=144)
+            elif what == "decode":
+                engine.decode_step(params, cfg, cache, nxt, 130)
             else:
-                engine.decode_step(params, cfg, cache, nxt, 129)
+                graph.step(nxt, 131)
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
         ka = prof.key_averages()
@@ -2089,8 +2300,11 @@ def profile_steps(torch, cfg, params) -> None:
         dev_us = sum(e.self_device_time_total for e in ka
                      if e.device_type == DeviceType.CUDA
                      and not getattr(e, "is_user_annotation", False))
+        n_kernels = sum(e.count for e in ka
+                        if e.device_type == DeviceType.CUDA)
         say(f"profile {what}: host-clock {wall * 1e3:.2f} ms, device busy "
-            f"{dev_us / 1e3:.2f} ms ({dev_us / 1e4 / wall:.1f}% of the step)")
+            f"{dev_us / 1e3:.2f} ms ({dev_us / 1e4 / wall:.1f}% of the "
+            f"step), {n_kernels} device events")
         print(ka.table(sort_by="self_device_time_total", row_limit=12),
               flush=True)
 
@@ -2122,7 +2336,7 @@ def main() -> None:
     phase_path_parity(torch, cfg, main_path["params"])
     rows = phase_timings(torch, cfg, main_path["params"],
                          main_path["counts"], errs)
-    phi4_counts = main_path["counts"]
+    phi4_counts, phi4_graph = main_path["counts"], main_path["graph"]
     del main_path                   # free phi4's weights
     torch.cuda.empty_cache()
 
@@ -2192,15 +2406,40 @@ def main() -> None:
     for name, err in tune_path["errs"].items():
         errs[name] = max(errs.get(name, 0.0), err)
     rows += phase_timings_bsr(torch, tune_path["counts"], errs)
+    torch.cuda.empty_cache()
+
+    # The dense archs: gemma2-27b whole, granite-34b cut, command-r-35b
+    # whole where it fits.
+    gcfg = get_config("gemma2-27b")
+    if dense_depth(torch, gcfg) != gcfg.n_layers:
+        fail("gemma2-27b's 46 layers do not fit the card")
+    gemma_path = phase_serve_dense(
+        torch, gcfg, ((4, 128, 16), (1, 4608, 4)), gcfg.n_layers,
+        GEMMA2_PARITY_UNITS * len(gcfg.layer_pattern))
+    granite = get_config("granite-34b")
+    granite_path = phase_serve_dense(
+        torch, dataclasses.replace(granite, n_layers=GRANITE_LAYERS),
+        ((4, 128, 16),), granite.n_layers, DENSE_PARITY_LAYERS)
+    ccfg = get_config("command-r-35b")
+    cr_path = phase_serve_dense(
+        torch, dataclasses.replace(ccfg, n_layers=dense_depth(torch, ccfg)),
+        ((4, 128, 16),), ccfg.n_layers, DENSE_PARITY_LAYERS)
+
+    say("served decode, ms per token (host clock): " + "; ".join(
+        f"{g['tag']} graphed {g['graph_ms']:.2f} eager {g['eager_ms']:.2f}"
+        for path in (phi4_graph, moe_path, hyb_path, ssm_path, gemma_path,
+                     granite_path, cr_path)
+        for g in (path if isinstance(path, list) else path["graph"])))
 
     # One entry per kernel for the contract line (the LM-head shape for
     # K1-K4, the dbrx decode gate/up shape for K5, recurrentgemma's batch-4
     # prefill for K6 and K7, mamba2's for K8, the tuner's 4096^2 (32, 128)
     # d 0.25 layout for K9); the other shapes are in the log above.
-    # Launches: summed over the five main paths.
+    # Launches: summed over the eight main paths.
     launches = {n: sum(c.get(n, 0) for c in (
         phi4_counts, moe_path["counts"], hyb_path["counts"],
-        ssm_path["counts"], tune_path["counts"])) for n in KERNELS}
+        ssm_path["counts"], tune_path["counts"], gemma_path["counts"],
+        granite_path["counts"], cr_path["counts"])) for n in KERNELS}
     first = {}
     for r in rows:
         first.setdefault(r["name"], r)

@@ -218,7 +218,9 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, a_log: torch.Tensor,
                          return_state=return_state)
 
 
-def _counters() -> tuple:
+def launch_counters() -> tuple:
+    """Each kernel module's `LAUNCHES` counter (a graph replay adds the
+    launches it captured to them: `serve.graphs`)."""
     return (_mm.LAUNCHES, _gemv.LAUNCHES, _gmm.LAUNCHES, _fa.LAUNCHES,
             _rglru.LAUNCHES, _ssd.LAUNCHES, _bsr.LAUNCHES)
 
@@ -232,11 +234,11 @@ def launch_counts() -> dict[str, int]:
                  "rglru_scan", "ssd_scan", "ssd_chunk_state",
                  "ssd_state_pass"):
         out[name] = 0
-    for counter in _counters():
+    for counter in launch_counters():
         out.update(counter)
     return out
 
 
 def reset_launch_counts() -> None:
-    for counter in _counters():
+    for counter in launch_counters():
         counter.clear()

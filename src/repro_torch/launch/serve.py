@@ -3,11 +3,16 @@
   PYTHONPATH=src python -m repro_torch.launch.serve --arch phi4-mini-3.8b \
       --batch 4 --prompt-len 128 --gen 16
 
-``--arch`` takes every ported config: phi4-mini-3.8b, dbrx-132b,
-recurrentgemma-9b and mamba2-2.7b (``--reduced`` for the small config).
+``--arch`` takes every ported config: phi4-mini-3.8b, gemma2-27b,
+granite-34b, command-r-35b, dbrx-132b, recurrentgemma-9b, mamba2-2.7b and
+paper-skewmm (``--reduced`` for the small config).
 
 Runs on the CUDA card unless ``--device cpu`` is given.  The published
 weights are not in the repository: weights are drawn from ``--seed``.
+Prefill runs eagerly; every decode step on the card is one replay of a
+CUDA graph captured once per run (`serve.graphs.DecodeGraph`, the
+counterpart of the JAX launcher's `jax.jit`), and sampling stays outside
+the graph.
 """
 
 from __future__ import annotations
@@ -21,7 +26,7 @@ import torch
 from repro_torch.configs.base import get_config
 from repro_torch.core import config as mmcfg
 from repro_torch.models.model import build_model
-from repro_torch.serve import engine
+from repro_torch.serve import engine, graphs
 
 
 def _sync(dev: torch.device) -> None:
@@ -35,10 +40,12 @@ def serve(arch: str = "phi4-mini-3.8b", *, reduced: bool = False,
           cfg=None, params=None) -> dict:
     """Prefill a seeded random prompt batch, then decode `gen` tokens.
 
-    Returns the generated tokens (B, gen), the prefill and first-decode
-    logits, whether every logit was finite, and host-clock timings that
-    end in a device synchronise.  `cfg` / `params` reuse an already built
-    model (its device wins over `device`).
+    Returns the generated tokens (B, gen), the prefill, first-decode and
+    last-decode logits, whether every logit was finite, the decode
+    graph's launches per step and warm-up steps, and host-clock times that
+    end in a device synchronise: the prefill, the graph's warm-up and
+    capture (`decode_setup_s`) and the decode per token.  `cfg` / `params`
+    reuse an already built model (its device wins over `device`).
     """
     if cfg is None:
         cfg = get_config(arch)
@@ -63,28 +70,36 @@ def serve(arch: str = "phi4-mini-3.8b", *, reduced: bool = False,
     finite = torch.isfinite(logits).all()
 
     out_tokens = []
-    first_decode_logits = None
+    first_decode_logits = last_decode_logits = None
     tok = torch.argmax(logits, -1)
+    t0 = time.perf_counter()
+    step = graphs.DecodeGraph(params, cfg, cache, batch)
+    _sync(dev)
+    setup_s = time.perf_counter() - t0
     t0 = time.perf_counter()
     for i in range(gen):
         out_tokens.append(tok)
-        logits, cache = engine.decode_step(params, cfg, cache, tok,
-                                           prompt_len + i)
+        logits = step.step(tok, prompt_len + i)
         if first_decode_logits is None:
-            first_decode_logits = logits
+            first_decode_logits = logits.clone()
         finite = finite & torch.isfinite(logits).all()
         if temperature > 0:
             probs = torch.softmax(logits / temperature, dim=-1)
             tok = torch.multinomial(probs, 1, generator=sampler)[:, 0]
         else:
             tok = torch.argmax(logits, -1)
+    if gen:
+        last_decode_logits = logits.clone()
     _sync(dev)
     decode_s = time.perf_counter() - t0
     return dict(
         cfg=cfg, tokens=torch.stack(out_tokens, 1).cpu(),
         prefill_logits=prefill_logits,
         first_decode_logits=first_decode_logits,
+        last_decode_logits=last_decode_logits,
         logits_finite=bool(finite), prefill_s=prefill_s,
+        decode_setup_s=setup_s, decode_warmup_steps=graphs.WARMUP_STEPS,
+        decode_launches_per_step=step.launches_per_step,
         decode_s_per_token=decode_s / max(gen, 1),
         tok_per_s=batch * gen / decode_s if decode_s > 0 else float("inf"),
     )

@@ -1,1 +1,2 @@
-"""Serving: KV caches, prefill and decode."""
+"""Serving: KV caches, prefill and decode, and the graph-captured decode
+step (`graphs`)."""

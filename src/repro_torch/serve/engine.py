@@ -184,7 +184,12 @@ def decode_step(params, cfg: ModelConfig, cache, tokens: torch.Tensor, pos,
                 mm: mmcfg.MatmulConfig | None = None):
     """One decode step.  tokens (B,) int; pos an int / 0-d tensor (the
     absolute position being generated) or (B,) per-row positions.
-    Returns (logits (B, V) fp32, cache) — the cache is updated in place."""
+    Returns (logits (B, V) fp32, cache) — the cache is updated in place.
+
+    Every shape in the step is static and a tensor `pos` on the tokens'
+    device (int32) is read only through tensor ops, so the step can be
+    captured in a CUDA graph (`serve.graphs`); an int `pos` is copied from
+    the host, which a capture cannot hold."""
     _check(cfg)
     with mmcfg.scope(mm):
         x = transformer.embed_tokens(params, cfg, tokens[:, None])
