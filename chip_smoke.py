@@ -140,6 +140,21 @@ then the measured autotuner and the block-sparse matmul:
      plain version, its bound and `torch.matmul` of the pre-masked dense
      A; k_inner at the (128, 128, 64) fail-over plan on a (128, 128) d 0.4
      layout; K1 at the dense planner's 4096^3 plan beside it;
+  6f. the paper's Figure 5 on the H100 (the ninth main path) — the 21
+     shapes of the JAX fig5 baseline (A of 4096^2 elements, its aspect
+     2^-8..2^8 against n 4096; the output's aspect the same at k 4096;
+     decode rows m 1 / 4 / 8 against 4096 x 32768), bf16 in and out: the
+     naive, K-inner-only and skew-aware plans of the port's
+     `sweep_aspect_ratios` on gpu_h100, and at the decode rows the
+     model's best split-K plan (K3 + K4), each through
+     `ops.skew_matmul(plan=...)` with the counts zeroed just before and
+     read just after, held against the plain version at phase 3's
+     tolerance and timed beside `torch.matmul` on operands rotated past
+     the L2; the rows (modeled and measured us, shares of 989 TFLOP/s,
+     plans) go through `bench.suite.Recorder`, pass `validate_records`,
+     are written under build/fig5_h100/ by `bench.io.write_run` and read
+     back equal; the spread of each curve and the modeled gpu_h100 vertex
+     table are printed;
 then the dense archs, each after the last one's weights are freed:
   4f. serve gemma2-27b (the sixth main path) — every published width and
      all 46 layers (54.5 GB of bf16, checked against the card's memory on
@@ -160,7 +175,7 @@ then the dense archs, each after the last one's weights are freed:
      x 128 + 16, as in phase 4f; parity at 2 layers;
   7. the served decode ms per token, graphed and eager, of every run; the
      `kernels` JSON line (K1-K9, K8's three kernels apart; launches summed
-     over the eight main paths), then the device line.
+     over the nine main paths), then the device line.
 Phi4's and dbrx's prefills reach K7 too (phases 4, 4b).  With --profile,
 each served model also profiles one batch-4 prefill, one eager decode
 step and one replay of a decode graph.
@@ -168,8 +183,10 @@ step and one replay of a decode graph.
 
 from __future__ import annotations
 
+import collections
 import dataclasses
 import functools
+import itertools
 import json
 import math
 import subprocess
@@ -733,11 +750,9 @@ def phase_serve(torch, cfg):
 
 
 def splitk_plan(m: int, k: int, n: int, dtype_bytes: int):
-    """The planner's best split-K plan for the shape, or (64, 128, 128)
-    when none fits the budget.  The reference's split-K working set counts
-    the whole (gk, bm, bn) partial slab in shared memory for pass 2, so at
-    k = 3072 no split-K plan fits the H100's ~104 KB budget; the port's
-    reduce streams the slab, so the explicit plan runs within 86 KB."""
+    """The planner's best split-K plan for the shape (gpu_h100 counts the
+    strip K4 stages for pass 2, so one fits at phi4's decode shapes), or
+    (64, 128, 128) when none fits the budget."""
     from repro_torch.core import hw, planner
     from repro_torch.core.costmodel import BlockPlan, MatmulDims
     chip = hw.get_chip("gpu_h100")
@@ -2208,6 +2223,199 @@ def phase_timings_bsr(torch, counts, errs) -> list[dict]:
     return rows
 
 
+# ----------------------------------------------------------------- fig5
+# Phase 6f: the paper's Figure 5 on the H100.  The 21 shapes of the JAX
+# fig5 baseline: A of 4096^2 elements with its aspect (m / k) varied
+# 2^-8..2^8 against n 4096; the output's aspect (m / n) varied the same
+# at k 4096; decode rows m 1 / 4 / 8 against a 4096 x 32768 weight.
+FIG5_TOTAL = 4096 * 4096
+FIG5_RATIOS = tuple(2.0 ** i for i in range(-8, 9, 2))
+FIG5_DECODE = ((1, 4096, 32768), (4, 4096, 32768), (8, 4096, 32768))
+FIG5_PLANS = ("naive", "k_inner", "skew_aware")
+# metric / info prefix of each timed plan (the JAX suite's names) and of
+# the yardstick
+FIG5_NAMES = {"naive": "naive", "k_inner": "single", "skew_aware": "planned",
+              "splitk": "splitk", "torch": "torch"}
+
+
+def fig5_shapes() -> list[tuple]:
+    """(tag, vary, ratio, m, k, n) of the 21 rows, through the port's
+    `sweep_aspect_ratios` on gpu_h100."""
+    from repro_torch.core import planner
+    out = []
+    for vary, tag in (("a_aspect", "skew"), ("output", "oskew")):
+        for r in planner.sweep_aspect_ratios(FIG5_TOTAL, FIG5_RATIOS,
+                                             vary=vary, chip="gpu_h100"):
+            out.append((f"{tag}_{r['ratio']:g}", vary, r["ratio"], r["m"],
+                        r["k"], r["n"]))
+    out += [(f"decode_m{m}", "decode", None, m, k, n)
+            for m, k, n in FIG5_DECODE]
+    return out
+
+
+def fig5_operands(torch, gen, m: int, k: int, n: int, decode: bool):
+    """Operand sets rotated so that the rotated operands pass twice the 50
+    MB L2: at the decode rows copies of A alone (B, 256 MB, is read from
+    device memory whatever is done), elsewhere whole (A, B) sets (A + B
+    is 34-544 MB: one set, or up to three where it is under 100 MB).
+    Returns (sets, next_set): next_set() steps the rotation."""
+    a_bytes, b_bytes = 2 * m * k, 2 * k * n
+    b = (torch.randn((k, n), generator=gen, device="cuda")
+         * k ** -0.5).to(torch.bfloat16)
+    if decode:
+        copies = math.ceil(2 * L2_BYTES / a_bytes)
+        a_all = torch.randn((copies, m, k), generator=gen,
+                            device="cuda").to(torch.bfloat16)
+        sets = [(a_all[i], b) for i in range(copies)]
+    else:
+        copies = math.ceil(2 * L2_BYTES / (a_bytes + b_bytes))
+        sets = [(torch.randn((m, k), generator=gen, device="cuda")
+                 .to(torch.bfloat16),
+                 b if i == 0 else b.clone()) for i in range(copies)]
+    turn = itertools.count()
+    return sets, lambda: sets[next(turn) % len(sets)]
+
+
+def plan_label(cost) -> str:
+    p = cost.plan
+    return f"{p.bm}x{p.bk}x{p.bn}/{p.schedule}"
+
+
+def phase_fig5(torch, errs) -> dict:
+    """Phase 6f: for each of the 21 shapes, the naive, K-inner-only and
+    skew-aware plans of the port's sweep on gpu_h100 (and at the decode
+    rows the model's best split-K plan, which it does not choose: K3 +
+    K4) through `ops.skew_matmul(plan=...)`, each held against the plain
+    version at phase 3's tolerance, timed with CUDA events beside
+    `torch.matmul` of the same product on the same rotation; modeled us,
+    measured us and shares of 989 TFLOP/s recorded through
+    `bench.suite.Recorder`, validated, written under build/ and read back
+    equal.  The drives run with the launch counts zeroed just before each
+    and read just after; checks and timings come after the read."""
+    from repro_torch.bench import io as bench_io
+    from repro_torch.bench.record import validate_records
+    from repro_torch.bench.suite import Recorder
+    from repro_torch.core import hw, planner, vertexstats
+    from repro_torch.core.config import mm_config
+    from repro_torch.core.costmodel import MatmulDims
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import skew_matmul as mm
+
+    chip = hw.get_chip("gpu_h100")
+    budget = int(0.45 * chip.vmem_bytes)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(5)
+    records: list = []
+    rec = Recorder("fig5", records)
+    counts: collections.Counter = collections.Counter()
+    shares: dict = {}
+    t0 = time.perf_counter()
+    with mm_config(chip=chip):
+        for tag, vary, ratio, m, k, n in fig5_shapes():
+            flops = 2 * m * k * n
+            plans = {mode: planner.plan_matmul(m, k, n, mode=mode)
+                     for mode in FIG5_PLANS}
+            if vary == "decode":
+                sk = planner._search_gemv(MatmulDims(m, k, n), chip, budget)
+                if sk is None:
+                    fail(f"fig5 {tag}: no split-K plan fits the budget")
+                plans["splitk"] = sk
+            sets, next_set = fig5_operands(torch, gen, m, k, n,
+                                           vary == "decode")
+            a, b = sets[0]
+            # ---- the drive: counts zeroed just before, read just after
+            ops.reset_launch_counts()
+            outs = {mode: ops.skew_matmul(a, b, plan=c.plan,
+                                          out_dtype=torch.bfloat16)
+                    for mode, c in plans.items()}
+            torch.cuda.synchronize()
+            counts.update(ops.launch_counts())
+            # ---- end of the drive
+            want = mm.skew_matmul_plain(
+                a, b, bk=plans["skew_aware"].plan.bk,
+                out_dtype=torch.bfloat16)
+            for mode, got in outs.items():
+                kname = ("gemv_splitk_reduce" if mode == "splitk" else
+                         f"skew_matmul_{plans[mode].plan.schedule}")
+                check_kernel(torch, errs, kname, got, want, torch.bfloat16,
+                             f"fig5 {tag} {m}x{k}x{n} {mode} "
+                             f"{plan_label(plans[mode])}")
+            del outs, want
+            us = {}
+            for mode, c in plans.items():
+                us[mode] = 1e3 * time_ms(torch, lambda p=c.plan: (
+                    ops.skew_matmul(*next_set(), plan=p,
+                                    out_dtype=torch.bfloat16)))
+            us["torch"] = 1e3 * time_ms(torch, lambda: torch.matmul(
+                *next_set()))
+            del sets, a, b
+            torch.cuda.empty_cache()
+            share = {mode: flops / (t * 1e-6) / PEAK_BF16
+                     for mode, t in us.items()}
+            shares[tag] = share
+            metrics = {"planned_frac": plans["skew_aware"].roofline_fraction(
+                chip)}
+            names = FIG5_NAMES
+            for mode, c in plans.items():
+                metrics[f"{names[mode]}_modeled_us"] = c.total_s * 1e6
+            for mode, t in us.items():
+                metrics[f"{names[mode]}_us"] = t
+                metrics[f"{names[mode]}_share"] = share[mode]
+            info = {f"{names[mode]}_plan": plan_label(c)
+                    for mode, c in plans.items()}
+            axes = {"chip": chip.name, "vary": vary, "m": m, "k": k, "n": n}
+            if ratio is not None:
+                axes["ratio"] = ratio
+            rec(f"fig5_{chip.name}_{tag}", axes=axes, metrics=metrics,
+                info=info, plan=plans["skew_aware"])
+            say(f"fig5 {tag:12s} {m:>5}x{k:>5}x{n:>5}  modeled "
+                + " / ".join(f"{plans[p].total_s * 1e6:.1f}"
+                             for p in plans) + " us  measured "
+                + " / ".join(f"{names[p]} {us[p]:.1f}" for p in us)
+                + " us  share " + " / ".join(f"{share[p]:.3f}"
+                                              for p in us)
+                + "  plans " + " ".join(f"{names[p]}={plan_label(c)}"
+                                        for p, c in plans.items()))
+        for tag in ("skew", "oskew"):
+            rows = [s for t, s in shares.items() if t.startswith(tag + "_")]
+            metrics = {}
+            for mode, name in (("skew_aware", "planned"), ("naive", "naive"),
+                               ("torch", "torch")):
+                vals = [s[mode] for s in rows]
+                metrics[f"{name}_share_min"] = min(vals)
+                metrics[f"{name}_share_max"] = max(vals)
+                metrics[f"{name}_spread"] = max(vals) - min(vals)
+                metrics[f"{name}_ratio_spread"] = max(vals) / min(vals)
+            rec(f"fig5_{chip.name}_{tag}_spread", axes={"chip": chip.name},
+                metrics=metrics)
+            say(f"fig5 {tag} spread (max - min share; max / min): planned "
+                f"{metrics['planned_spread']:.4f} "
+                f"({metrics['planned_ratio_spread']:.3f}x), naive "
+                f"{metrics['naive_spread']:.4f} "
+                f"({metrics['naive_ratio_spread']:.3f}x), torch.matmul "
+                f"{metrics['torch_spread']:.4f} "
+                f"({metrics['torch_ratio_spread']:.3f}x)")
+        for mode in ("naive", "skew_aware"):
+            for v in vertexstats.paper_vertex_table(mode=mode):
+                say(f"vertex gpu_h100 {mode:10s} (modeled) {v.row()} "
+                    f"{v.schedule} {v.blocks}")
+    validate_records(records)
+    path = ROOT / "build" / "fig5_h100" / "BENCH_fig5_h100.json"
+    written = bench_io.write_run(str(path), records, "full")
+    _, back = bench_io.read_run(written[0])
+    if [r.to_json() for r in back] != [r.to_json() for r in records]:
+        fail("fig5 records did not read back equal")
+    say(f"fig5: {len(records)} records validated, written to "
+        f"{', '.join(written)} and read back equal; launches "
+        f"{dict((n, c) for n, c in counts.items() if c)}; "
+        f"{time.perf_counter() - t0:.1f} s")
+    for name in ("skew_matmul_k_inner", "gemv_splitk_partial",
+                 "gemv_splitk_reduce"):
+        if counts[name] <= 0:
+            fail(f"fig5: {name} was not launched")
+    return {"counts": dict(counts), "records": records}
+
+
 # ----------------------------------------------------------------- dense
 def dense_depth(torch, cfg) -> int:
     """The layers of `cfg` to serve: all of them where their bf16 weights
@@ -2408,6 +2616,10 @@ def main() -> None:
     rows += phase_timings_bsr(torch, tune_path["counts"], errs)
     torch.cuda.empty_cache()
 
+    say("fig5: the paper's Figure 5 on the H100 (naive, K-inner-only and "
+        "skew-aware plans of the gpu_h100 sweep, bf16)")
+    fig5_path = phase_fig5(torch, errs)
+
     # The dense archs: gemma2-27b whole, granite-34b cut, command-r-35b
     # whole where it fits.
     gcfg = get_config("gemma2-27b")
@@ -2435,11 +2647,12 @@ def main() -> None:
     # K1-K4, the dbrx decode gate/up shape for K5, recurrentgemma's batch-4
     # prefill for K6 and K7, mamba2's for K8, the tuner's 4096^2 (32, 128)
     # d 0.25 layout for K9); the other shapes are in the log above.
-    # Launches: summed over the eight main paths.
+    # Launches: summed over the nine main paths.
     launches = {n: sum(c.get(n, 0) for c in (
         phi4_counts, moe_path["counts"], hyb_path["counts"],
-        ssm_path["counts"], tune_path["counts"], gemma_path["counts"],
-        granite_path["counts"], cr_path["counts"])) for n in KERNELS}
+        ssm_path["counts"], tune_path["counts"], fig5_path["counts"],
+        gemma_path["counts"], granite_path["counts"], cr_path["counts"]))
+        for n in KERNELS}
     first = {}
     for r in rows:
         first.setdefault(r["name"], r)

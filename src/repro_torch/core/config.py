@@ -8,8 +8,9 @@ planner the same API:
         logits = model(params, batch)        # every matmul re-planned
 
 `MatmulConfig` is a frozen dataclass of the knobs every planned matmul
-resolves (`backend`, `amp`, `chip`, `plan_mode`, `out_dtype`).  Resolution
-is layered, innermost wins:
+resolves (`backend`, `amp`, `chip`, `plan_mode`, `out_dtype`, and the
+sharded-planning axis `mesh_shape` / `sharding`).  Resolution is layered,
+innermost wins:
 
     defaults  <  REPRO_TORCH_MM_BACKEND env var  <  mm_config stack
               <  explicit per-call kwargs
@@ -29,6 +30,7 @@ import threading
 from typing import Any, Iterator
 
 from repro_torch.core import hw
+from repro_torch.core.costmodel import ShardSpec
 
 BACKENDS = ("torch", "cuda")
 PLAN_MODES = ("skew_aware", "dense", "k_inner", "naive", "tuned")
@@ -49,6 +51,13 @@ class MatmulConfig:
     chip: hw.ChipSpec | str = "gpu_h100"
     plan_mode: str = "skew_aware"
     out_dtype: Any = None
+    # Sharded planning: `mesh_shape` is the device mesh (a tuple of axis
+    # sizes; its product is the chip count) and `sharding` how the planner
+    # splits each matmul over it: "auto" (or None) searches (schedule x
+    # blocks x ShardSpec) jointly, a `ShardSpec` pins the split.
+    # mesh_shape=None is single-chip planning.
+    mesh_shape: tuple | None = None
+    sharding: Any = None
 
     def __post_init__(self):
         if self.backend not in BACKENDS:
@@ -60,10 +69,40 @@ class MatmulConfig:
         if not 0.0 < self.amp <= 1.0:
             raise ValueError(f"amp must be in (0, 1], got {self.amp}")
         object.__setattr__(self, "chip", hw.get_chip(self.chip))
+        if self.mesh_shape is not None:
+            ms = tuple(int(s) for s in self.mesh_shape)
+            if not ms or any(s < 1 for s in ms):
+                raise ValueError(f"mesh_shape must be a non-empty tuple of "
+                                 f"positive ints, got {self.mesh_shape!r}")
+            object.__setattr__(self, "mesh_shape", ms)
+        if self.sharding is not None and self.sharding != "auto" \
+                and not isinstance(self.sharding, ShardSpec):
+            raise ValueError(f"sharding must be None, 'auto', or a ShardSpec,"
+                             f" got {self.sharding!r}")
 
     @property
     def chip_spec(self) -> hw.ChipSpec:
         return self.chip
+
+    @property
+    def mesh_devices(self) -> int:
+        """Total chips in the configured mesh (1 when unsharded)."""
+        n = 1
+        for s in self.mesh_shape or ():
+            n *= s
+        return n
+
+    def replace(self, **kw) -> "MatmulConfig":
+        return dataclasses.replace(self, **kw)
+
+    def provenance(self) -> dict:
+        """The resolved planning knobs as a flat record-friendly dict
+        (`bench.record.Provenance`); only sharded configs carry "mesh"."""
+        out = {"chip": self.chip_spec.name, "amp": self.amp,
+               "backend": self.backend, "plan_mode": self.plan_mode}
+        if self.mesh_shape is not None:
+            out["mesh"] = "x".join(str(s) for s in self.mesh_shape)
+        return out
 
 
 _FIELDS = frozenset(f.name for f in dataclasses.fields(MatmulConfig))
@@ -99,6 +138,11 @@ def resolve(**explicit) -> MatmulConfig:
         merged.update(layer)
     merged.update({k: v for k, v in explicit.items() if v is not None})
     return MatmulConfig(**merged)
+
+
+def current() -> MatmulConfig:
+    """The config a kwarg-less matmul would resolve right now."""
+    return resolve()
 
 
 @contextlib.contextmanager
@@ -137,6 +181,20 @@ def add_cli_args(ap) -> None:
                     help="matmul backend (default: env var, then cuda)")
     ap.add_argument("--plan-mode", default=None, choices=PLAN_MODES,
                     help="planner search mode")
+    ap.add_argument("--mm-mesh", default=None, metavar="SHAPE",
+                    help="device mesh for sharded planning, comma-separated "
+                         "axis sizes (e.g. 4 or 4,2); default: single-chip")
+
+
+def parse_mesh(mesh: str | None) -> tuple[int, ...] | None:
+    """'4,2' -> (4, 2); None / '' fall through to the context."""
+    if not mesh:
+        return None
+    try:
+        return tuple(int(s) for s in str(mesh).split(","))
+    except ValueError:
+        raise ValueError(f"--mm-mesh must be comma-separated ints, "
+                         f"got {mesh!r}") from None
 
 
 def scope_from_args(args):
@@ -144,4 +202,5 @@ def scope_from_args(args):
     return mm_config(amp=getattr(args, "amp", None),
                      chip=getattr(args, "chip", None),
                      backend=getattr(args, "mm_backend", None),
-                     plan_mode=getattr(args, "plan_mode", None))
+                     plan_mode=getattr(args, "plan_mode", None),
+                     mesh_shape=parse_mesh(getattr(args, "mm_mesh", None)))

@@ -1,6 +1,6 @@
 """Skew-aware matmul (schedule x block-shape) planner under an AMP budget.
 
-The port of the JAX package's planner, single-chip modes only:
+The port of the JAX package's planner:
 
   * candidate blocks are granule-aligned (`chip.mxu_sublanes` on m below
     the lane width, `chip.mxu_lanes` otherwise and on k/n),
@@ -8,24 +8,31 @@ The port of the JAX package's planner, single-chip modes only:
     shared memory, so every plan is launchable),
   * the search covers the dense schedule family, the batch-grid variant
     when a leading batch dim is present, and at decode shapes the split-K
-    GEMV family; the modeled argmin wins.
+    GEMV family; the modeled argmin wins,
+  * under a `mesh_shape` of more than one chip the search runs jointly
+    over (schedule x blocks x ShardSpec), each candidate priced with its
+    collective terms,
+  * `sweep_aspect_ratios` is the paper's Fig. 5 sweep: naive,
+    K-inner-only and skew-aware plans per aspect ratio.
 
-Plans are memoized per (dims, chip, amp, mode): PyTorch runs eagerly and
-plans on every call of every step, so the cache is what keeps host time
-down.  The "tuned" mode reads the measured autotuner's active cache
-(`repro_torch.tune.runtime`) outside that memo.  Sharded planning is not
-ported yet.
+Plans are memoized per (dims, chip, amp, mode[, mesh]): PyTorch runs
+eagerly and plans on every call of every step, so the cache is what keeps
+host time down.  The "tuned" mode reads the measured autotuner's active
+cache (`repro_torch.tune.runtime`) outside that memo.  The JAX package's
+plan spans and candidate counts wait for the obs port.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import functools
+import math
 from typing import Iterable
 
 from repro_torch.core import config, hw
 from repro_torch.core.costmodel import (ALL_SCHEDULES, SCHEDULES, BlockPlan,
-                                        MatmulCost, MatmulDims, cost_matmul)
+                                        MatmulCost, MatmulDims, ShardSpec,
+                                        cost_matmul, cost_sharded_matmul)
 
 
 def _round_up(a: int, b: int) -> int:
@@ -64,7 +71,7 @@ def _feasible_costs(d: MatmulDims, chip: hw.ChipSpec, budget: int,
                 for bn in bn_cands:
                     p = BlockPlan(bm, bk, bn, schedule=schedule,
                                   batch_grid=batch_grid)
-                    if p.vmem_bytes(d) > budget:
+                    if p.vmem_bytes(d, chip) > budget:
                         continue
                     yield cost_matmul(d, p, chip)
 
@@ -95,7 +102,7 @@ def _gemv_costs(d: MatmulDims, chip: hw.ChipSpec,
     for bk in _aligned_candidates(d.k, lane, 4096):
         for bn in _aligned_candidates(d.n, lane, 4096):
             p = BlockPlan(bm, bk, bn, schedule="splitk")
-            if p.vmem_bytes(d) > budget:
+            if p.vmem_bytes(d, chip) > budget:
                 continue
             yield cost_matmul(d, p, chip)
 
@@ -144,9 +151,50 @@ def enumerate_plans(m: int, k: int, n: int, *, dtype_bytes: int = 2,
     return costs[:top]
 
 
+def _divisors(n: int) -> list[int]:
+    return [d for d in range(1, n + 1) if n % d == 0]
+
+
+@functools.lru_cache(maxsize=1024)
+def shard_candidates(devices: int, m: int, k: int, n: int,
+                     batch: int = 1) -> tuple[ShardSpec, ...]:
+    """Every way to factor `devices` chips over the four matmul dims:
+    ordered factorizations (batch, m, k, n), no shard count above its dim.
+    k-splits carry partials="all_reduce"; weights stay resident (no
+    zero3).  A problem too small for any factorization replicates."""
+    specs = []
+    for sb in _divisors(devices):
+        if sb > batch:
+            continue
+        rem_b = devices // sb
+        for sm in _divisors(rem_b):
+            if sm > m:
+                continue
+            rem_m = rem_b // sm
+            for sk in _divisors(rem_m):
+                sn = rem_m // sk
+                if sk > k or sn > n:
+                    continue
+                specs.append(ShardSpec(m=sm, k=sk, n=sn, batch=sb))
+    if not specs:
+        specs.append(ShardSpec())
+    return tuple(specs)
+
+
+def _sharded_order(c: MatmulCost) -> tuple:
+    """Deterministic ranking across (ShardSpec x schedule x blocks):
+    modeled time, then less exposed collective, then the local plan
+    order, then the spec's shard counts (batch, m, k, n)."""
+    s = c.sharding or ShardSpec()
+    return (c.total_s, c.collective_s) + _plan_order(c) + (
+        s.batch, s.m, s.k, s.n)
+
+
 def plan_matmul(m: int, k: int, n: int, *, dtype_bytes: int = 2,
                 amp: float | None = None, chip: hw.ChipSpec | str | None = None,
-                mode: str | None = None, batch: int = 1) -> MatmulCost:
+                mode: str | None = None, batch: int = 1,
+                mesh_shape: tuple | None = None,
+                sharding: ShardSpec | str | None = None) -> MatmulCost:
     """Choose a (schedule, block shape) plan for A[batch, m, k] @ B[k, n].
 
     amp / chip / mode left as None resolve through the active `mm_config`
@@ -164,8 +212,23 @@ def plan_matmul(m: int, k: int, n: int, *, dtype_bytes: int = 2,
                      a hit returns the measured winner costed on the actual
                      dims; a miss, or a cached plan that no longer fits the
                      budget, falls back to "skew_aware".
+
+    Sharded planning: when the resolved config's `mesh_shape` holds more
+    than one chip, every candidate ShardSpec's per-device dims are
+    block-searched and priced with their collective terms
+    (`cost_sharded_matmul`), and the global argmin wins.  An explicit
+    `ShardSpec` (kwarg or `mm_config` field) pins the split; "auto" / None
+    searches them all.  "tuned" falls back to the modeled sharded search.
     """
-    cfg = config.resolve(amp=amp, chip=chip, plan_mode=mode)
+    cfg = config.resolve(amp=amp, chip=chip, plan_mode=mode,
+                         mesh_shape=mesh_shape, sharding=sharding)
+    if cfg.mesh_devices > 1:
+        spec = cfg.sharding if isinstance(cfg.sharding, ShardSpec) else None
+        smode = cfg.plan_mode if cfg.plan_mode != "tuned" else "skew_aware"
+        return _plan_matmul_sharded_cached(
+            m, k, n, dtype_bytes=dtype_bytes, amp=cfg.amp,
+            chip=cfg.chip_spec, mode=smode, batch=batch,
+            devices=cfg.mesh_devices, spec=spec)
     if cfg.plan_mode == "tuned":
         # The active tune cache is mutable state: resolved outside the lru
         # cache, which memoizes only the modeled fallback.
@@ -189,7 +252,7 @@ def _plan_matmul_tuned(m: int, k: int, n: int, *, dtype_bytes: int,
         d = MatmulDims(m=m, k=k, n=n, dtype_bytes=dtype_bytes, batch=batch)
         # Measured on the bucket representative; the actual dims can be up
         # to 2x larger per axis, so the budget is checked again.
-        if plan.vmem_bytes(d) <= int(amp * chip.vmem_bytes):
+        if plan.vmem_bytes(d, chip) <= int(amp * chip.vmem_bytes):
             return cost_matmul(d, plan, chip)
     return _plan_matmul_cached(m, k, n, dtype_bytes=dtype_bytes, amp=amp,
                                chip=chip, mode="skew_aware", batch=batch)
@@ -229,6 +292,72 @@ def _plan_matmul_cached(m: int, k: int, n: int, *, dtype_bytes: int,
     return best
 
 
+def _naive_shard(devices: int, d: MatmulDims) -> ShardSpec:
+    """The naive baseline's sharding: pure data parallelism, rows (batch
+    folded) split as far as the divisors allow, never k or n."""
+    best = ShardSpec()
+    for s in shard_candidates(devices, d.m, d.k, d.n, d.batch):
+        if s.k == 1 and s.n == 1 and s.m * s.batch > best.m * best.batch:
+            best = s
+    return best
+
+
+@functools.lru_cache(maxsize=4096)
+def _plan_matmul_sharded_cached(m: int, k: int, n: int, *, dtype_bytes: int,
+                                amp: float, chip: hw.ChipSpec, mode: str,
+                                batch: int, devices: int,
+                                spec: ShardSpec | None) -> MatmulCost:
+    """Joint (schedule x blocks x ShardSpec) argmin over `devices` chips.
+
+    Every candidate sharding's per-device dims get the full block search
+    (the batch-grid variant, and split-K at decode-scale local rows), each
+    candidate is priced with its collective terms, and `_sharded_order`
+    picks the winner.  An explicit `spec` pins the sharding.
+    """
+    d = MatmulDims(m=m, k=k, n=n, dtype_bytes=dtype_bytes, batch=batch)
+    budget = int(amp * chip.vmem_bytes)
+
+    if mode == "naive":
+        # Fixed square blocks on the per-device shard of a fixed DP split.
+        d = dataclasses.replace(d, m=m * batch, batch=1)
+        s = spec if spec is not None else _naive_shard(devices, d)
+        p = _clip_plan(BlockPlan(512, 512, 512), s.local_dims(d), chip,
+                       budget)
+        return cost_sharded_matmul(d, p, chip, s)
+
+    specs = (spec,) if spec is not None else shard_candidates(
+        devices, m, k, n, batch)
+    schedules = ("k_inner",) if mode == "k_inner" else SCHEDULES
+    best: MatmulCost | None = None
+
+    def consider(local: MatmulCost, s: ShardSpec) -> None:
+        nonlocal best
+        if best is not None and local.total_s > best.total_s:
+            # Exposed collective time is never negative, so the local cost
+            # lower-bounds the sharded one (ties are still priced).
+            return
+        c = cost_sharded_matmul(d, local.plan, chip, s, local=local)
+        if best is None or _sharded_order(c) < _sharded_order(best):
+            best = c
+
+    for s in specs:
+        ld = s.local_dims(d)
+        for local in _feasible_costs(ld, chip, budget, schedules):
+            consider(local, s)
+        if mode == "skew_aware" and gemv_applicable(ld.m, ld.batch, chip):
+            for local in _gemv_costs(ld, chip, budget):
+                consider(local, s)
+        if ld.batch > 1 and mode != "k_inner":
+            for local in _feasible_costs(ld, chip, budget, ("k_inner",),
+                                         batch_grid=True):
+                consider(local, s)
+    if best is None:
+        s = spec if spec is not None else ShardSpec()
+        p = BlockPlan(chip.mxu_sublanes, chip.mxu_lanes, chip.mxu_lanes)
+        best = cost_sharded_matmul(d, p, chip, s)
+    return best
+
+
 def _clip_plan(p: BlockPlan, d: MatmulDims, chip: hw.ChipSpec,
                budget: int) -> BlockPlan:
     bm = min(p.bm, _round_up(d.m, chip.mxu_sublanes))
@@ -236,7 +365,7 @@ def _clip_plan(p: BlockPlan, d: MatmulDims, chip: hw.ChipSpec,
     bn = min(p.bn, _round_up(d.n, chip.mxu_lanes))
     p = BlockPlan(bm, bk, bn)
     # halve the largest dim until it fits the budget
-    while p.vmem_bytes(d) > budget:
+    while p.vmem_bytes(d, chip) > budget:
         if p.bk >= max(p.bm, p.bn) and p.bk > chip.mxu_lanes:
             p = BlockPlan(p.bm, p.bk // 2, p.bn)
         elif p.bn >= p.bm and p.bn > chip.mxu_lanes:
@@ -246,3 +375,45 @@ def _clip_plan(p: BlockPlan, d: MatmulDims, chip: hw.ChipSpec,
         else:
             break
     return p
+
+
+def sweep_aspect_ratios(total_elems: int, ratios: Iterable[float],
+                        n_out: int = 4096, *, dtype_bytes: int = 2,
+                        amp: float | None = None,
+                        chip: hw.ChipSpec | str | None = None,
+                        vary: str = "a_aspect") -> list[dict]:
+    """The paper's Fig. 5 sweep, in two families.
+
+    vary="a_aspect" (the paper's): A's two dims varied at constant A size,
+    the output width fixed at n_out; ratio = m / contraction (< 1 is
+    right-skewed, wide A).  vary="output": the output's aspect m / n
+    varied at constant C size, the contraction fixed at n_out.
+
+    One record per ratio: naive, K-inner-only and skew-aware roofline
+    fractions, grid steps, bounds, the chosen schedule and blocks, and
+    the winning `MatmulCost` (`planned_cost`).  amp / chip left as None
+    resolve through the `mm_config` stack.
+    """
+    cfg = config.resolve(amp=amp, chip=chip)
+    amp, chip = cfg.amp, cfg.chip_spec
+    out = []
+    for r in ratios:
+        m = max(1, int(round(math.sqrt(total_elems * r))))
+        other = max(1, int(round(math.sqrt(total_elems / r))))
+        k, n = (n_out, other) if vary == "output" else (other, n_out)
+        kw = dict(dtype_bytes=dtype_bytes, amp=amp, chip=chip)
+        naive = plan_matmul(m, k, n, mode="naive", **kw)
+        single = plan_matmul(m, k, n, mode="k_inner", **kw)
+        planned = plan_matmul(m, k, n, mode="skew_aware", **kw)
+        out.append(dict(
+            chip=chip.name, ratio=r, m=m, k=k, n=n,
+            naive_fraction=naive.roofline_fraction(chip),
+            single_fraction=single.roofline_fraction(chip),
+            planned_fraction=planned.roofline_fraction(chip),
+            naive_grid=naive.grid_steps, planned_grid=planned.grid_steps,
+            naive_bound=naive.bound, planned_bound=planned.bound,
+            schedule=planned.plan.schedule,
+            plan=(planned.plan.bm, planned.plan.bk, planned.plan.bn),
+            planned_cost=planned,
+        ))
+    return out

@@ -13,12 +13,16 @@ Configuration resolves through the `mm_config` stack (repro_torch.core.
 config).  Fused epilogues are structured (`Epilogue`) or legacy token
 strings.  ``with plan_capture() as log:`` collects the `MatmulCost` of
 every matmul issued inside the block, and the `SparseMatmulCost` of every
-grouped expert GEMM (captures nest).
+grouped expert GEMM (captures nest).  Contractions that are not
+(..., m, k) @ (k, n) go through `einsum_mm`, which logs an
+`UnplannedContraction` marker so the captured workload is complete.
+`enable_plan_log` / `plan_log` are a process-global capture.
 """
 
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 from typing import Iterator
 
 import torch
@@ -28,6 +32,27 @@ from repro_torch.core.epilogue import Epilogue
 from repro_torch.core.planner import plan_matmul
 
 _ACTIVE_LOGS: list[list] = []
+_LEGACY_LOG: list = []
+
+
+@dataclasses.dataclass(frozen=True)
+class UnplannedContraction:
+    """Plan-log marker for a contraction the planner did not decompose
+    (one per `einsum_mm` call).  Consumers that aggregate `MatmulCost`
+    entries filter on isinstance."""
+
+    spec: str
+    a_shape: tuple[int, ...]
+    b_shape: tuple[int, ...]
+    dtype_bytes: int
+
+
+def _deregister_log(log: list) -> None:
+    # identity, not equality: two empty captures compare equal
+    for i, entry in enumerate(_ACTIVE_LOGS):
+        if entry is log:
+            del _ACTIVE_LOGS[i]
+            return
 
 
 @contextlib.contextmanager
@@ -38,10 +63,22 @@ def plan_capture() -> Iterator[list]:
     try:
         yield log
     finally:
-        for i, entry in enumerate(_ACTIVE_LOGS):
-            if entry is log:
-                del _ACTIVE_LOGS[i]
-                break
+        _deregister_log(log)
+
+
+def enable_plan_log(enabled: bool = True) -> None:
+    """Start (cleared) or stop the process-global capture `plan_log`
+    reads."""
+    if enabled:
+        _LEGACY_LOG.clear()
+        if not any(entry is _LEGACY_LOG for entry in _ACTIVE_LOGS):
+            _ACTIVE_LOGS.append(_LEGACY_LOG)
+    else:
+        _deregister_log(_LEGACY_LOG)
+
+
+def plan_log() -> list:
+    return list(_LEGACY_LOG)
 
 
 def record_plan(cost) -> None:
@@ -80,7 +117,8 @@ def matmul(a: torch.Tensor, b: torch.Tensor, *, backend: str | None = None,
     for s in lead:
         batch *= s
     cost = plan_matmul(m, k, n, dtype_bytes=a.element_size(), amp=cfg.amp,
-                       chip=cfg.chip_spec, mode=cfg.plan_mode, batch=batch)
+                       chip=cfg.chip_spec, mode=cfg.plan_mode, batch=batch,
+                       mesh_shape=cfg.mesh_shape, sharding=cfg.sharding)
     record_plan(cost)
     odt = cfg.out_dtype or a.dtype
 
@@ -110,3 +148,14 @@ def matmul(a: torch.Tensor, b: torch.Tensor, *, backend: str | None = None,
     z = epilogue_mod.apply_spec(z, ep.spec, ep.operands())
     return z.to(odt)
 
+
+
+def einsum_mm(spec: str, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """einsum for the few contractions that are not (..., m, k) @ (k, n):
+    fp32 sums (``torch.einsum`` on fp32 copies), cast back to a's dtype.
+    Each call records an `UnplannedContraction` so `plan_capture()` sees
+    the whole workload."""
+    record_plan(UnplannedContraction(
+        spec=spec, a_shape=tuple(a.shape), b_shape=tuple(b.shape),
+        dtype_bytes=a.element_size()))
+    return torch.einsum(spec, a.float(), b.float()).to(a.dtype)

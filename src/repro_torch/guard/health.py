@@ -1,8 +1,8 @@
 """Process-wide health counters, backed by a plain dict.
 
 The JAX package's verbs and counter names; its metrics-registry facade
-and the bench-provenance fragment wait for the obs port.  Counters the
-port records:
+(and with it the histogram percentiles of the bench-provenance fragment)
+waits for the obs port.  Counters the port records:
 
   tuned_hits / tuned_misses   plan_mode="tuned" cache resolution
   tuned_hits_gemv             hits whose cached winner is split-K
@@ -53,3 +53,9 @@ def reset() -> None:
     with _LOCK:
         _COUNTS.clear()
         _GAUGES.clear()
+
+
+def provenance_fields() -> dict[str, int] | None:
+    """The non-zero counters as a bench-provenance fragment
+    (`bench.record.Provenance.guard`), or None on a clean process."""
+    return snapshot() or None

@@ -10,8 +10,10 @@ import torch
 
 from repro.core import planner as jplanner
 from repro_torch.configs.base import get_config
-from repro_torch.core import config, hw, planner
+from repro_torch.core import config, costmodel, hw, planner
 from repro_torch.core.costmodel import MatmulDims
+from repro_torch.kernels.gemv_splitk import SMEM_MAX as SPLITK_SMEM
+from repro_torch.kernels.gemv_splitk import reduce_strip
 from repro_torch.kernels.skew_matmul import SMEM_MAX, smem_bytes
 
 REF_CHIPS = ["tpu_v5e", "ipu_gc200", "gpu_a30", "gpu_rtx2080ti"]
@@ -121,11 +123,102 @@ def test_h100_family_switch_iff_modeled_win(m):
 
 def test_h100_splitk_never_fits_phi4_lm_head():
     """The reference's split-K working set holds the whole (gk, bm, bn)
-    slab for pass 2; under the ~104 KB H100 budget no split-K plan fits the
-    phi4-mini LM head (k = 3072), so the planner cannot choose the family
-    there (recorded in PERF.md)."""
+    slab for pass 2; under that term no split-K plan fits the ~104 KB H100
+    budget at the phi4-mini LM head (k = 3072).  The H100's own term
+    counts the strip K4 stages instead (see the tests below)."""
     chip = hw.get_chip("gpu_h100")
     budget = int(0.45 * chip.vmem_bytes)
     for m in (1, 4):
         d = MatmulDims(m=m, k=3072, n=200064, dtype_bytes=2)
-        assert planner._search_gemv(d, chip, budget) is None
+        cands = [c for c in planner._gemv_costs(d, chip, 10**12)]
+        assert cands
+        assert all(c.plan.vmem_bytes(d) > budget for c in cands)
+
+
+def test_splitk_stage_bytes_mirror_reduce_strip():
+    """The H100 pass-2 term is K4's strip: gk x reduce_strip(gk) fp32
+    partials, and past the depth where no strip fits, the strip of the
+    depth the device-memory folds leave."""
+    assert costmodel.SPLITK_STRIP_SMEM == {"gpu_h100": SPLITK_SMEM}
+    for gk in list(range(1, 2000)) + [14527, 14528, 14529, 30000, 100000]:
+        got = costmodel._reduce_stage_bytes(gk, 4, SPLITK_SMEM)
+        depth = gk
+        while reduce_strip(depth) == 0:
+            depth = (depth + 1) // 2
+        assert got == depth * reduce_strip(depth) * 4, gk
+        assert got <= SPLITK_SMEM
+
+
+@pytest.mark.parametrize("chip", REF_CHIPS)
+def test_splitk_term_leaves_reference_chips_unchanged(chip):
+    """Only gpu_h100 counts K4's strip: on the reference chips a split-K
+    plan's working set is the reference's, and decode plans at phi4's
+    shapes equal the JAX package's."""
+    from repro.core.costmodel import BlockPlan as JBlockPlan
+    from repro.core.costmodel import MatmulDims as JDims
+    spec = hw.get_chip(chip)
+    for m, k, n, batch in _phi4_shapes():
+        for bk, bn in ((64, 64), (128, 256), (512, 1024)):
+            p = planner.BlockPlan(8, bk, bn, schedule="splitk")
+            jp = JBlockPlan(8, bk, bn, schedule="splitk")
+            d = MatmulDims(m=m, k=k, n=n, batch=batch)
+            assert p.vmem_bytes(d, spec) == jp.vmem_bytes(
+                JDims(m=m, k=k, n=n, batch=batch))
+        want = jplanner.plan_matmul(m, k, n, chip=chip, batch=batch)
+        got = planner.plan_matmul(m, k, n, chip=chip, batch=batch)
+        assert _key(got) == _key(want) and got.total_s == want.total_s
+
+
+# phi4-mini's decode down projection and LM head at batch 4.
+PHI4_DOWN, PHI4_LM_HEAD = (4, 8192, 3072), (4, 3072, 200064)
+
+
+@pytest.mark.parametrize("shape", [PHI4_DOWN, PHI4_LM_HEAD])
+def test_h100_splitk_fits_phi4_decode(shape):
+    """On gpu_h100 split-K candidates now pass the budget at phi4's
+    decode down projection and LM head."""
+    chip = hw.get_chip("gpu_h100")
+    budget = int(0.45 * chip.vmem_bytes)
+    d = MatmulDims(*shape)
+    best = planner._search_gemv(d, chip, budget)
+    assert best is not None
+    assert best.vmem_bytes <= budget
+    assert best.plan.vmem_bytes(d) > budget        # the slab term would not
+    assert any(c.plan.schedule == "splitk" for c in planner.enumerate_plans(
+        *shape, chip="gpu_h100", top=10**6))
+
+
+# (split-K plan, its device-memory bytes, k_inner plan, its bytes) as the
+# model prices them on gpu_h100: both memory-bound, so bytes decide.
+H100_DECODE_CHOICE = {
+    PHI4_DOWN: ((64, 128, 64), 59_793_408, (64, 64, 128), 51_929_088),
+    PHI4_LM_HEAD: ((64, 128, 64), 1_461_267_456, (64, 64, 128),
+                   1_269_206_016),
+}
+
+
+@pytest.mark.parametrize("shape", [PHI4_DOWN, PHI4_LM_HEAD])
+def test_h100_decode_choice_pinned(shape):
+    """The model still picks k_inner at both shapes, and the memory term
+    decides it: split-K re-reads A once per 64-wide n block and writes and
+    reads back its fp32 partial slab (2 x gk x m x n x 4 bytes), which the
+    model prices at device-memory rate."""
+    sk_blocks, sk_bytes, ki_blocks, ki_bytes = H100_DECODE_CHOICE[shape]
+    chip = hw.get_chip("gpu_h100")
+    m, k, n = shape
+    d = MatmulDims(*shape)
+    gemv = planner._search_gemv(d, chip, int(0.45 * chip.vmem_bytes))
+    dense = planner.plan_matmul(*shape, mode="dense")
+    got = planner.plan_matmul(*shape)
+    assert (gemv.plan.bm, gemv.plan.bk, gemv.plan.bn) == sk_blocks
+    assert (dense.plan.bm, dense.plan.bk, dense.plan.bn) == ki_blocks
+    assert gemv.hbm_bytes == sk_bytes and dense.hbm_bytes == ki_bytes
+    for c in (gemv, dense):
+        assert c.bound == "memory"
+        assert c.total_s == c.hbm_bytes / chip.hbm_bw
+    gk = -(-k // sk_blocks[1])
+    gn_sk, gn_ki = -(-n // sk_blocks[2]), -(-n // ki_blocks[2])
+    slab = 2 * gk * m * n * 4
+    assert sk_bytes - ki_bytes == slab + m * k * 2 * (gn_sk - gn_ki)
+    assert got.plan.schedule == "k_inner" and got == dense
+    assert gemv.total_s > dense.total_s
