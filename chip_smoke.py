@@ -45,6 +45,33 @@ nonzero and prints no result:
      (64, 64, 128), K2 at the LM head and the o projection (4 x 1 rows);
      K3 also at the decode gate/up and down projections (gk 24, 64); K4
      also at slab depths 84 (dbrx's k 10752 at bk 128) and 101;
+  6g. the guard ladder and the obs spans (the tenth main path), phi4's
+     weights still loaded: (1) the JAX guard suite's chaos scenarios
+     (`guard.chaos`) on CUDA tensors through `ops` — all_faults,
+     transient_recovers and amp_overflow at 256 x 192 x 320 fp32 and
+     phi4's decode gate/up 4 x 3072 x 16384 bf16, amp_overflow at the
+     sparse site (K9, the tuner's (32, 128) layout at d 0.1) and the
+     grouped site (K5, dbrx's decode expert GEMM), cache_quarantine and
+     decode_scrub (mamba2-2.7b reduced) — each under a bare trace, its
+     ledger equal to the CPU's (`GPU_H100_LEDGERS`), balanced, its rung
+     and last kernel blocks the expected ones (K1, K5 and K9 at the
+     conservative rung), the output at phase 3's tolerance; an all-NaN
+     lhs under an armed scope (no fault injected) raises NumericFault
+     at the dense ladder, the dense explicit envelope and the grouped
+     ladder, no rung moving; (2)
+     `guarded_decode_step` at full width (b4 p128) under NaN/Inf
+     injection: one scrubbed batch, finite logits, the "torch" re-run
+     within phase 5's bounds of an unarmed eager step; (3) host us a
+     disarmed `ops.skew_matmul(plan=)` beside the wrapper alone (2000
+     calls), of a disarmed `ops.grouped_matmul` with no plan (the
+     ladder, as dbrx's experts run) beside its wrapper, phi4's eager
+     prefill and decode; (4) a `DecodeGraph`
+     captured under `trace_scope(clock=WallClock())`: spans from the
+     warm-up and capture only, replays bitwise equal to an unarmed
+     graph's; (5) `python -m repro_torch.launch.trace --clock wall
+     --size 4096 --skew 8 --check` in a subprocess, and the 21 fig5
+     shapes (bf16) through `skewmm.matmul` under the sim clock (drift
+     exactly 0: a gate) and the wall clock (the drift table: a finding);
 then dbrx-132b's MoE layers, after phi4's weights are freed:
   3b. K5 parity — the grouped expert GEMM against its plain version at the
      dbrx decode shapes (16 experts x 8 capacity rows, gate/up and down),
@@ -175,7 +202,11 @@ then the dense archs, each after the last one's weights are freed:
      x 128 + 16, as in phase 4f; parity at 2 layers;
   7. the served decode ms per token, graphed and eager, of every run; the
      `kernels` JSON line (K1-K9, K8's three kernels apart; launches summed
-     over the nine main paths), then the device line.
+     over the ten main paths), then the device line.
+Every phase from 3 on runs between two `guard_disarmed` checks: no ladder
+floor above 0, no fault scope or trace armed, and no fallbacks /
+plans_rejected / scrubbed_batches / faults_* / obs_* counter (a trip
+latches for the process, and the bottom rung is the plain oracle).
 Phi4's and dbrx's prefills reach K7 too (phases 4, 4b).  With --profile,
 each served model also profiles one batch-4 prefill, one eager decode
 step and one replay of a decode graph.
@@ -189,6 +220,7 @@ import functools
 import itertools
 import json
 import math
+import os
 import subprocess
 import sys
 import time
@@ -2416,6 +2448,430 @@ def phase_fig5(torch, errs) -> dict:
     return {"counts": dict(counts), "records": records}
 
 
+# ----------------------------------------------------------------- guard
+# Phase 6g: the guard ladder and the obs spans on the card.  A ladder trip
+# latches for the life of the process and its bottom rung is the plain
+# PyTorch oracle, so every phase is bracketed by `guard_disarmed`: no
+# floor above 0 and none of these counters, or the smoke fails.
+GUARD_KEYS = ("fallbacks", "plans_rejected", "scrubbed_batches")
+GUARD_PREFIXES = ("faults_", "obs_")
+# The chaos ledgers of phase 6g: health.snapshot() and the ladder floor of
+# each scenario on gpu_h100 with the "cuda" backend, as the CPU gives them
+# (tests/test_torch_guard.py, GPU_H100_LEDGERS).  At 256 x 192 x 320 fp32
+# the modeled plan is the minimum-granule (64, 64, 64) itself, which the
+# squeezed validator admits; at 4 x 3072 x 16384 bf16 it is (64, 64, 128).
+_ALL_FAULTS_FLOOR_PLAN = {
+    "fallback_level": 3, "fallbacks": 3, "faults_caught": 8,
+    "faults_injected": 8, "injected_cache_corrupt": 1,
+    "injected_inf_output": 3, "injected_nan_output": 3,
+    "injected_transient_raise": 1, "retries": 1, "tuned_misses": 1}
+_ALL_FAULTS_TRIPPED = {
+    "fallback_level": 3, "fallbacks": 3, "faults_caught": 6,
+    "faults_injected": 6, "injected_amp_overflow": 2,
+    "injected_cache_corrupt": 1, "injected_inf_output": 1,
+    "injected_nan_output": 1, "injected_transient_raise": 1,
+    "plans_rejected": 2, "retries": 1, "tuned_misses": 1}
+_TRANSIENT = {"faults_caught": 2, "faults_injected": 2,
+              "injected_transient_raise": 2, "retries": 2}
+_AMP_TRIPPED = {"fallback_level": 2, "fallbacks": 1, "faults_caught": 1,
+                "faults_injected": 1, "injected_amp_overflow": 1,
+                "plans_rejected": 1}
+_DECODE_MAMBA = {"faults_caught": 28, "faults_injected": 28,
+                 "injected_inf_output": 14, "injected_nan_output": 14,
+                 "scrubbed_batches": 1}
+GPU_H100_LEDGERS = {
+    ("all_faults", "256x192x320"): (_ALL_FAULTS_FLOOR_PLAN, 3),
+    ("transient_recovers", "256x192x320"): (_TRANSIENT, 0),
+    ("amp_overflow", "256x192x320"): ({}, 0),
+    ("cache_quarantine", ""): ({}, 0),
+    ("decode_scrub", "mamba2-2.7b reduced"): (_DECODE_MAMBA, 0),
+    ("all_faults", "4x3072x16384"): (_ALL_FAULTS_TRIPPED, 3),
+    ("transient_recovers", "4x3072x16384"): (_TRANSIENT, 0),
+    ("amp_overflow", "4x3072x16384"): (_AMP_TRIPPED, 2),
+    ("amp_overflow", "sparse"): (_AMP_TRIPPED, 2),
+    ("amp_overflow", "grouped"): (_AMP_TRIPPED, 2),
+}
+# the drift workload of `launch.trace` on the card (fp32, skewmm.matmul)
+TRACE_SIZE, TRACE_SKEW = 4096, 8
+# host-clock dispatch overhead: calls timed a side at 8 x 256 x 512 bf16
+OVERHEAD_CALLS = 2000
+
+
+def guard_disarmed(tag: str) -> None:
+    """Fail unless the guard is disarmed: no ladder floor above 0, and no
+    fallbacks / plans_rejected / scrubbed_batches / faults_* / obs_*
+    counter in the health snapshot."""
+    from repro_torch.guard import fallback, faults, health
+    from repro_torch.obs import spans
+    snap = health.snapshot()
+    bad = [k for k in snap if k in GUARD_KEYS or k.startswith(GUARD_PREFIXES)]
+    if fallback.max_floor() or bad or faults.active() is not None \
+            or spans.tracing():
+        fail(f"guard engaged {tag}: max_floor {fallback.max_floor()}, "
+             f"snapshot {snap}")
+
+
+def guarded(tag: str, fn, *args, **kw):
+    """Run one phase between two `guard_disarmed` checks."""
+    guard_disarmed(f"before {tag}")
+    out = fn(*args, **kw)
+    guard_disarmed(f"after {tag}")
+    return out
+
+
+def chaos_case(torch, scenario: str, shape: str, call, want, expect_rung,
+               expect_blocks, kernel: str, counts) -> None:
+    """One chaos scenario at one site on the card: run under a bare trace
+    (no clock: the dispatch span names the rung that delivered and the
+    blocks of the last kernel run), its guard ledger (obs counters set
+    apart) equal to the CPU's, the kernel launched, the output within
+    phase 3's tolerance of the plain version."""
+    from repro_torch.guard import chaos
+    from repro_torch.kernels import ops
+    from repro_torch.obs import trace_scope
+
+    ops.reset_launch_counts()
+    with trace_scope() as tr:
+        r = chaos.run(lambda: (getattr(chaos, scenario)(call), {}))
+    torch.cuda.synchronize()
+    launched = ops.launch_counts()
+    counts.update(launched)
+    ledger = {k: v for k, v in r.snapshot.items() if not k.startswith("obs_")}
+    (disp,) = [sp for sp in tr.spans() if sp.kind == "dispatch"]
+    rungs = [(sp.name, sp.attrs.get("error")) for sp in tr.spans()
+             if sp.kind == "rung"]
+    diff = (r.out.float() - want.float()).abs().max().item()
+    scale = want.float().abs().max().item()
+    tol = tolerance(str(want.dtype).split(".")[-1], scale)
+    say(f"6g chaos {scenario:18s} {shape:14s} ledger {r.counters} floor "
+        f"{r.floor}; rung {disp.attrs.get('rung')} blocks "
+        f"{disp.attrs.get('blocks')}; rungs {rungs}; {kernel} launches "
+        f"{launched.get(kernel, 0)}; max_abs_err {diff:.3e} tol {tol:.2e}")
+    want_ledger, want_floor = GPU_H100_LEDGERS[(scenario, shape)]
+    if (ledger, r.floor) != (want_ledger, want_floor):
+        fail(f"6g {scenario} {shape}: ledger {ledger} floor {r.floor}, the "
+             f"CPU's {want_ledger} floor {want_floor}")
+    if not r.balanced or diff > tol:
+        fail(f"6g {scenario} {shape}: unbalanced ledger or output off")
+    if disp.attrs.get("rung") != expect_rung or launched.get(kernel, 0) < 1:
+        fail(f"6g {scenario} {shape}: rung {disp.attrs.get('rung')} (want "
+             f"{expect_rung}), {kernel} launches {launched.get(kernel, 0)}")
+    if expect_blocks is not None and \
+            tuple(disp.attrs.get("blocks", ())) != expect_blocks:
+        fail(f"6g {scenario} {shape}: last kernel blocks "
+             f"{disp.attrs.get('blocks')}, want {expect_blocks}")
+
+
+def phase_guard_obs(torch, cfg, params) -> dict:
+    """Phase 6g (the tenth main path): the guard ladder and the obs spans
+    on the card, phi4-mini's weights still loaded."""
+    import numpy as np
+
+    from repro_torch import guard
+    from repro_torch.configs.base import get_config
+    from repro_torch.core import skewmm
+    from repro_torch.core.config import mm_config
+    from repro_torch.core.costmodel import BlockPlan
+    from repro_torch.guard import chaos, fallback, faults, health
+    from repro_torch.core import hw
+    from repro_torch.kernels import grouped_matmul as gmm
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels import skew_matmul as mm
+    from repro_torch.models.model import build_model
+    from repro_torch.obs import SimClock, WallClock, drift_report, \
+        trace_scope
+    from repro_torch.sparse.planner import plan_grouped_matmul
+    from repro_torch.serve import engine, graphs
+    from repro_torch.sparse.layout import BlockSparseLayout
+    from repro_torch.tune.shapeclass import ShapeClass
+
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda")
+    bf = torch.bfloat16
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(61)
+    counts: collections.Counter = collections.Counter()
+
+    # ---- 1. chaos scenarios at the site level, CUDA tensors
+    a = torch.linspace(-1.0, 1.0, 256 * 192, device=dev).reshape(256, 192)
+    b = torch.linspace(1.0, -1.0, 192 * 320, device=dev).reshape(192, 320)
+    g4 = torch.randn((4, cfg.d_model), generator=gen, device=dev).to(bf)
+    w4 = (torch.randn((cfg.d_model, 16384), generator=gen, device=dev)
+          * cfg.d_model ** -0.5).to(bf)
+    floor = (64, 64, 64)
+    for (x, y), shape in (((a, b), "256x192x320"), ((g4, w4), "4x3072x16384")):
+        want = ref.matmul_epilogue_ref(x, y)
+        call = (lambda x=x, y=y: ops.skew_matmul(x, y))
+        chaos_case(torch, "all_faults", shape, call, want, "reference", floor,
+                   "skew_matmul_k_inner", counts)
+        chaos_case(torch, "transient_recovers", shape, call, want, "modeled",
+                   None, "skew_matmul_k_inner", counts)
+        chaos_case(torch, "amp_overflow", shape, call, want,
+                   "modeled" if shape == "256x192x320" else "conservative",
+                   floor, "skew_matmul_k_inner", counts)
+    del w4
+    # K9 at the tuner's (32, 128) layouts, d 0.1 (at d 0.25 / 0.5 the
+    # modeled plan is already bn 64, the floor the validator admits)
+    t = TUNE_TOTAL
+    lay = BlockSparseLayout.random(t, t, (32, 128), 0.1, seed=0)
+    sa = torch.randn((t, t), generator=gen, device=dev).to(bf)
+    sb = (torch.randn((t, t), generator=gen, device=dev) * t ** -0.5).to(bf)
+    chaos_case(torch, "amp_overflow", "sparse",
+               lambda: ops.sparse_matmul(sa, sb, lay),
+               ref.block_sparse_matmul_ref(sa, sb, lay), "conservative",
+               (32, 128, 64), "block_sparse_matmul_k_inner", counts)
+    del sa, sb
+    # K5 at dbrx's decode gate/up expert GEMM
+    dcfg = get_config("dbrx-132b")
+    ga = torch.randn((dcfg.n_experts, 8, dcfg.d_model), generator=gen,
+                     device=dev).to(bf)
+    gb = (torch.randn((dcfg.n_experts, dcfg.d_model, dcfg.moe_d_ff),
+                      generator=gen, device=dev)
+          * dcfg.d_model ** -0.5).to(bf)
+    chaos_case(torch, "amp_overflow", "grouped",
+               lambda: ops.grouped_matmul(ga, gb),
+               ref.grouped_matmul_ref(ga, gb), "conservative", floor,
+               "grouped_matmul", counts)
+    del ga, gb
+    torch.cuda.empty_cache()
+    rq = chaos.run(lambda: (None, chaos.cache_quarantine()))
+    if (rq.snapshot, rq.floor) != GPU_H100_LEDGERS[("cache_quarantine", "")] \
+            or rq.metrics["quarantined"] != 1:
+        fail(f"6g cache_quarantine: {rq.metrics}")
+    mcfg = get_config("mamba2-2.7b").reduced()
+    mparams = build_model(mcfg, dev).init(0)
+    mcache, _ = engine.prefill(mparams, mcfg,
+                               torch.zeros((2, 8), dtype=torch.long,
+                                           device=dev), max_len=16)
+    ops.reset_launch_counts()
+    rd = chaos.run(lambda: (chaos.decode_scrub(
+        mparams, mcfg, mcache, torch.zeros((2,), dtype=torch.long,
+                                           device=dev), 8), {}))
+    counts.update(ops.launch_counts())
+    say(f"6g chaos cache_quarantine ledger {rq.counters or '{}'} "
+        f"{rq.metrics}; decode_scrub (mamba2-2.7b reduced) ledger "
+        f"{rd.counters} floor {rd.floor}")
+    if (rd.snapshot, rd.floor) != GPU_H100_LEDGERS[
+            ("decode_scrub", "mamba2-2.7b reduced")] \
+            or not bool(torch.isfinite(rd.out).all()):
+        fail("6g decode_scrub (mamba2 reduced) off its CPU ledger")
+    del mparams, mcache
+    # a real fault stays loud: a scope is armed (the scrub engaged) with no
+    # kind that fires at a kernel, and the kernels are fed an all-NaN lhs;
+    # on the card that raises, moves no rung and never runs the oracle
+    na = torch.full((64, 128), float("nan"), device=dev, dtype=bf)
+    nb = torch.ones((128, 128), device=dev, dtype=bf)
+    nga = torch.full((4, 16, 128), float("nan"), device=dev, dtype=bf)
+    ngb = torch.ones((4, 128, 128), device=dev, dtype=bf)
+    loud = {
+        "dense ladder": lambda: ops.skew_matmul(na, nb),
+        "dense explicit": lambda: ops.skew_matmul(
+            na, nb, plan=BlockPlan(64, 64, 64)),
+        "grouped ladder": lambda: ops.grouped_matmul(nga, ngb),
+    }
+    for site, call in loud.items():
+        ops.reset_launch_counts()
+        with faults.fault_scope(kinds=("tuner_outlier",)):
+            try:
+                call()
+                raised = None
+            except guard.NumericFault as e:
+                raised = e
+        torch.cuda.synchronize()
+        launched = sum(ops.launch_counts().values())
+        counts.update(ops.launch_counts())
+        if raised is None or raised.injected or launched < 1 \
+                or fallback.max_floor():
+            fail(f"6g: a real NaN at the {site} did not raise "
+                 f"NumericFault from a launched kernel ({launched} "
+                 f"launches, floor {fallback.max_floor()})")
+    say(f"6g real faults stay loud: an all-NaN lhs raises NumericFault at "
+        f"{', '.join(loud)}; no rung moved")
+    del na, nb, nga, ngb
+    guard_disarmed("after 6g part 1")
+
+    # ---- 2. the decode scrub at full width: phi4, batch 4 x prompt 128
+    rng = np.random.default_rng(SERVE_SEED)
+    toks = torch.tensor(rng.integers(0, cfg.vocab_size, (4, 128)),
+                        dtype=torch.long, device=dev)
+    cache, logits = engine.prefill(params, cfg, toks, max_len=144)
+    nxt = torch.argmax(logits, -1)
+    clean_cache = graphs.clone_cache(cache)
+    want, _ = engine.decode_step(params, cfg, clean_cache, nxt, 128)
+    ops.reset_launch_counts()
+    guard.reset()
+    with faults.fault_scope(kinds=("nan_output", "inf_output"), seed=5):
+        got, _ = engine.guarded_decode_step(params, cfg, cache, nxt, 128)
+    torch.cuda.synchronize()
+    counts.update(ops.launch_counts())
+    snap = health.snapshot()
+    guard.reset()
+    diff = (got - want).abs()
+    rel_max = diff.max().item() / want.abs().max().item()
+    rel_mean = diff.mean().item() / want.abs().mean().item()
+    say(f"6g decode scrub phi4 b4 p128: ledger "
+        + "/".join(f"{k}:{v}" for k, v in snap.items())
+        + f"; re-run ('torch') ~ unarmed eager ('cuda') rel max "
+          f"{rel_max:.3e} mean {rel_mean:.3e}")
+    if snap.get("scrubbed_batches") != 1 or not bool(
+            torch.isfinite(got).all()) or snap.get("faults_injected") != \
+            snap.get("faults_caught"):
+        fail(f"6g decode scrub: {snap}")
+    if rel_max > PATH_TOL_MAX or rel_mean > PATH_TOL_MEAN:
+        fail("6g decode scrub: the re-run is off phase 5's bounds")
+    del cache, clean_cache
+    guard_disarmed("after 6g part 2")
+
+    # ---- 3. the disarmed path's cost (timing only: no counts kept)
+    ha = torch.randn((8, 256), generator=gen, device=dev).to(bf)
+    hb = torch.randn((256, 512), generator=gen, device=dev).to(bf)
+    plan = BlockPlan(64, 64, 128)
+
+    def host_us(fn) -> float:
+        for _ in range(50):
+            fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(OVERHEAD_CALLS):
+            fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) / OVERHEAD_CALLS * 1e6
+
+    us_ops = host_us(lambda: ops.skew_matmul(ha, hb, plan=plan))
+    us_mm = host_us(lambda: mm.skew_matmul(ha, hb, bm=64, bk=64, bn=128,
+                                           out_dtype=bf))
+    us_ops2 = host_us(lambda: ops.skew_matmul(ha, hb, plan=plan))
+    # the ladder's disarmed cost at a site served with no plan (dbrx's
+    # experts): plan lookup + validation + the kernel, beside the kernel
+    gha = torch.randn((16, 8, 256), generator=gen, device=dev).to(bf)
+    ghb = torch.randn((16, 256, 512), generator=gen, device=dev).to(bf)
+    gblocks = ops.clip_blocks(plan_grouped_matmul(16, 8, 256, 512).plan,
+                              8, 256, 512, hw.get_chip("gpu_h100"))
+    us_gops = host_us(lambda: ops.grouped_matmul(gha, ghb))
+    us_gmm = host_us(lambda: gmm.grouped_matmul(
+        gha, ghb, bm=gblocks[0], bk=gblocks[1], bn=gblocks[2],
+        out_dtype=bf))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    cache, logits = engine.prefill(params, cfg, toks, max_len=144)
+    torch.cuda.synchronize()
+    pre_ms = (time.perf_counter() - t0) * 1e3
+    tok = torch.argmax(logits, -1)
+    t0 = time.perf_counter()
+    for i in range(16):
+        lg, _ = engine.decode_step(params, cfg, cache, tok, 128 + i)
+        tok = torch.argmax(lg, -1)
+    torch.cuda.synchronize()
+    dec_ms = (time.perf_counter() - t0) / 16 * 1e3
+    ops.reset_launch_counts()
+    say(f"6g disarmed cost: ops.skew_matmul(plan=) {us_ops:.2f} / "
+        f"{us_ops2:.2f} us a call, the wrapper _mm.skew_matmul {us_mm:.2f} "
+        f"us (host clock, {OVERHEAD_CALLS} calls at 8x256x512 bf16); "
+        f"ops.grouped_matmul (no plan: the ladder) {us_gops:.2f} us, the "
+        f"wrapper _gmm.grouped_matmul {us_gmm:.2f} us (16x8x256x512 bf16, "
+        f"blocks {gblocks}); phi4 eager prefill b4 p128 {pre_ms:.2f} ms, "
+        f"eager decode {dec_ms:.2f} ms/token")
+    del gha, ghb
+    del cache
+    guard_disarmed("after 6g part 3")
+
+    # ---- 4. a traced graph capture replays bitwise as an unarmed one
+    cache, logits = engine.prefill(params, cfg, toks, max_len=144)
+    nxt = torch.argmax(logits, -1)
+    other = graphs.clone_cache(cache)
+    ops.reset_launch_counts()
+    with trace_scope(clock=WallClock()) as tr:
+        traced = graphs.DecodeGraph(params, cfg, cache, 4)
+        built = tr.digest()
+        steps_traced = [traced.step(nxt, 128 + i).clone() for i in range(4)]
+        replayed = tr.digest()
+    plain = graphs.DecodeGraph(params, cfg, other, 4)
+    steps_plain = [plain.step(nxt, 128 + i).clone() for i in range(4)]
+    torch.cuda.synchronize()
+    counts.update(ops.launch_counts())
+    same = all(torch.equal(x, y) for x, y in zip(steps_traced, steps_plain))
+    say(f"6g traced capture: digest {built} after the warm-up and capture, "
+        f"{replayed} after 4 replays; replays bitwise equal to an unarmed "
+        f"graph's: {same}; launches a step {traced.launches_per_step}")
+    if not same or built != replayed or not built.get("dispatch"):
+        fail("6g: the traced capture's replays differ from the unarmed "
+             "graph's, or replays emitted spans")
+    if traced.launches_per_step != plain.launches_per_step:
+        fail("6g: traced and unarmed graphs launch differently a step")
+    del traced, plain, cache, other
+    guard.reset()
+    torch.cuda.empty_cache()
+    guard_disarmed("after 6g part 4")
+
+    # ---- 5. the cost model's drift on the H100
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.trace", "--mode",
+         "matmul", "--clock", "wall", "--size", str(TRACE_SIZE), "--skew",
+         str(TRACE_SKEW), "--check", "--quiet"],
+        capture_output=True, text=True, timeout=600, cwd=str(ROOT),
+        env={**os.environ, "PYTHONPATH": str(SRC)})
+    for line in proc.stdout.splitlines():
+        say(f"6g {line}")
+    if proc.returncode != 0:
+        fail(f"launch.trace --clock wall --check failed "
+             f"({proc.returncode}): {proc.stderr[-2000:]}")
+    say(f"6g launch.trace subprocess: {time.perf_counter() - t0:.1f} s")
+    shapes = fig5_shapes()
+    operands = {}
+    for tag, _, _, m, k, n in shapes:
+        operands[tag] = (
+            torch.randn((m, k), generator=gen, device=dev).to(bf),
+            (torch.randn((k, n), generator=gen, device=dev)
+             * k ** -0.5).to(bf))
+        skewmm.matmul(*operands[tag])          # warm-up, untraced
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    with trace_scope(clock=SimClock()):
+        for tag, _, _, m, k, n in shapes:
+            skewmm.matmul(*operands[tag])
+    sim = drift_report()
+    classes = {ShapeClass.of(m, k, n).token for _, _, _, m, k, n in shapes}
+    if not sim["accepted"] or sim["max_abs_log"] != 0.0 \
+            or set(sim["classes"]) != classes:
+        fail(f"6g: the sim-clock drift report is not identically 0: {sim}")
+    guard.reset()
+    with trace_scope(clock=WallClock()) as tr:
+        for _ in range(3):
+            for tag, *_ in shapes:
+                skewmm.matmul(*operands[tag])
+    counts.update(ops.launch_counts())
+    drift = drift_report()
+    guard.reset()
+    rows = {}
+    for sp in tr.spans():
+        if sp.kind == "dispatch":
+            rows.setdefault(sp.attrs["shape_class"], []).append(
+                (sp.modeled_us, sp.measured_us))
+    for tag, _, _, m, k, n in shapes:
+        cls = ShapeClass.of(m, k, n).token
+        c = drift["classes"][cls]
+        say(f"6g drift fig5 {tag:12s} {m:>5}x{k:>5}x{n:>5} class {cls}: "
+            f"count {c['count']} modeled {rows[cls][0][0]:.1f} us measured "
+            + "/".join(f"{x[1]:.1f}" for x in rows[cls])
+            + f" us geomean_ratio {c['geomean_ratio']:.4f} max_abs_log "
+              f"{c['max_abs_log']:.4f} accepted {c['accepted']}")
+    say(f"6g drift: sim clock {sim['classes_total']} classes, max_abs_log "
+        f"{sim['max_abs_log']}; wall clock {drift['classes_total']} classes, "
+        f"{drift['classes_accepted']} accepted, max_abs_log "
+        f"{drift['max_abs_log']:.4f} (MAX_LOG_SPREAD ln 4)")
+    del operands
+    torch.cuda.empty_cache()
+    guard.reset()
+    for name in ("skew_matmul_k_inner", "grouped_matmul",
+                 "block_sparse_matmul_k_inner"):
+        if counts[name] <= 0:
+            fail(f"6g: {name} was not launched")
+    say(f"6g: launches {dict((n, c) for n, c in counts.items() if c)}; "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    return {"counts": dict(counts)}
+
+
 # ----------------------------------------------------------------- dense
 def dense_depth(torch, cfg) -> int:
     """The layers of `cfg` to serve: all of them where their bf16 weights
@@ -2537,13 +2993,17 @@ def main() -> None:
     cfg = get_config("phi4-mini-3.8b")
     say(f"config: {cfg.name} L={cfg.n_layers} d={cfg.d_model} "
         f"H={cfg.n_heads}/{cfg.n_kv_heads} ff={cfg.d_ff} V={cfg.vocab_size}")
-    errs = phase_parity(torch, cfg)
-    main_path = phase_serve(torch, cfg)
+    errs = guarded("phase 3", phase_parity, torch, cfg)
+    main_path = guarded("phase 4", phase_serve, torch, cfg)
     if "--profile" in sys.argv[1:]:
         profile_steps(torch, cfg, main_path["params"])
-    phase_path_parity(torch, cfg, main_path["params"])
-    rows = phase_timings(torch, cfg, main_path["params"],
-                         main_path["counts"], errs)
+    guarded("phase 5", phase_path_parity, torch, cfg, main_path["params"])
+    rows = guarded("phase 6", phase_timings, torch, cfg, main_path["params"],
+                   main_path["counts"], errs)
+    say("guard: the ladder, the scrub and the obs spans on the card (phase "
+        "6g), phi4-mini's weights still loaded")
+    guard_path = guarded("phase 6g", phase_guard_obs, torch, cfg,
+                         main_path["params"])
     phi4_counts, phi4_graph = main_path["counts"], main_path["graph"]
     del main_path                   # free phi4's weights
     torch.cuda.empty_cache()
@@ -2554,16 +3014,16 @@ def main() -> None:
         f"H={dcfg.n_heads}/{dcfg.n_kv_heads} E={dcfg.n_experts} "
         f"top-{dcfg.n_experts_per_tok} ff={dcfg.moe_d_ff} "
         f"V={dcfg.vocab_size}")
-    errs.update(phase_parity_grouped(torch, dcfg))
-    moe_path = phase_serve_moe(torch, dcfg)
+    errs.update(guarded("phase 3b", phase_parity_grouped, torch, dcfg))
+    moe_path = guarded("phase 4b", phase_serve_moe, torch, dcfg)
     if "--profile" in sys.argv[1:]:
         profile_steps(torch, dcfg, moe_path["params"])
     params2 = first_layers(moe_path.pop("params"), DBRX_PARITY_LAYERS)
     torch.cuda.empty_cache()
-    phase_path_parity(torch, dataclasses.replace(
+    guarded("phase 5b", phase_path_parity, torch, dataclasses.replace(
         dcfg, n_layers=DBRX_PARITY_LAYERS), params2)
-    rows += phase_timings_grouped(torch, dcfg, params2, moe_path["counts"],
-                                  errs)
+    rows += guarded("phase 6b", phase_timings_grouped, torch, dcfg, params2,
+                    moe_path["counts"], errs)
     del params2
     torch.cuda.empty_cache()
 
@@ -2573,18 +3033,20 @@ def main() -> None:
         f"hd={hcfg.head_dim} W={hcfg.lru_width} window={hcfg.local_window} "
         f"ff={hcfg.d_ff} V={hcfg.vocab_size}")
     fa_shapes, scan_shapes = seq_shapes(cfg, dcfg, hcfg)
-    errs.update(phase_parity_seq(torch, fa_shapes, scan_shapes))
-    hyb_path = phase_serve_hybrid(torch, hcfg)
+    errs.update(guarded("phase 3c", phase_parity_seq, torch, fa_shapes,
+                        scan_shapes))
+    hyb_path = guarded("phase 4c", phase_serve_hybrid, torch, hcfg)
     if "--profile" in sys.argv[1:]:
         profile_steps(torch, hcfg, hyb_path["params"])
     params3 = first_layers(hyb_path.pop("params"), HYBRID_PARITY_UNITS)
     torch.cuda.empty_cache()
     n3 = HYBRID_PARITY_UNITS * len(hcfg.layer_pattern)
-    phase_path_parity(torch, dataclasses.replace(hcfg, n_layers=n3), params3)
+    guarded("phase 5c", phase_path_parity, torch,
+            dataclasses.replace(hcfg, n_layers=n3), params3)
     del params3
     torch.cuda.empty_cache()
-    rows += phase_timings_seq(torch, fa_shapes, scan_shapes,
-                              hyb_path["counts"], errs)
+    rows += guarded("phase 6c", phase_timings_seq, torch, fa_shapes,
+                    scan_shapes, hyb_path["counts"], errs)
     torch.cuda.empty_cache()
 
     scfg = get_config("mamba2-2.7b")
@@ -2593,48 +3055,53 @@ def main() -> None:
         f"G={scfg.ssm_groups} S={scfg.ssm_state} chunk={scfg.ssm_chunk} "
         f"V={scfg.vocab_size}")
     shapes = ssd_shapes(scfg)
-    errs.update(phase_parity_ssd(torch, shapes, scfg.ssm_chunk))
-    ssm_path = phase_serve_ssm(torch, scfg)
+    errs.update(guarded("phase 3d", phase_parity_ssd, torch, shapes,
+                        scfg.ssm_chunk))
+    ssm_path = guarded("phase 4d", phase_serve_ssm, torch, scfg)
     if "--profile" in sys.argv[1:]:
         profile_steps(torch, scfg, ssm_path["params"])
     params4 = first_layers(ssm_path.pop("params"), SSM_PARITY_LAYERS)
     torch.cuda.empty_cache()
-    phase_path_parity(torch, dataclasses.replace(
+    guarded("phase 5d", phase_path_parity, torch, dataclasses.replace(
         scfg, n_layers=SSM_PARITY_LAYERS), params4)
     del params4
     torch.cuda.empty_cache()
-    rows += phase_timings_ssd(torch, shapes, scfg.ssm_chunk,
-                              ssm_path["counts"], errs)
+    rows += guarded("phase 6d", phase_timings_ssd, torch, shapes,
+                    scfg.ssm_chunk, ssm_path["counts"], errs)
     torch.cuda.empty_cache()
 
     say(f"tune: block-sparse matmul (K9) and the measured autotuner at "
         f"{TUNE_TOTAL}^2, n {TUNE_TOTAL}")
-    errs.update(phase_parity_bsr(torch))
-    tune_path = phase_tune(torch)
+    errs.update(guarded("phase 3e", phase_parity_bsr, torch))
+    tune_path = guarded("phase 4e", phase_tune, torch)
     for name, err in tune_path["errs"].items():
         errs[name] = max(errs.get(name, 0.0), err)
-    rows += phase_timings_bsr(torch, tune_path["counts"], errs)
+    rows += guarded("phase 6e", phase_timings_bsr, torch, tune_path["counts"],
+                    errs)
     torch.cuda.empty_cache()
 
     say("fig5: the paper's Figure 5 on the H100 (naive, K-inner-only and "
         "skew-aware plans of the gpu_h100 sweep, bf16)")
-    fig5_path = phase_fig5(torch, errs)
+    fig5_path = guarded("phase 6f", phase_fig5, torch, errs)
 
     # The dense archs: gemma2-27b whole, granite-34b cut, command-r-35b
     # whole where it fits.
     gcfg = get_config("gemma2-27b")
     if dense_depth(torch, gcfg) != gcfg.n_layers:
         fail("gemma2-27b's 46 layers do not fit the card")
-    gemma_path = phase_serve_dense(
-        torch, gcfg, ((4, 128, 16), (1, 4608, 4)), gcfg.n_layers,
+    gemma_path = guarded(
+        "phases 4f / 5f", phase_serve_dense, torch, gcfg,
+        ((4, 128, 16), (1, 4608, 4)), gcfg.n_layers,
         GEMMA2_PARITY_UNITS * len(gcfg.layer_pattern))
     granite = get_config("granite-34b")
-    granite_path = phase_serve_dense(
-        torch, dataclasses.replace(granite, n_layers=GRANITE_LAYERS),
+    granite_path = guarded(
+        "phases 4g / 5g", phase_serve_dense, torch,
+        dataclasses.replace(granite, n_layers=GRANITE_LAYERS),
         ((4, 128, 16),), granite.n_layers, DENSE_PARITY_LAYERS)
     ccfg = get_config("command-r-35b")
-    cr_path = phase_serve_dense(
-        torch, dataclasses.replace(ccfg, n_layers=dense_depth(torch, ccfg)),
+    cr_path = guarded(
+        "phases 4h / 5h", phase_serve_dense, torch,
+        dataclasses.replace(ccfg, n_layers=dense_depth(torch, ccfg)),
         ((4, 128, 16),), ccfg.n_layers, DENSE_PARITY_LAYERS)
 
     say("served decode, ms per token (host clock): " + "; ".join(
@@ -2647,11 +3114,12 @@ def main() -> None:
     # K1-K4, the dbrx decode gate/up shape for K5, recurrentgemma's batch-4
     # prefill for K6 and K7, mamba2's for K8, the tuner's 4096^2 (32, 128)
     # d 0.25 layout for K9); the other shapes are in the log above.
-    # Launches: summed over the nine main paths.
+    # Launches: summed over the ten main paths.
     launches = {n: sum(c.get(n, 0) for c in (
         phi4_counts, moe_path["counts"], hyb_path["counts"],
         ssm_path["counts"], tune_path["counts"], fig5_path["counts"],
-        gemma_path["counts"], granite_path["counts"], cr_path["counts"]))
+        gemma_path["counts"], granite_path["counts"], cr_path["counts"],
+        guard_path["counts"]))
         for n in KERNELS}
     first = {}
     for r in rows:

@@ -9,7 +9,8 @@ plan (schedule + blocks), the torch / python versions and the git sha.
 The schema is the JAX package's.  `Provenance` records `torch_version`
 where the reference records `jax_version`; the reader takes either, so
 the JAX-written baselines under ``benchmarks/baselines/`` read as they
-are.  `trace_digest` stays None until the obs port.
+are.  `trace_digest` holds the armed trace's span-kind counts
+(`repro_torch.obs`) when a record is captured inside a `trace_scope`.
 """
 
 from __future__ import annotations
@@ -96,13 +97,22 @@ class Provenance:
 
         `config` defaults to the context-resolved `MatmulConfig`; `plan`
         is the `MatmulCost` (or provenance dict) of the record's headline
-        matmul.  `guard` holds the health counters when any is non-zero.
+        matmul.  `guard` holds the health counters (and histogram
+        percentiles) when any is non-zero, so a record produced on a
+        degraded process says so.  `trace_digest` holds the armed trace's
+        span-kind counts, present only when a `trace_scope` is active and
+        has collected spans.
         """
         import torch
 
         from repro_torch.core import config as mmcfg
         from repro_torch.guard import health as guard_health
+        from repro_torch.obs import spans as obs_spans
 
+        trace = obs_spans.current_trace()
+        digest = trace.digest() if trace is not None else None
+        if digest is not None and not digest.get("total"):
+            digest = None  # an armed-but-empty trace leaves records clean
         cfg = config if config is not None else mmcfg.current()
         return cls(
             **cfg.provenance(),
@@ -110,6 +120,7 @@ class Provenance:
             python_version=platform.python_version(),
             git_sha=git_sha(),
             guard=guard_health.provenance_fields(),
+            trace_digest=digest,
             **_plan_fields(plan),
         )
 

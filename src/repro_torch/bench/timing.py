@@ -20,8 +20,10 @@ one-sided MAD outlier rejection (a repeat slower than the median by more
 than 3.5 normalized median-absolute-deviations, with a 5% floor on the
 threshold width, is dropped and counted in `Timing.outliers`; fewer than
 4 repeats are always kept), and the median of the rest is the result,
-with the interquartile range beside it.  The JAX package's
-`tuner_outlier` fault hook waits for the guard port.
+with the interquartile range beside it.  Each repeat is a `tuner_outlier`
+injection site ("measure", `guard.faults.outlier_scale`): an armed fault
+scope inflates the repeat's time, and the screen's rejection of it is
+counted as the catch, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -32,6 +34,9 @@ import time
 from typing import Any, Callable
 
 import torch
+
+from repro_torch.guard import faults as _faults
+from repro_torch.guard import health as _health
 
 _MAD_CUTOFF = 3.5
 _MAD_NORMALIZE = 1.4826
@@ -110,7 +115,8 @@ def measure(fn: Callable[..., Any], *args: Any, iters: int = 3,
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
     per_call_us = []
-    for _ in range(repeats):
+    inflated: set[int] = set()
+    for r in range(repeats):
         total_us = 0.0
         for _ in range(iters):
             if dev is None:
@@ -124,8 +130,17 @@ def measure(fn: Callable[..., Any], *args: Any, iters: int = 3,
                 end.record(stream)
                 end.synchronize()
                 total_us += start.elapsed_time(end) * 1e3
-        per_call_us.append(total_us / iters)
-    kept = [per_call_us[i] for i in reject_outliers(per_call_us)]
+        dt_us = total_us / iters
+        scale = _faults.outlier_scale("measure")
+        if scale is not None:
+            dt_us *= scale
+            inflated.add(r)
+        per_call_us.append(dt_us)
+    kept_idx = reject_outliers(per_call_us)
+    caught = sum(1 for r in inflated if r not in kept_idx)
+    if caught:
+        _health.record("faults_caught", caught)
+    kept = [per_call_us[i] for i in kept_idx]
     iqr = 0.0
     if len(kept) >= 2:
         q1, _, q3 = statistics.quantiles(kept, n=4)

@@ -18,8 +18,12 @@ The port of the JAX package's planner:
 Plans are memoized per (dims, chip, amp, mode[, mesh]): PyTorch runs
 eagerly and plans on every call of every step, so the cache is what keeps
 host time down.  The "tuned" mode reads the measured autotuner's active
-cache (`repro_torch.tune.runtime`) outside that memo.  The JAX package's
-plan spans and candidate counts wait for the obs port.
+cache (`repro_torch.tune.runtime`) outside that memo, and a corrupt
+cache entry (`guard.faults.is_corrupt_plan`) is counted as caught and
+replaced by the modeled plan.  With a `trace_scope` armed every
+resolution emits one "plan" span (mode, dims, feasible candidate count,
+chosen schedule and blocks, modeled_us) and stamps the modeled time on
+the enclosing dispatch span, outside the memo, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -33,6 +37,7 @@ from repro_torch.core import config, hw
 from repro_torch.core.costmodel import (ALL_SCHEDULES, SCHEDULES, BlockPlan,
                                         MatmulCost, MatmulDims, ShardSpec,
                                         cost_matmul, cost_sharded_matmul)
+from repro_torch.obs import spans as _obs
 
 
 def _round_up(a: int, b: int) -> int:
@@ -225,29 +230,126 @@ def plan_matmul(m: int, k: int, n: int, *, dtype_bytes: int = 2,
     if cfg.mesh_devices > 1:
         spec = cfg.sharding if isinstance(cfg.sharding, ShardSpec) else None
         smode = cfg.plan_mode if cfg.plan_mode != "tuned" else "skew_aware"
-        return _plan_matmul_sharded_cached(
+        cost = _plan_matmul_sharded_cached(
             m, k, n, dtype_bytes=dtype_bytes, amp=cfg.amp,
             chip=cfg.chip_spec, mode=smode, batch=batch,
             devices=cfg.mesh_devices, spec=spec)
-    if cfg.plan_mode == "tuned":
+    elif cfg.plan_mode == "tuned":
         # The active tune cache is mutable state: resolved outside the lru
         # cache, which memoizes only the modeled fallback.
-        return _plan_matmul_tuned(m, k, n, dtype_bytes=dtype_bytes,
+        cost = _plan_matmul_tuned(m, k, n, dtype_bytes=dtype_bytes,
                                   amp=cfg.amp, chip=cfg.chip_spec,
                                   batch=batch)
-    return _plan_matmul_cached(m, k, n, dtype_bytes=dtype_bytes,
-                               amp=cfg.amp, chip=cfg.chip_spec,
-                               mode=cfg.plan_mode, batch=batch)
+    else:
+        cost = _plan_matmul_cached(m, k, n, dtype_bytes=dtype_bytes,
+                                   amp=cfg.amp, chip=cfg.chip_spec,
+                                   mode=cfg.plan_mode, batch=batch)
+    if _obs.tracing():
+        # Outside the lru caches: every resolution, memoized or not, emits
+        # exactly one plan span.
+        _emit_plan_span(m, k, n, batch=batch, dtype_bytes=dtype_bytes,
+                        cfg=cfg, cost=cost)
+    return cost
+
+
+def _count_candidates(m: int, k: int, n: int, *, dtype_bytes: int,
+                      amp: float, chip: hw.ChipSpec, mode: str,
+                      batch: int, devices: int = 1,
+                      spec: ShardSpec | None = None) -> int:
+    """Feasible candidate count for the plan span — mirrors the search
+    space (`_feasible_costs` / `_gemv_costs` / batch-grid / the sharded
+    joint search) but checks only the budget, never pricing a candidate.
+    Traced runs only."""
+    d = MatmulDims(m=m, k=k, n=n, dtype_bytes=dtype_bytes, batch=batch)
+    budget = int(amp * chip.vmem_bytes)
+    if devices > 1 and mode != "naive":
+        # The joint search runs the local block search once per candidate
+        # ShardSpec: the span's candidate count sums the per-spec counts.
+        specs = (spec,) if spec is not None else shard_candidates(
+            devices, m, k, n, batch)
+        return sum(
+            _count_candidates(ld.m, ld.k, ld.n, dtype_bytes=dtype_bytes,
+                              amp=amp, chip=chip, mode=mode, batch=ld.batch)
+            for ld in (s.local_dims(d) for s in specs))
+    if mode == "naive":
+        return 1
+
+    def feasible(schedules: tuple[str, ...], batch_grid: bool) -> int:
+        sub, lane = chip.mxu_sublanes, chip.mxu_lanes
+        m_eff = d.m if batch_grid else d.m * d.batch
+        bm = _aligned_candidates(m_eff, sub if m_eff < lane else lane, 4096)
+        bk = _aligned_candidates(d.k, lane, 4096)
+        bn = _aligned_candidates(d.n, lane, 4096)
+        total = 0
+        for schedule in schedules:
+            for cand in ((a, b, c) for a in bm for b in bk for c in bn):
+                p = BlockPlan(*cand, schedule=schedule, batch_grid=batch_grid)
+                if p.vmem_bytes(d, chip) <= budget:
+                    total += 1
+        return total
+
+    schedules = ("k_inner",) if mode == "k_inner" else SCHEDULES
+    count = feasible(schedules, batch_grid=False)
+    if mode in ("skew_aware", "tuned") and gemv_applicable(m, batch, chip):
+        sub, lane = chip.mxu_sublanes, chip.mxu_lanes
+        bm = _round_up(d.m, sub)
+        for bk in _aligned_candidates(d.k, lane, 4096):
+            for bn in _aligned_candidates(d.n, lane, 4096):
+                p = BlockPlan(bm, bk, bn, schedule="splitk")
+                if p.vmem_bytes(d, chip) <= budget:
+                    count += 1
+    if batch > 1 and mode != "k_inner":
+        count += feasible(("k_inner",), batch_grid=True)
+    return count
+
+
+def _emit_plan_span(m: int, k: int, n: int, *, batch: int, dtype_bytes: int,
+                    cfg, cost: MatmulCost) -> None:
+    """One "plan" span per resolution, stamped with the search outcome;
+    also annotates the enclosing dispatch span with the modeled time.
+    Sharded plans carry the chosen ShardSpec and their collective
+    attribution (exposed + hidden wire microseconds)."""
+    p = cost.plan
+    modeled_us = cost.total_s * 1e6
+    devices = cfg.mesh_devices
+    pinned = cfg.sharding if isinstance(cfg.sharding, ShardSpec) else None
+    extra: dict = {}
+    if cost.sharding is not None:
+        extra = dict(
+            sharding=cost.sharding.describe(), devices=devices,
+            collective_us=cost.collective_s * 1e6,
+            hidden_collective_us=cost.hidden_collective_s * 1e6,
+        )
+    _obs.event(
+        "plan", f"dense/{cfg.plan_mode}",
+        m=m, k=k, n=n, batch=batch, chip=cfg.chip_spec.name,
+        candidates=_count_candidates(m, k, n, dtype_bytes=dtype_bytes,
+                                     amp=cfg.amp, chip=cfg.chip_spec,
+                                     mode=cfg.plan_mode, batch=batch,
+                                     devices=devices, spec=pinned),
+        schedule=p.schedule, blocks=(p.bm, p.bk, p.bn),
+        batch_grid=p.batch_grid, grid_steps=cost.grid_steps,
+        modeled_us=modeled_us, **extra,
+    )
+    _obs.annotate("dispatch", modeled_us=modeled_us, schedule=p.schedule,
+                  grid_steps=cost.grid_steps, **extra)
 
 
 def _plan_matmul_tuned(m: int, k: int, n: int, *, dtype_bytes: int,
                        amp: float, chip: hw.ChipSpec,
                        batch: int) -> MatmulCost:
+    from repro_torch.guard import faults as guard_faults  # planner <- guard
+    from repro_torch.guard import health as guard_health
     from repro_torch.tune import runtime as tune_runtime  # planner <- tune
 
     plan = tune_runtime.lookup_dense(m, k, n, batch=batch,
                                      dtype_bytes=dtype_bytes, amp=amp,
                                      chip=chip)
+    if guard_faults.is_corrupt_plan(plan):
+        # A corrupted or stale cache entry (injected or real): ledger the
+        # catch and fall through to the modeled plan below.
+        guard_health.record("faults_caught")
+        plan = None
     if plan is not None:
         d = MatmulDims(m=m, k=k, n=n, dtype_bytes=dtype_bytes, batch=batch)
         # Measured on the bucket representative; the actual dims can be up

@@ -9,6 +9,10 @@ skew-aware planner and dispatches to one of two backends:
   * "torch" — fp32-accumulated ``torch.matmul`` plus the same epilogue:
     the reference rung, the counterpart of the JAX package's "xla".
 
+Each call opens an `obs` dispatch span before planning (a no-op unless a
+`trace_scope` is armed), so the plan span, the tune lookup and the
+kernel wrapper all land on one span.
+
 Configuration resolves through the `mm_config` stack (repro_torch.core.
 config).  Fused epilogues are structured (`Epilogue`) or legacy token
 strings.  ``with plan_capture() as log:`` collects the `MatmulCost` of
@@ -30,6 +34,7 @@ import torch
 from repro_torch.core import config, epilogue as epilogue_mod, hw
 from repro_torch.core.epilogue import Epilogue
 from repro_torch.core.planner import plan_matmul
+from repro_torch.obs import attribution as _obs
 
 _ACTIVE_LOGS: list[list] = []
 _LEGACY_LOG: list = []
@@ -116,38 +121,51 @@ def matmul(a: torch.Tensor, b: torch.Tensor, *, backend: str | None = None,
     batch = 1
     for s in lead:
         batch *= s
-    cost = plan_matmul(m, k, n, dtype_bytes=a.element_size(), amp=cfg.amp,
-                       chip=cfg.chip_spec, mode=cfg.plan_mode, batch=batch,
-                       mesh_shape=cfg.mesh_shape, sharding=cfg.sharding)
-    record_plan(cost)
-    odt = cfg.out_dtype or a.dtype
+    # The dispatch span opens *before* planning, so the tune lookup and the
+    # planner annotate it (cache key, modeled_us); the ops wrapper below
+    # joins it rather than opening a second one.
+    with (_obs.dispatch("dense", m=m, k=k, n=n, batch=batch,
+                        backend=cfg.backend, epilogue=str(ep.spec))
+          if _obs.tracing() else _obs.dispatch("dense")) as dsp:
+        cost = plan_matmul(m, k, n, dtype_bytes=a.element_size(),
+                           amp=cfg.amp, chip=cfg.chip_spec,
+                           mode=cfg.plan_mode, batch=batch,
+                           mesh_shape=cfg.mesh_shape, sharding=cfg.sharding)
+        record_plan(cost)
+        odt = cfg.out_dtype or a.dtype
 
-    if cfg.backend == "cuda":
-        # Imported here: kernels.ops -> sparse -> core would otherwise make
-        # `import repro_torch.sparse` (before core) a cycle.
-        from repro_torch.kernels import ops
+        if cfg.backend == "cuda":
+            # Imported here: kernels.ops -> sparse -> core would otherwise
+            # make `import repro_torch.sparse` (before core) a cycle.
+            from repro_torch.kernels import ops
 
-        kw = dict(plan=cost.plan, out_dtype=odt, chip=cfg.chip_spec)
-        res = ep.residual
-        if cost.plan.batch_grid and lead:
-            a3 = a.reshape(batch, m, k)
-            if res is not None:
-                res = res.expand(*lead, m, n).reshape(batch, m, n)
-            out = ops.skew_matmul_batched(
-                a3, b, epilogue=ep.replace(residual=res), **kw)
-        else:
-            a2 = a.reshape(batch * m, k)
-            if res is not None:
-                res = res.expand(*lead, m, n).reshape(batch * m, n)
-            out = ops.skew_matmul(a2, b, epilogue=ep.replace(residual=res),
-                                  **kw)
-        return out.reshape(*lead, m, n)
+            kw = dict(plan=cost.plan, out_dtype=odt, chip=cfg.chip_spec)
+            res = ep.residual
+            if cost.plan.batch_grid and lead:
+                a3 = a.reshape(batch, m, k)
+                if res is not None:
+                    res = res.expand(*lead, m, n).reshape(batch, m, n)
+                out = ops.skew_matmul_batched(
+                    a3, b, epilogue=ep.replace(residual=res), **kw)
+            else:
+                a2 = a.reshape(batch * m, k)
+                if res is not None:
+                    res = res.expand(*lead, m, n).reshape(batch * m, n)
+                out = ops.skew_matmul(a2, b,
+                                      epilogue=ep.replace(residual=res), **kw)
+            return out.reshape(*lead, m, n)
 
-    # "torch" backend: fp32 accumulation + fp32 epilogue, one cast.
-    z = torch.matmul(a.float(), b.float())
-    z = epilogue_mod.apply_spec(z, ep.spec, ep.operands())
-    return z.to(odt)
+        # "torch" backend: fp32 accumulation + fp32 epilogue, one cast.
+        # This *is* the ladder's reference rung, selected by config rather
+        # than by degradation — attributed as such.
+        def ref_run() -> torch.Tensor:
+            z = torch.matmul(a.float(), b.float())
+            z = epilogue_mod.apply_spec(z, ep.spec, ep.operands())
+            return z.to(odt)
 
+        _obs.annotate("dispatch", rung="reference", rung_index=3,
+                      kernel="torch_matmul")
+        return _obs.measured(dsp, ref_run)
 
 
 def einsum_mm(spec: str, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:

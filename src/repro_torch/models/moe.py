@@ -16,8 +16,8 @@ Where PyTorch differs from JAX, the port reproduces JAX's semantics:
   * `.at[st].add` is `index_add_` into an fp32 tensor — on CUDA its order
     of additions is not deterministic.
 
-The expert-parallel shard_map path and capacity-slot telemetry are not
-ported yet.
+Capacity-slot accounting (`track_capacity_slots`) is opt-in, as in the
+JAX package.  The expert-parallel shard_map path is not ported yet.
 """
 
 from __future__ import annotations
@@ -33,6 +33,24 @@ from repro_torch.models import layers
 from repro_torch.models.layers import linear_init
 
 _ROUTING_LOGS: list[list] = []
+# Capacity-slot accounting.  Slot counts are static — (E, capacity) comes
+# from shapes, and the best-case fill is min(T*k, E*cap) — so recording
+# them reads no device value and costs nothing at runtime.  Opt-in: plain
+# forward passes leave the guard.health ledger untouched.
+_TRACK_SLOTS = False
+
+
+@contextlib.contextmanager
+def track_capacity_slots():
+    """Record moe_slots_total / moe_slots_filled / moe_slots_underfilled
+    into guard.health for every MoE dispatch in scope."""
+    global _TRACK_SLOTS
+    prev = _TRACK_SLOTS
+    _TRACK_SLOTS = True
+    try:
+        yield
+    finally:
+        _TRACK_SLOTS = prev
 
 
 @contextlib.contextmanager
@@ -97,6 +115,12 @@ def _dispatch_compute_combine(xf: torch.Tensor, p: dict, cfg, *,
 
     cap = _capacity(t, cfg)
     n_slots = n_local_experts * cap
+    if _TRACK_SLOTS:
+        from repro_torch.guard import health as _health
+        filled = min(t * k, n_slots)
+        _health.record("moe_slots_total", n_slots)
+        _health.record("moe_slots_filled", filled)
+        _health.record("moe_slots_underfilled", n_slots - filled)
     flat_e = gate_i.reshape(-1)                                # (T*K,)
     flat_t = torch.arange(t, device=dev).repeat_interleave(k)
     flat_w = gate_w.reshape(-1)

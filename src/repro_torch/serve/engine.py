@@ -20,6 +20,10 @@ Both follow the JAX engine op for op (the FFN's residual add is not fused
 in the serving path there, so it is not fused here either; the MoE aux
 loss is discarded), so their logits compare with the reference's at the
 same weights.
+
+`guarded_decode_step` adds the serving-boundary NaN scrub of the JAX
+engine: a step whose logits an armed fault scope poisoned is re-run on
+the "torch" reference backend; any other non-finite step raises.
 """
 
 from __future__ import annotations
@@ -211,3 +215,61 @@ def decode_step(params, cfg: ModelConfig, cache, tokens: torch.Tensor, pos,
             x = _ffn(x + h, p, cfg, kind)
         h = rmsnorm(x, params["final_norm"], cfg.norm_eps)
         return transformer.unembed(params, cfg, h[:, 0]), cache
+
+
+def guarded_decode_step(params, cfg: ModelConfig, cache, tokens, pos,
+                        mm: mmcfg.MatmulConfig | None = None):
+    """`decode_step` with a serving-boundary NaN scrub.
+
+    Decode is where a poisoned kernel does most harm: one non-finite
+    logit corrupts every token sampled after it.  This wrapper is the last
+    net of the guard ladder: a *concrete* finiteness check on the logits
+    (it reads a device value on the host, so it belongs at the serving
+    boundary and never inside a captured decode graph).  The logits are
+    themselves a `fault_scope` injection site ("decode"): a step whose
+    logits that injection poisoned is counted in guard health
+    ("scrubbed_batches") and re-run on the "torch" reference backend,
+    outside the injection, as a backend-specific corruption would not
+    follow the computation to the reference.  Any other non-finite step
+    raises `NumericFault`: unlike the JAX engine, which re-runs every
+    non-finite step on its reference backend, a real fault is never
+    served by the plain version in a hand-written kernel's place.  A
+    reference re-run that is still non-finite raises too.
+
+    `decode_step` updates the cache in place, and a recurrent or SSM
+    state advanced twice would be wrong, so while a fault scope is armed
+    a copy of the cache from before the step is kept: the re-run starts
+    from it and writes its result back into `cache`.  With none armed
+    nothing is copied.
+    """
+    from repro_torch.guard import faults as _faults
+    from repro_torch.guard import health as _health
+    from repro_torch.guard.fallback import NumericFault
+    from repro_torch.serve.graphs import clone_cache
+
+    before = None if _faults.active() is None else clone_cache(cache)
+    logits, new_cache = decode_step(params, cfg, cache, tokens, pos, mm)
+    logits, injected = _faults.maybe_poison(logits, "decode")
+    if bool(torch.isfinite(logits).all()):
+        return logits, new_cache
+    if not injected:
+        raise NumericFault("decode_step logits non-finite with no fault "
+                           "injected at the decode site")
+    _health.record("faults_caught", injected)
+    _health.record("scrubbed_batches")
+    _copy_into(cache, before)
+    with mmcfg.scope(mm), mmcfg.mm_config(backend="torch"):
+        logits, new_cache = decode_step(params, cfg, cache, tokens, pos)
+    if not bool(torch.isfinite(logits).all()):
+        raise NumericFault("decode_step logits non-finite even on the "
+                           "torch reference backend")
+    return logits, new_cache
+
+
+def _copy_into(dst, src) -> None:
+    """Copy a cache tree (dicts of tensors) into one of the same shape."""
+    if isinstance(dst, dict):
+        for k, v in dst.items():
+            _copy_into(v, src[k])
+    else:
+        dst.copy_(src)

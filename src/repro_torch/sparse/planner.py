@@ -21,9 +21,12 @@ Modes: "naive" fixes 512 blocks clipped to the problem; "k_inner"
 restricts the sparse search to that schedule; "tuned" consults the
 active tune cache (`repro_torch.tune.runtime`), outside the lru cache,
 and falls back to the modeled "skew_aware" search on a miss or on a
-cached plan that no longer fits.  Modeled plans are cached per (summary
-or dims, n, chip, amp, mode).  The obs spans and the guard's
-corrupt-plan check wait for the guard / obs port.
+cached plan that no longer fits; a corrupt cache entry
+(`guard.faults.is_corrupt_plan`) is counted as caught and replaced by
+the modeled plan.  Modeled plans are cached per (summary or dims, n,
+chip, amp, mode).  With a `trace_scope` armed every resolution emits
+one "plan" span (feasible candidate count, chosen plan, modeled_us),
+outside the caches, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -37,6 +40,7 @@ from repro_torch.sparse.costmodel import (PLANNED_SPARSE_SCHEDULES,
                                           SparseMatmulCost,
                                           cost_sparse_matmul,
                                           sparse_vmem_bytes)
+from repro_torch.obs import spans as _obs
 from repro_torch.sparse.layout import LayoutSummary
 
 
@@ -60,21 +64,62 @@ def plan_grouped_matmul(groups: int, m: int, k: int, n: int, *,
     cfg = config.resolve(amp=amp, chip=chip, plan_mode=mode)
     if cfg.plan_mode == "tuned":
         # Tuned plans read the mutable active cache: never lru-cached.
-        return _plan_grouped_tuned(groups, m, k, n, dtype_bytes=dtype_bytes,
+        cost = _plan_grouped_tuned(groups, m, k, n, dtype_bytes=dtype_bytes,
                                    amp=cfg.amp, chip=cfg.chip_spec)
-    return _plan_grouped_cached(groups, m, k, n, dtype_bytes=dtype_bytes,
-                                amp=cfg.amp, chip=cfg.chip_spec,
-                                mode=cfg.plan_mode)
+    else:
+        cost = _plan_grouped_cached(groups, m, k, n, dtype_bytes=dtype_bytes,
+                                    amp=cfg.amp, chip=cfg.chip_spec,
+                                    mode=cfg.plan_mode)
+    if _obs.tracing():
+        _emit_grouped_plan_span(groups, m, k, n, cfg=cfg, cost=cost,
+                                dtype_bytes=dtype_bytes)
+    return cost
+
+
+def _emit_grouped_plan_span(groups: int, m: int, k: int, n: int, *, cfg,
+                            cost: SparseMatmulCost, dtype_bytes: int) -> None:
+    """The plan span of a grouped (MoE expert) plan resolution."""
+    chip = cfg.chip_spec
+    budget = int(cfg.amp * chip.vmem_bytes)
+    sub, lane = chip.mxu_sublanes, chip.mxu_lanes
+    mode = cfg.plan_mode
+    if mode == "naive":
+        candidates = 1
+    else:
+        candidates = 0
+        for bm in _aligned_candidates(m, sub if m < lane else lane, 4096):
+            for bk in _aligned_candidates(k, lane, 4096):
+                summary = LayoutSummary.block_diag(groups, m, k, (bm, bk))
+                for bn in _aligned_candidates(n, lane, 4096):
+                    p = BlockPlan(bm, bk, bn, schedule="k_inner")
+                    if sparse_vmem_bytes(summary, p, dtype_bytes) <= budget:
+                        candidates += 1
+    modeled_us = cost.total_s * 1e6
+    p = cost.plan
+    _obs.event(
+        "plan", f"grouped/{mode}",
+        groups=groups, m=m, k=k, n=n, chip=chip.name,
+        candidates=candidates, schedule=p.schedule,
+        blocks=(p.bm, p.bk, p.bn), grid_steps=cost.grid_steps,
+        modeled_us=modeled_us,
+    )
+    _obs.annotate("dispatch", modeled_us=modeled_us, schedule=p.schedule,
+                  grid_steps=cost.grid_steps)
 
 
 def _plan_grouped_tuned(groups: int, m: int, k: int, n: int, *,
                         dtype_bytes: int, amp: float,
                         chip: hw.ChipSpec) -> SparseMatmulCost:
+    from repro_torch.guard import faults as guard_faults  # planner <- guard
+    from repro_torch.guard import health as guard_health
     from repro_torch.tune import runtime as tune_runtime  # planner <- tune
 
     plan = tune_runtime.lookup_grouped(groups, m, k, n,
                                        dtype_bytes=dtype_bytes, amp=amp,
                                        chip=chip)
+    if guard_faults.is_corrupt_plan(plan):
+        guard_health.record("faults_caught")
+        plan = None
     if plan is not None:
         summary = LayoutSummary.block_diag(groups, m, k, (plan.bm, plan.bk))
         if sparse_vmem_bytes(summary, plan, dtype_bytes) <= int(
@@ -174,19 +219,62 @@ def plan_sparse_matmul(layout, n: int, *, dtype_bytes: int = 2,
     if cfg.plan_mode == "tuned":
         # Tuned plans read the mutable active cache: never lru-cached, so a
         # cache swap is never served a stale plan.
-        return _plan_sparse_tuned(summary, n, dtype_bytes=dtype_bytes,
+        cost = _plan_sparse_tuned(summary, n, dtype_bytes=dtype_bytes,
                                   amp=cfg.amp, chip=cfg.chip_spec)
-    return _plan_sparse_cached(summary, n, dtype_bytes=dtype_bytes,
-                               amp=cfg.amp, chip=cfg.chip_spec,
-                               mode=cfg.plan_mode)
+    else:
+        cost = _plan_sparse_cached(summary, n, dtype_bytes=dtype_bytes,
+                                   amp=cfg.amp, chip=cfg.chip_spec,
+                                   mode=cfg.plan_mode)
+    if _obs.tracing():
+        # Outside the lru cache: every resolution emits exactly one span.
+        _emit_sparse_plan_span(summary, n, cfg=cfg, cost=cost,
+                               dtype_bytes=dtype_bytes)
+    return cost
+
+
+def _emit_sparse_plan_span(summary: LayoutSummary, n: int, *, cfg,
+                           cost: SparseMatmulCost, dtype_bytes: int) -> None:
+    """The plan span of a sparse plan resolution (feasibility-only
+    candidate count over the (schedule x bn) space)."""
+    chip = cfg.chip_spec
+    budget = int(cfg.amp * chip.vmem_bytes)
+    lane = chip.mxu_lanes
+    mode = cfg.plan_mode
+    if mode == "naive":
+        candidates = 1
+    else:
+        schedules = (("k_inner",) if mode == "k_inner"
+                     else PLANNED_SPARSE_SCHEDULES)
+        candidates = 0
+        for schedule in schedules:
+            for bn in _aligned_candidates(n, lane, 4096):
+                p = BlockPlan(summary.bm, summary.bk, bn, schedule=schedule)
+                if sparse_vmem_bytes(summary, p, dtype_bytes) <= budget:
+                    candidates += 1
+    modeled_us = cost.total_s * 1e6
+    p = cost.plan
+    _obs.event(
+        "plan", f"sparse/{mode}",
+        m=summary.m, k=summary.k, n=n, chip=chip.name,
+        density=summary.density, candidates=candidates,
+        schedule=p.schedule, blocks=(p.bm, p.bk, p.bn),
+        grid_steps=cost.grid_steps, modeled_us=modeled_us,
+    )
+    _obs.annotate("dispatch", modeled_us=modeled_us, schedule=p.schedule,
+                  grid_steps=cost.grid_steps)
 
 
 def _plan_sparse_tuned(summary: LayoutSummary, n: int, *, dtype_bytes: int,
                        amp: float, chip: hw.ChipSpec) -> SparseMatmulCost:
+    from repro_torch.guard import faults as guard_faults  # planner <- guard
+    from repro_torch.guard import health as guard_health
     from repro_torch.tune import runtime as tune_runtime  # planner <- tune
 
     plan = tune_runtime.lookup_sparse(summary, n, dtype_bytes=dtype_bytes,
                                       amp=amp, chip=chip)
+    if guard_faults.is_corrupt_plan(plan):
+        guard_health.record("faults_caught")
+        plan = None
     if (plan is not None and (plan.bm, plan.bk) == (summary.bm, summary.bk)
             and sparse_vmem_bytes(summary, plan, dtype_bytes)
             <= int(amp * chip.vmem_bytes)):

@@ -17,8 +17,10 @@ owns that state:
   never an error; explicitly installed caches still fail loudly.
 * `lookup_dense` / `lookup_sparse` / `lookup_grouped` — the planner-facing
   queries: build the cache key for a problem (bucketing dense shapes via
-  `ShapeClass`), return the cached winner `BlockPlan` or None.  The JAX
-  package's corrupt-lookup fault hooks wait for the guard port.
+  `ShapeClass`), return the cached winner `BlockPlan` or None.  Each
+  lookup is a `cache_corrupt` injection site (`guard.faults`) and, with
+  a `trace_scope` armed, emits a "tune" event and stamps its key on the
+  enclosing dispatch span.
 """
 
 from __future__ import annotations
@@ -31,7 +33,9 @@ from typing import Iterator
 
 from repro_torch.core import hw
 from repro_torch.core.costmodel import BlockPlan
+from repro_torch.guard import faults as _faults
 from repro_torch.guard import health as _health
+from repro_torch.obs import spans as _obs
 from repro_torch.sparse.layout import LayoutSummary
 from repro_torch.tune.cache import (
     TuneCache,
@@ -125,14 +129,19 @@ def use_cache(cache: TuneCache | str | None) -> Iterator[TuneCache | None]:
 
 
 # ---------------------------------------------------------------- lookups
-def _count(entry) -> None:
+def _count(entry, key: str) -> None:
     # Hit / miss ledger: a run that promises every GEMM resolves in-cache
     # checks tuned_misses == 0.  Split-K hits are counted apart, so a
     # decode run can show its GEMV classes are active, not just covered.
     hit = entry is not None
+    gemv = hit and entry.schedule == "splitk"
     _health.record("tuned_hits" if hit else "tuned_misses")
-    if hit and entry.schedule == "splitk":
+    if gemv:
         _health.record("tuned_hits_gemv")
+    if _obs.tracing():
+        _obs.event("tune", key, hit=hit, gemv=gemv,
+                   schedule=None if entry is None else entry.schedule)
+        _obs.annotate("dispatch", tune_key=key, tune_hit=hit)
 
 
 def lookup_dense(
@@ -148,8 +157,12 @@ def lookup_dense(
     cls = ShapeClass.of(m, k, n, batch)
     key = dense_key(chip.name, dtype_bytes, amp, cls)
     entry = get_active_cache().get(key)
-    _count(entry)
-    return None if entry is None else entry.plan
+    _count(entry, key)
+    # cache_corrupt injection point: an armed fault scope can replace the
+    # result (hit or miss — a corrupt cache fabricates entries too) with
+    # the sentinel plan the planners reject.
+    return _faults.maybe_corrupt_lookup(
+        None if entry is None else entry.plan, "lookup_dense")
 
 
 def lookup_sparse(
@@ -162,8 +175,9 @@ def lookup_sparse(
 ) -> BlockPlan | None:
     key = sparse_key(chip.name, dtype_bytes, amp, summary, n)
     entry = get_active_cache().get(key)
-    _count(entry)
-    return None if entry is None else entry.plan
+    _count(entry, key)
+    return _faults.maybe_corrupt_lookup(
+        None if entry is None else entry.plan, "lookup_sparse")
 
 
 def lookup_grouped(
@@ -179,5 +193,6 @@ def lookup_grouped(
     cls = ShapeClass.of(m, k, n)
     key = grouped_key(chip.name, dtype_bytes, amp, groups, cls)
     entry = get_active_cache().get(key)
-    _count(entry)
-    return None if entry is None else entry.plan
+    _count(entry, key)
+    return _faults.maybe_corrupt_lookup(
+        None if entry is None else entry.plan, "lookup_grouped")
