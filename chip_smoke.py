@@ -72,6 +72,28 @@ nonzero and prints no result:
      --size 4096 --skew 8 --check` in a subprocess, and the 21 fig5
      shapes (bf16) through `skewmm.matmul` under the sim clock (drift
      exactly 0: a gate) and the wall clock (the drift table: a finding);
+  6h. the continuous-batching scheduler (the eleventh main path), phi4's
+     weights still loaded: the bucket table for 8 live requests, prompts
+     to 128 and 16 new tokens (batch buckets 1 / 2 / 4 / 8, prompt buckets
+     16 / 32 / 64 / 128, max_len 144); `capture_gemm_specs` and
+     `decode_gemm_specs` at full width on the meta device (no launch, no
+     device memory); `build_tuned_cache` with the wall-clock measurer
+     (phase 4e's iters / repeats) and `assert_covered`; a scripted stream
+     of 24 requests (arrival i // 3, prompt 3 + 37 i % 126, max_new 1 +
+     7 i % 16) served under plan_mode="tuned" through one decode graph
+     per batch bucket (every request completes its budget, tuned_misses
+     0, no ladder floor moves, one capture a bucket the slab reaches);
+     the stream again, graphed and decoded eagerly (`decode_graphs=False`),
+     each keeping its logits: equal results, telemetry and tuned ledger,
+     every logit row bitwise equal;
+     each request against a teacher-forced solo run (batch 1, fed the
+     scheduler's tokens): bitwise where every planned site of the two
+     calls has the same plan, within phase 5's bounds elsewhere; decode
+     ms a tick per batch bucket beside `modeled_step_seconds` on
+     gpu_h100; `launch.serve_bench --tiny` and `launch.trace --mode serve
+     --check` in processes of their own.  Counts are zeroed just before
+     and read just after the capture, the tuning and the three runs of the
+     stream;
 then dbrx-132b's MoE layers, after phi4's weights are freed:
   3b. K5 parity — the grouped expert GEMM against its plain version at the
      dbrx decode shapes (16 experts x 8 capacity rows, gate/up and down),
@@ -202,7 +224,7 @@ then the dense archs, each after the last one's weights are freed:
      x 128 + 16, as in phase 4f; parity at 2 layers;
   7. the served decode ms per token, graphed and eager, of every run; the
      `kernels` JSON line (K1-K9, K8's three kernels apart; launches summed
-     over the ten main paths), then the device line.
+     over the eleven main paths), then the device line.
 Every phase from 3 on runs between two `guard_disarmed` checks: no ladder
 floor above 0, no fault scope or trace armed, and no fallbacks /
 plans_rejected / scrubbed_batches / faults_* / obs_* counter (a trip
@@ -217,6 +239,7 @@ from __future__ import annotations
 import collections
 import dataclasses
 import functools
+import gc
 import itertools
 import json
 import math
@@ -2128,7 +2151,7 @@ def phase_tune(torch) -> dict:
         torch.bfloat16)
     b5 = (torch.randn((k5, n5), generator=gen, device="cuda")
           * k5 ** -0.5).to(torch.bfloat16)
-    health.reset()
+    reset_health("before phase 4e's tuned lookups")
     with mm_config(plan_mode="tuned"):
         ys = ops.sparse_matmul(a, b, lay)
         yd = ops.skew_matmul(a5, b5)
@@ -2519,6 +2542,14 @@ def guarded(tag: str, fn, *args, **kw):
     return out
 
 
+def reset_health(tag: str) -> None:
+    """Zero the health ledger for the next run, failing first if it holds
+    a guard counter (`guard_disarmed`): a reset never erases a fallback."""
+    from repro_torch.guard import health
+    guard_disarmed(tag)
+    health.reset()
+
+
 def chaos_case(torch, scenario: str, shape: str, call, want, expect_rung,
                expect_blocks, kernel: str, counts) -> None:
     """One chaos scenario at one site on the card: run under a bare trace
@@ -2872,6 +2903,532 @@ def phase_guard_obs(torch, cfg, params) -> dict:
     return {"counts": dict(counts)}
 
 
+# ----------------------------------------------------------------- sched
+# Phase 6h: the continuous-batching scheduler on the card (phi4-mini's
+# weights still loaded).  The bucket table of a workload of up to 8 live
+# requests, prompts of up to 128 tokens and 16 new tokens each; a scripted
+# stream of 24 requests arriving in bursts of three that hits every prompt
+# bucket and grows the slab 1 -> 8.
+SCHED_TABLE = dict(max_batch=8, max_prompt=128, max_new=16, min_prompt=16)
+SCHED_REQUESTS, SCHED_SEED = 24, 0
+
+
+def sched_entries() -> list[tuple[int, int, int]]:
+    """(arrival tick, prompt length, max_new) of the phase 6h stream."""
+    return [(i // 3, 3 + (37 * i) % 126, 1 + (7 * i) % 16)
+            for i in range(SCHED_REQUESTS)]
+
+
+def plan_sig(log) -> list[tuple]:
+    """Each planned site's (schedule, blocks, batch grid), in call order:
+    equal signatures run the same kernels at the same blocks (a split-K
+    plan's splits follow from its bk and the site's k)."""
+    return [(c.plan.schedule, c.plan.bm, c.plan.bk, c.plan.bn,
+             c.plan.batch_grid) for c in log]
+
+
+def sched_run(torch, params, cfg, table, reqs, *, graphs_on: bool,
+              trace: bool, timed: bool) -> dict:
+    """One scheduler run over `reqs` under the active tuned cache: the
+    scheduler, the health ledger it left (reset just before, once
+    `reset_health` found no guard counter in it), the ladder's floor, and
+    with `timed` each tick's host ms (a synchronise on each side), whether
+    it prefilled and the slab's batch at that tick."""
+    from repro_torch.guard import fallback, health
+    from repro_torch.serve.sched import Scheduler
+
+    reset_health("before a 6h scheduler run")
+    sched = Scheduler(params, cfg, table, trace_logits=trace,
+                      decode_graphs=graphs_on)
+    for r in reqs:
+        sched.submit(r)
+    ticks = []
+    torch.cuda.synchronize()
+    t_run = time.perf_counter()
+    for _ in range(200):
+        if not sched.queue and not sched.live:
+            break
+        pre, caps = sched.telemetry.prefill_batches, len(sched.captures)
+        if timed:
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        sched.step()
+        if timed:
+            torch.cuda.synchronize()
+            ticks.append({"ms": (time.perf_counter() - t0) * 1e3,
+                          "prefill": sched.telemetry.prefill_batches > pre,
+                          "captured": len(sched.captures) > caps,
+                          "batch": sched.slab_batch})
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t_run
+    sched.telemetry.record_health()
+    return {"sched": sched, "ledger": health.snapshot(), "ticks": ticks,
+            "floor": fallback.max_floor(), "s": run_s}
+
+
+# The kernel wrappers of the served path, by module: the dispatchers that
+# `kernels.ops` calls (K1's three schedules, K2, K3 + K4, K7).
+TAPPED = (("skew_matmul", "skew_matmul"), ("skew_matmul", "skew_matmul_batched"),
+          ("gemv_splitk", "gemv_splitk"), ("flash_attention", "flash_attention"))
+
+
+def _arg_key(x):
+    if hasattr(x, "shape"):
+        return (tuple(x.shape), tuple(x.stride()), str(x.dtype))
+    return repr(x)
+
+
+def tap_kernels(seen: dict):
+    """A context in which each distinct call of the served path's kernel
+    wrappers (`TAPPED`) leaves its arguments in `seen`, keyed by the
+    wrapper, the operands' shapes, strides and dtypes and the keyword
+    arguments (blocks, schedule, epilogue, out dtype).  The operands are
+    kept by reference, not copied; the wrappers run as ever."""
+    import contextlib
+    import importlib
+
+    @contextlib.contextmanager
+    def scope():
+        saved = []
+        for mod_name, fn_name in TAPPED:
+            mod = importlib.import_module(f"repro_torch.kernels.{mod_name}")
+            fn = getattr(mod, fn_name)
+            saved.append((mod, fn_name, fn))
+
+            def call(*args, _fn=fn, _name=fn_name, **kw):
+                key = (_name, tuple(_arg_key(x) for x in args),
+                       tuple(sorted((k, _arg_key(v)) for k, v in kw.items())))
+                seen.setdefault(key, (args, kw))
+                return _fn(*args, **kw)
+
+            setattr(mod, fn_name, call)
+        try:
+            yield seen
+        finally:
+            for mod, fn_name, fn in saved:
+                setattr(mod, fn_name, fn)
+
+    return scope()
+
+
+def served_parity(torch, errs: dict, seen: dict) -> collections.Counter:
+    """Each call in `seen` (`tap_kernels`) again through its kernel on the
+    card and its plain version, held within phase 3's tolerance; returns
+    the calls held, by kernel."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import gemv_splitk as gk
+    from repro_torch.kernels import skew_matmul as mm
+
+    held = collections.Counter()
+    check = functools.partial(check_kernel, torch, errs)
+    for (name, shapes, _), (args, kw) in seen.items():
+        tag = f"6h served {'x'.join(str(d) for d in shapes[0][0])}"
+        if name == "flash_attention":
+            q = args[0]
+            got = fa.flash_attention_cuda(*args, **kw)
+            want = fa.flash_attention_plain(*args, **kw)
+            check("flash_attention", got, want, q.dtype,
+                  f"{tag} kv {tuple(args[1].shape)}")
+            held["flash_attention"] += 1
+            continue
+        a, b, bias, res = (list(args) + [None, None])[:4]
+        bias, res = kw.pop("bias", bias), kw.pop("residual", res)
+        ep, odt = kw.get("epilogue"), kw.get("out_dtype", torch.float32)
+        tag += (f" @ {tuple(b.shape)} {[t for t, _ in ep or ()]} blocks "
+                f"{(kw['bm'], kw['bk'], kw['bn'])}")
+        if name == "gemv_splitk":
+            slab = gk.gemv_splitk_partial_cuda(a, b, bm=kw["bm"], bk=kw["bk"],
+                                               bn=kw["bn"])
+            slab_want = gk.gemv_splitk_partial_plain(a, b, bk=kw["bk"])
+            check("gemv_splitk_partial", slab, slab_want, torch.float32, tag)
+            got = gk.gemv_splitk_reduce_cuda(slab_want, bias, res,
+                                             epilogue=ep, out_dtype=odt)
+            want = gk.gemv_splitk_reduce_plain(slab_want, bias, res,
+                                               epilogue=ep, out_dtype=odt)
+            check("gemv_splitk_reduce", got, want, odt, tag)
+            held.update(("gemv_splitk_partial", "gemv_splitk_reduce"))
+        elif name == "skew_matmul_batched":
+            got = mm.skew_matmul_batched_cuda(a, b, bias, res, **kw)
+            want = mm.skew_matmul_batched_plain(a, b, bias, res, bk=kw["bk"],
+                                                epilogue=ep, out_dtype=odt)
+            check("skew_matmul_batched", got, want, odt, tag)
+            held["skew_matmul_batched"] += 1
+        else:
+            kname = f"skew_matmul_{kw.get('schedule', 'k_inner')}"
+            got = mm.skew_matmul_cuda(a, b, bias, res, **kw)
+            want = mm.skew_matmul_plain(a, b, bias, res, bk=kw["bk"],
+                                        epilogue=ep, out_dtype=odt)
+            check(kname, got, want, odt, tag)
+            held[kname] += 1
+        torch.cuda.synchronize()
+    return held
+
+
+def tick_ms(ticks, *, prefill: bool, batch: int | None = None) -> list:
+    """Host ms of the ticks that prefilled (or only decoded, at `batch`),
+    leaving out ticks that captured a decode graph."""
+    return [t["ms"] for t in ticks if t["prefill"] == prefill
+            and not t["captured"] and (batch is None or t["batch"] == batch)]
+
+
+def copy_tree(dst, src) -> None:
+    """Copy a cache tree (dicts of tensors) into one of the same shape."""
+    if isinstance(dst, dict):
+        for k, v in dst.items():
+            copy_tree(v, src[k])
+    else:
+        dst.copy_(src)
+
+
+def _median(xs) -> float:
+    xs = sorted(xs)
+    if not xs:
+        return float("nan")
+    mid = len(xs) // 2
+    return xs[mid] if len(xs) % 2 else (xs[mid - 1] + xs[mid]) / 2
+
+
+def phase_sched(torch, cfg, params, errs: dict) -> dict:
+    """Phase 6h (the eleventh main path): phi4-mini served at full width
+    from a scripted request stream by the continuous-batching scheduler,
+    under a tune cache measured on the card.  Counts are zeroed just
+    before and read just after; every kernel is then held against its
+    plain version at each call the stream served (largest error into
+    `errs`)."""
+    import numpy as np
+
+    from repro_torch.core import skewmm
+    from repro_torch.core.config import mm_config
+    from repro_torch.kernels import ops
+    from repro_torch.serve import engine, graphs
+    from repro_torch.serve.sched import (BucketTable, assert_covered,
+                                         build_tuned_cache,
+                                         capture_gemm_specs,
+                                         modeled_step_seconds,
+                                         scripted_trace)
+    from repro_torch.serve.sched.buckets import (decode_gemm_specs,
+                                                 gemv_decode_coverage,
+                                                 step_plans)
+    from repro_torch.tune import runtime, tuner
+    from repro_torch.tune.cache import dense_key
+    from repro_torch.tune.shapeclass import ShapeClass
+
+    t_phase = time.perf_counter()
+    ops.reset_launch_counts()
+    # ---- the main path: counts zeroed above, read after the last drive.
+    # 1. the table
+    table = BucketTable.for_workload(**SCHED_TABLE)
+    if (table.batch_buckets, table.prompt_buckets, table.max_len) != (
+            (1, 2, 4, 8), (16, 32, 64, 128), 144):
+        fail(f"6h: bucket table {table}")
+    # 2. the capture: meta tensors, no launch, no device memory.  Earlier
+    # phases' garbage is collected first and the collector held off during
+    # the capture, so that freeing it cannot move the reading.
+    gc.collect()
+    torch.cuda.synchronize()
+    mem0 = torch.cuda.memory_allocated()
+    launched0 = sum(ops.launch_counts().values())
+    t0 = time.perf_counter()
+    gc.disable()
+    try:
+        specs = capture_gemm_specs(params, cfg, table)
+        dspecs = decode_gemm_specs(params, cfg, table)
+    finally:
+        gc.enable()
+    capture_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    launched = sum(ops.launch_counts().values()) - launched0
+    mem1 = torch.cuda.memory_allocated()
+    if launched or mem1 != mem0:
+        fail(f"6h: the GEMM-spec capture launched {launched} kernels and "
+             f"moved the allocated device memory {mem0} -> {mem1} bytes")
+    say(f"6h capture: {len(specs)} GEMM specs ({len(dspecs)} of the decode "
+        f"steps) in {capture_s:.2f} s; no launch, device memory unchanged "
+        f"({mem0} bytes)")
+
+    # 3. the tune cache, measured on the card (phase 4e's iters / repeats)
+    def measurer(candidate, make_bench, *, iters, repeats):
+        del iters, repeats
+        return tuner.wallclock_measurer(candidate, make_bench,
+                                        iters=TUNE_ITERS,
+                                        repeats=TUNE_REPEATS)
+
+    t0 = time.perf_counter()
+    cache = build_tuned_cache(params, cfg, table, measurer=measurer)
+    tune_s = time.perf_counter() - t0
+    assert_covered(cache, specs)
+    entries = list(cache.entries.values())
+    n_split = sum(e.schedule == "splitk" for e in entries)
+    agree = sum(e.agreement for e in entries) / len(entries)
+    cov = gemv_decode_coverage(cache, dspecs)
+    say(f"6h tune: {len(entries)} entries measured on the card "
+        f"({n_split} split-K), agreement with the model "
+        f"{agree:.3f}, {tune_s:.1f} s; decode coverage {cov}")
+    for spec in dspecs:
+        _, m, k, n, batch, db = spec
+        e = cache.get(dense_key("gpu_h100", db, 0.45,
+                                ShapeClass.of(m, k, n, batch)))
+        say(f"6h tuned decode {m}x{k}x{n} b{batch}: {e.schedule} "
+            f"{e.blocks}{' batch-grid' if e.batch_grid else ''} measured "
+            f"{e.measured_us:.1f} us (modeled best {e.modeled_best_schedule} "
+            f"{e.modeled_best_blocks} {e.modeled_best_measured_us:.1f} us, "
+            f"speedup {e.speedup:.3f})")
+
+    # 4.-5. serve the stream through the decode graphs (timed), then
+    # graphed and eager again with every logit row kept (timed too; each
+    # tick then also copies its logits to the host)
+    reqs = scripted_trace(sched_entries(), vocab_size=cfg.vocab_size,
+                          seed=SCHED_SEED)
+    with runtime.use_cache(cache), mm_config(plan_mode="tuned"):
+        before = ops.launch_counts()
+        with skewmm.plan_capture() as served_log:
+            g_run = sched_run(torch, params, cfg, table, reqs,
+                              graphs_on=True, trace=False, timed=True)
+        served = {k: v - before[k] for k, v in ops.launch_counts().items()}
+        g_tr = sched_run(torch, params, cfg, table, reqs, graphs_on=True,
+                         trace=True, timed=True)
+        e_tr = sched_run(torch, params, cfg, table, reqs, graphs_on=False,
+                         trace=True, timed=True)
+    counts = ops.launch_counts()
+    # ---- end of the main path.
+    gs = g_run["sched"]
+    summary = gs.telemetry.summary()
+    ledger = {k: v for k, v in g_run["ledger"].items()
+              if k.startswith("tuned_")}
+    say("6h serve: " + ", ".join(f"{k}={v:g}" for k, v in
+                                 sorted(summary.items())))
+    say(f"6h serve: tuned ledger {ledger}; slab buckets {gs.slab_history}; "
+        f"captures " + ", ".join(f"b{c['batch']} {c['ms']:.1f} ms"
+                                 for c in gs.captures))
+    if len(gs.results) != len(reqs) or any(
+            len(gs.results[r.rid]["tokens"]) != r.max_new for r in reqs):
+        fail("6h: not every request completed with its full budget")
+    if ledger.get("tuned_misses", 0) or not ledger.get("tuned_hits"):
+        fail(f"6h: tuned ledger {ledger} (misses must be 0)")
+    if any(run["floor"] for run in (g_run, g_tr, e_tr)):
+        fail("6h: a ladder floor moved")
+    hist = gs.slab_history
+    if hist[-1] != table.batch_buckets[-1] or hist != sorted(set(hist)):
+        fail(f"6h: the slab grew {hist}, expected a rising run to "
+             f"{table.batch_buckets[-1]}")
+    if [c["batch"] for c in gs.captures] != hist:
+        fail(f"6h: decode graphs captured at {gs.captures}, the slab at "
+             f"{hist}: one capture a bucket the slab reached")
+    used = {"flash_attention"}
+    for c in served_log:
+        if not hasattr(c, "plan"):
+            continue
+        if c.plan.schedule == "splitk":
+            used |= {"gemv_splitk_partial", "gemv_splitk_reduce"}
+        elif c.plan.batch_grid and c.dims.batch > 1:
+            used.add("skew_matmul_batched")
+        else:
+            used.add(f"skew_matmul_{c.plan.schedule}")
+    for name in sorted(used):
+        if served.get(name, 0) <= 0:
+            fail(f"6h: kernel {name} was not launched by the served stream")
+    say(f"6h served stream launches: "
+        f"{dict((k, v) for k, v in served.items() if v)}")
+    gt = g_run["ticks"]
+    pre_ms = tick_ms(gt, prefill=True)
+    dec_ms = tick_ms(gt, prefill=False)
+    toks_s = summary["tokens_out"] / g_run["s"]
+    say(f"6h host ms a tick (synchronised; capture ticks left out): "
+        f"prefill ticks median {_median(pre_ms):.2f} "
+        f"({len(pre_ms)} ticks, {min(pre_ms, default=0):.2f}-"
+        f"{max(pre_ms, default=0):.2f}), decode-only ticks median "
+        f"{_median(dec_ms):.2f} ({len(dec_ms)} ticks, "
+        f"{min(dec_ms, default=0):.2f}-{max(dec_ms, default=0):.2f}); "
+        f"{summary['tokens_out']:g} tokens in {g_run['s'] * 1e3:.1f} ms "
+        f"= {toks_s:.1f} tokens/s (captures included)")
+    for run, what in ((g_tr, "graphed"), (e_tr, "eager")):
+        d, p = (tick_ms(run["ticks"], prefill=False),
+                tick_ms(run["ticks"], prefill=True))
+        say(f"6h {what} run keeping its logits: decode-only ticks median "
+            f"{_median(d):.2f} ms ({len(d)} ticks), prefill ticks median "
+            f"{_median(p):.2f} ms; {run['s'] * 1e3:.1f} ms = "
+            f"{summary['tokens_out'] / run['s']:.1f} tokens/s")
+
+    # 5. graphed against eager: results, telemetry, ledger, logits
+    for a, b, what in ((g_tr, e_tr, "graphed and eager"),
+                       (g_run, g_tr, "graphed")):
+        sa, sb = a["sched"], b["sched"]
+        la = {k: v for k, v in a["ledger"].items() if k.startswith("tuned_")}
+        lb = {k: v for k, v in b["ledger"].items() if k.startswith("tuned_")}
+        if sa.results != sb.results or la != lb or \
+                sa.telemetry.summary() != sb.telemetry.summary():
+            fail(f"6h: {what} runs differ in results, telemetry or ledger "
+                 f"({la} vs {lb})")
+    rows = 0
+    for rid, got in g_tr["sched"].logit_trace.items():
+        want = e_tr["sched"].logit_trace[rid]
+        if len(got) != len(want) or not all(
+                np.array_equal(x, y) for x, y in zip(got, want)):
+            fail(f"6h: request {rid}: graphed logits not bitwise equal to "
+                 f"eager")
+        rows += len(got)
+    say(f"6h graphed = eager: results, telemetry, tuned ledger equal; "
+        f"{rows} logit rows bitwise equal")
+
+    # 5b. every kernel at each (shape, blocks, schedule, epilogue) the
+    # stream served, against its plain version on the operands it was
+    # served: an eager run of the same trace leaves each distinct call's
+    # arguments (graphed = eager above, so these are the replays' calls
+    # too).  After the counts were read: these launches are not counted.
+    seen: dict = {}
+    with runtime.use_cache(cache), mm_config(plan_mode="tuned"), \
+            tap_kernels(seen):
+        sched_run(torch, params, cfg, table, reqs, graphs_on=False,
+                  trace=False, timed=False)
+    held = served_parity(torch, errs, seen)
+    missing = sorted(k for k, v in served.items() if v and not held[k])
+    if missing:
+        fail(f"6h: kernels the stream launched that no served call held "
+             f"against its plain version: {missing}")
+    say(f"6h served calls against their plain versions: {len(seen)} "
+        f"distinct calls, by kernel {dict(sorted(held.items()))}")
+    del seen
+
+    # 6. join and leave: each request against a teacher-forced solo run
+    st = g_tr["sched"]
+    n_same = n_tol = 0
+    worst = (0.0, 0.0)
+    with runtime.use_cache(cache), mm_config(plan_mode="tuned"):
+        sig = {}
+
+        def sig_of(batch, prompt=None):
+            key = (batch, prompt)
+            if key not in sig:
+                sig[key] = plan_sig(step_plans(params, cfg, batch,
+                                               table.max_len, prompt=prompt))
+            return sig[key]
+
+        solo_cache = None
+        solo_graph = None
+        for r in reqs:
+            pb = table.prompt_bucket(r.prompt_len)
+            toks = torch.zeros((1, pb), dtype=torch.long, device="cuda")
+            toks[0, :r.prompt_len] = torch.tensor(r.tokens, device="cuda")
+            cache_1, lg = engine.prefill(
+                params, cfg, toks, max_len=table.max_len,
+                last_index=torch.tensor([r.prompt_len - 1], device="cuda"))
+            want = [lg[0].float().cpu().numpy()]
+            if solo_graph is None:
+                solo_cache = cache_1
+                solo_graph = graphs.DecodeGraph(params, cfg, solo_cache, 1,
+                                                per_row_pos=True)
+            else:
+                copy_tree(solo_cache, cache_1)
+            del cache_1
+            tokens = st.results[r.rid]["tokens"]
+            for j in range(r.max_new - 1):
+                out = solo_graph.step(
+                    torch.tensor([tokens[j]], device="cuda"),
+                    torch.tensor([r.prompt_len + j], dtype=torch.int32,
+                                 device="cuda"))
+                want.append(out[0].to("cpu", torch.float32,
+                                      copy=True).numpy())
+            got = st.logit_trace[r.rid]
+            batches = st.logit_batches[r.rid]
+            for j, (x, y) in enumerate(zip(got, want)):
+                prompt = pb if j == 0 else None
+                same_plans = sig_of(batches[j], prompt) == sig_of(1, prompt)
+                if same_plans:
+                    n_same += 1
+                    if not np.array_equal(x, y):
+                        d = np.abs(x - y)
+                        fail(f"6h: request {r.rid} row {j} (batch "
+                             f"{batches[j]}, plans equal to the solo run's) "
+                             f"not bitwise equal: max|diff| {d.max():.3e}")
+                else:
+                    n_tol += 1
+                    d = np.abs(x - y)
+                    rel_max = d.max() / np.abs(y).max()
+                    rel_mean = d.mean() / np.abs(y).mean()
+                    worst = (max(worst[0], rel_max), max(worst[1], rel_mean))
+                    if rel_max > PATH_TOL_MAX or rel_mean > PATH_TOL_MEAN:
+                        fail(f"6h: request {r.rid} row {j} (batch "
+                             f"{batches[j]}) past phase 5's bounds: rel max "
+                             f"{rel_max:.3e}, mean {rel_mean:.3e}")
+        del solo_graph, solo_cache
+    say(f"6h join/leave: {n_same} rows whose batched and solo calls plan "
+        f"every site alike, bitwise equal; {n_tol} rows where a plan "
+        f"differs, within phase 5's bounds (worst rel max {worst[0]:.3e}, "
+        f"mean {worst[1]:.3e}); plan signatures differ at "
+        + ", ".join(f"b{b}{'' if p is None else f' p{p}'}"
+                    for (b, p) in sorted(sig, key=str) if b != 1
+                    and sig[(b, p)] != sig_of(1, p)))
+
+    # 7. the serving-level cost model against the card: at each batch
+    # bucket B, B requests arriving together (prompt 16, 16 tokens each)
+    # decode 15 ticks at batch B
+    # `modeled_step_seconds` sums the plans an abstract step records: one
+    # repeat of each stage (as the JAX package's, whose lax.scan traces
+    # its body once).  phi4 is one stage of identical layers and the LM
+    # head, so the whole depth is the layer sites times the repeats.
+    ((_, reps),) = cfg.stage_list()
+    for b in table.batch_buckets:
+        modeled = modeled_step_seconds(params, cfg, b, table.max_len,
+                                       chip="gpu_h100") * 1e3
+        with mm_config(chip="gpu_h100"):
+            costs = [c.total_s for c in step_plans(params, cfg, b,
+                                                   table.max_len)]
+        whole = (sum(costs[:-1]) * reps + costs[-1]) * 1e3
+        solo = scripted_trace([(0, 16, table.max_new)] * b,
+                              vocab_size=cfg.vocab_size, seed=SCHED_SEED)
+        with runtime.use_cache(cache), mm_config(plan_mode="tuned"):
+            run = sched_run(torch, params, cfg, table, solo, graphs_on=True,
+                            trace=False, timed=True)
+        meas = tick_ms(run["ticks"], prefill=False, batch=b)
+        say(f"6h decode b{b}: measured {_median(meas):.2f} ms a decode-only "
+            f"tick (graphed, median of {len(meas)}, "
+            f"{min(meas):.2f}-{max(meas):.2f}); modeled gpu_h100 "
+            f"modeled_step_seconds {modeled:.4g} ms (one layer a stage), "
+            f"all {cfg.n_layers} layers {whole:.4g} ms (measured / modeled "
+            f"{_median(meas) / whole:.2f})")
+    bmax = table.batch_buckets[-1]
+    rate = {chip: bmax / modeled_step_seconds(params, cfg, bmax,
+                                              table.max_len, chip=chip)
+            for chip in ("ipu_gc200", "gpu_rtx2080ti", "gpu_h100")}
+    say(f"6h modeled decode tokens/s at batch {bmax}: "
+        + ", ".join(f"{c}={v:.0f}" for c, v in rate.items())
+        + f" (gc200/rtx2080ti = "
+          f"{rate['ipu_gc200'] / rate['gpu_rtx2080ti']:.2f}x)")
+
+    # 8. the scheduler's launchers, each in a process of its own (both
+    # started together)
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    t0 = time.perf_counter()
+    procs = [(argv, subprocess.Popen(
+        [sys.executable, "-m", *argv], cwd=ROOT, env=env, text=True,
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE))
+        for argv in (["repro_torch.launch.serve_bench", "--tiny"],
+                     ["repro_torch.launch.trace", "--mode", "serve",
+                      "--check", "--quiet"])]
+    for argv, proc in procs:
+        try:
+            out, err = proc.communicate(timeout=300)
+        except subprocess.TimeoutExpired:
+            for _, p in procs:
+                p.kill()
+            fail(f"6h: python -m {' '.join(argv)} did not end in 300 s")
+        tail = out.strip().splitlines()[-3:]
+        say(f"6h python -m {' '.join(argv)}: exit {proc.returncode} "
+            f"({time.perf_counter() - t0:.1f} s after the start); "
+            + " | ".join(tail))
+        if proc.returncode != 0:
+            print(err[-4000:], flush=True)
+            for _, p in procs:
+                p.kill()
+            fail(f"6h: python -m {' '.join(argv)} exited "
+                 f"{proc.returncode}")
+    reset_health("at the end of 6h")
+    torch.cuda.empty_cache()
+    say(f"6h: launches {dict((n, c) for n, c in counts.items() if c)}; "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    return {"counts": counts}
+
+
 # ----------------------------------------------------------------- dense
 def dense_depth(torch, cfg) -> int:
     """The layers of `cfg` to serve: all of them where their bf16 weights
@@ -3004,6 +3561,10 @@ def main() -> None:
         "6g), phi4-mini's weights still loaded")
     guard_path = guarded("phase 6g", phase_guard_obs, torch, cfg,
                          main_path["params"])
+    say("sched: the continuous-batching scheduler serving phi4-mini from a "
+        "request stream under a tune cache measured on the card (phase 6h)")
+    sched_path = guarded("phase 6h", phase_sched, torch, cfg,
+                         main_path["params"], errs)
     phi4_counts, phi4_graph = main_path["counts"], main_path["graph"]
     del main_path                   # free phi4's weights
     torch.cuda.empty_cache()
@@ -3114,12 +3675,12 @@ def main() -> None:
     # K1-K4, the dbrx decode gate/up shape for K5, recurrentgemma's batch-4
     # prefill for K6 and K7, mamba2's for K8, the tuner's 4096^2 (32, 128)
     # d 0.25 layout for K9); the other shapes are in the log above.
-    # Launches: summed over the ten main paths.
+    # Launches: summed over the eleven main paths.
     launches = {n: sum(c.get(n, 0) for c in (
         phi4_counts, moe_path["counts"], hyb_path["counts"],
         ssm_path["counts"], tune_path["counts"], fig5_path["counts"],
         gemma_path["counts"], granite_path["counts"], cr_path["counts"],
-        guard_path["counts"]))
+        guard_path["counts"], sched_path["counts"]))
         for n in KERNELS}
     first = {}
     for r in rows:

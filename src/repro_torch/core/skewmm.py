@@ -31,7 +31,7 @@ from typing import Iterator
 
 import torch
 
-from repro_torch.core import config, epilogue as epilogue_mod, hw
+from repro_torch.core import config, epilogue as epilogue_mod, hw, stage_trace
 from repro_torch.core.epilogue import Epilogue
 from repro_torch.core.planner import plan_matmul
 from repro_torch.obs import attribution as _obs
@@ -88,7 +88,10 @@ def plan_log() -> list:
 
 def record_plan(cost) -> None:
     """Append a plan to every active capture.  `ops.grouped_matmul` records
-    its grouped plans here, so a capture sees the whole workload."""
+    its grouped plans here, so a capture sees the whole workload.  A repeat
+    r > 0 of a stage records nothing (`core.stage_trace`)."""
+    if not stage_trace.recording():
+        return
     for log in _ACTIVE_LOGS:
         log.append(cost)
 

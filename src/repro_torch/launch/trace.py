@@ -2,6 +2,7 @@
 
   PYTHONPATH=src python -m repro_torch.launch.trace --mode matmul --skew 64
   PYTHONPATH=src python -m repro_torch.launch.trace --clock wall --check
+  PYTHONPATH=src python -m repro_torch.launch.trace --mode serve --check
 
 Arms `repro_torch.obs.trace_scope` around a small real workload and shows
 what the instrumented stack emits: the deterministic text tree on
@@ -20,9 +21,12 @@ every dispatch span must carry the attribution fields (ladder rung,
 modeled_us, measured_us — plus the tune cache key under
 ``--mm-plan-mode tuned``).  Exits non-zero on any violation.
 
-The workload runs on the card unless ``--device cpu`` is given.  Only
-the matmul mode is ported: ``--mode serve`` drives the serving
-scheduler, which is not ported yet (ROADMAP queue 1, item 6).
+``--mode serve`` traces a tiny scripted serve run of the scheduler
+(`serve.sched`) on a reduced config under ``plan_mode="tuned"`` (the
+covering cache tuned by the cost model outside the scope), decoding
+eagerly so that every decode step's dispatches are in the tree.
+
+The workload runs on the card unless ``--device cpu`` is given.
 """
 
 from __future__ import annotations
@@ -40,10 +44,6 @@ from repro_torch.obs import (
     trace_scope,
     validate_chrome,
 )
-
-SERVE_MISSING = ("--mode serve needs the serving scheduler, which the "
-                 "port does not have yet (ROADMAP queue 1, item 6)")
-
 
 def _make_clock(name: str):
     return SimClock() if name == "sim" else WallClock()
@@ -76,6 +76,42 @@ def run_matmul(args):
     with trace_scope(clock=_make_clock(args.clock)) as tr:
         for a, b in operands:
             skewmm.matmul(a, b)
+    return tr
+
+
+def run_serve(args):
+    """A tiny scripted serve run under plan_mode=tuned (the obs-suite
+    workload): cache built outside the scope, scheduler inside, decode
+    eager."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.models.model import build_model
+    from repro_torch.serve.sched import (
+        BucketTable,
+        Scheduler,
+        assert_covered,
+        build_tuned_cache,
+        capture_gemm_specs,
+        scripted_trace,
+    )
+    from repro_torch.tune import runtime as tune_runtime
+
+    cfg = get_config(args.arch).reduced()
+    table = BucketTable.for_workload(max_batch=2, max_prompt=8, max_new=2)
+    params = build_model(cfg, args.device).init(0)
+    specs = capture_gemm_specs(params, cfg, table)
+    cache = build_tuned_cache(params, cfg, table)
+    assert_covered(cache, specs)
+    reqs = scripted_trace(
+        [(0, 3, 2), (1, 5, 1), (2, 7, 2)], vocab_size=cfg.vocab_size, seed=3
+    )
+    with tune_runtime.use_cache(cache), mmcfg.mm_config(plan_mode="tuned"):
+        with trace_scope(clock=_make_clock(args.clock)) as tr:
+            sched = Scheduler(params, cfg, table, decode_graphs=False)
+            results = sched.run(reqs, max_ticks=50)
+    if len(results) != len(reqs):
+        raise SystemExit(
+            f"serve run incomplete: {len(results)}/{len(reqs)} requests"
+        )
     return tr
 
 
@@ -135,8 +171,11 @@ def main(argv=None) -> int:
                     help="matmul mode: base dimension")
     ap.add_argument("--skew", type=int, default=8,
                     help="matmul mode: skew ratio for the long sides")
+    ap.add_argument("--arch", default="phi4-mini-3.8b",
+                    help="serve mode: model config (reduced)")
     ap.add_argument("--device", default="cuda",
-                    help="where the operands live (default: the card)")
+                    help="where the operands and weights live (default: "
+                         "the card)")
     ap.add_argument("--check", action="store_true",
                     help="validate the trace-smoke contract (chrome "
                          "schema, event counts, dispatch attribution) "
@@ -145,12 +184,10 @@ def main(argv=None) -> int:
                     help="suppress the span-tree dump")
     mmcfg.add_cli_args(ap)
     args = ap.parse_args(argv)
-    if args.mode == "serve":
-        raise SystemExit(SERVE_MISSING)
 
     with mmcfg.scope_from_args(args):
-        tuned = mmcfg.resolve().plan_mode == "tuned"
-        tr = run_matmul(args)
+        tuned = args.mode == "serve" or mmcfg.resolve().plan_mode == "tuned"
+        tr = run_matmul(args) if args.mode == "matmul" else run_serve(args)
 
     if not args.quiet:
         print(tr.render().rstrip("\n"))

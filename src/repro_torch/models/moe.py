@@ -17,7 +17,8 @@ Where PyTorch differs from JAX, the port reproduces JAX's semantics:
     of additions is not deterministic.
 
 Capacity-slot accounting (`track_capacity_slots`) is opt-in, as in the
-JAX package.  The expert-parallel shard_map path is not ported yet.
+JAX package, and recorded once per stage site and call
+(`core.stage_trace`).  The expert-parallel shard_map path is not ported yet.
 """
 
 from __future__ import annotations
@@ -28,6 +29,7 @@ from typing import Iterator
 import torch
 import torch.nn.functional as F
 
+from repro_torch.core import stage_trace
 from repro_torch.kernels import ops
 from repro_torch.models import layers
 from repro_torch.models.layers import linear_init
@@ -115,7 +117,7 @@ def _dispatch_compute_combine(xf: torch.Tensor, p: dict, cfg, *,
 
     cap = _capacity(t, cfg)
     n_slots = n_local_experts * cap
-    if _TRACK_SLOTS:
+    if _TRACK_SLOTS and stage_trace.recording():
         from repro_torch.guard import health as _health
         filled = min(t * k, n_slots)
         _health.record("moe_slots_total", n_slots)

@@ -4,13 +4,15 @@ Parameters are a plain dict: ``embed``, ``final_norm``, optional
 ``unembed``, and per stage of ``cfg.stage_list()`` a list ``stage{si}`` of
 unit dicts ``{"b{i}": block params}`` — the JAX package's stacked stage
 arrays unstacked along the layer axis (see `repro_torch.convert`).
+Each repeat runs in `stage_trace.repeat(r)`, so host records are made
+once per stage site, as under the JAX package's `lax.scan`.
 """
 
 from __future__ import annotations
 
 import torch
 
-from repro_torch.core import skewmm
+from repro_torch.core import skewmm, stage_trace
 from repro_torch.models import blocks, layers
 from repro_torch.models.layers import embed_init, linear_init, rmsnorm
 
@@ -58,8 +60,9 @@ def forward_hidden(params, cfg, tokens: torch.Tensor
     x = embed_tokens(params, cfg, tokens)
     positions = torch.arange(x.shape[1], dtype=torch.int32, device=x.device)
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
-    for kind, p, *_ in layer_iter(params, cfg):
-        x, aux = blocks.block_fwd(x, p, cfg, kind, positions)
+    for kind, p, _, r, _ in layer_iter(params, cfg):
+        with stage_trace.repeat(r):
+            x, aux = blocks.block_fwd(x, p, cfg, kind, positions)
         aux_total = aux_total + aux
     return rmsnorm(x, params["final_norm"], cfg.norm_eps), aux_total
 

@@ -223,6 +223,18 @@ def trace_scope(clock: Any = None) -> Iterator[Trace]:
         layers.pop()
 
 
+@contextlib.contextmanager
+def suspended() -> Iterator[None]:
+    """Hide this thread's armed traces for the block: nothing inside emits
+    a span or an event, and `tracing()` is False (`core.stage_trace`)."""
+    saved = getattr(_TLS, "layers", None)
+    _TLS.layers = []
+    try:
+        yield
+    finally:
+        _TLS.layers = saved
+
+
 def span(kind: str, name: str = "", **attrs: Any):
     """Open a span for the extent of the block (no-op when disarmed: the
     shared null context, cheaper to enter than a generator's).

@@ -16,6 +16,10 @@ state for decode); decode attention stays `blockwise_attention` over the
 cache positions, and the decode recurrences `rglru_decode_step` and
 `ssd_decode_step`, as in the JAX package.
 
+Each repeat of a stage's unit runs in `stage_trace.repeat(r)`: the host
+records (plan log, tuned-lookup ledger, spans, MoE slot counts) are made
+once per stage site and call, as under the JAX engine's `lax.scan`.
+
 Both follow the JAX engine op for op (the FFN's residual add is not fused
 in the serving path there, so it is not fused here either; the MoE aux
 loss is discarded), so their logits compare with the reference's at the
@@ -32,7 +36,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import config as mmcfg
-from repro_torch.core import skewmm
+from repro_torch.core import skewmm, stage_trace
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import blocks, layers, moe, rglru, ssm, transformer
 from repro_torch.models.layers import rmsnorm
@@ -107,18 +111,20 @@ def prefill(params, cfg: ModelConfig, tokens: torch.Tensor, *, max_len: int,
         cache = kvcache.init_cache(cfg, b, max_len, x.device)
         for kind, p, si, r, i in transformer.layer_iter(params, cfg):
             entry = cache[f"stage{si}"][f"b{i}"]
-            h = rmsnorm(x, p["ln1"], cfg.norm_eps)
-            if kind == "rec":
-                h = _rec_prefill(h, p["mixer"], cfg, entry["lru"][r],
-                                 entry["conv"][r])
-            elif kind == "ssm":
-                h = _ssm_prefill(h, p["mixer"], cfg, _ssm_entry(entry, r))
-            else:
-                h = _attn_prefill(h, p["attn"], cfg, kind, positions,
-                                  entry["k"][r], entry["v"][r])
-            if cfg.use_post_norm:
-                h = rmsnorm(h, p["post_ln1"], cfg.norm_eps)
-            x = _ffn(x + h, p, cfg, kind)
+            with stage_trace.repeat(r):
+                h = rmsnorm(x, p["ln1"], cfg.norm_eps)
+                if kind == "rec":
+                    h = _rec_prefill(h, p["mixer"], cfg, entry["lru"][r],
+                                     entry["conv"][r])
+                elif kind == "ssm":
+                    h = _ssm_prefill(h, p["mixer"], cfg,
+                                     _ssm_entry(entry, r))
+                else:
+                    h = _attn_prefill(h, p["attn"], cfg, kind, positions,
+                                      entry["k"][r], entry["v"][r])
+                if cfg.use_post_norm:
+                    h = rmsnorm(h, p["post_ln1"], cfg.norm_eps)
+                x = _ffn(x + h, p, cfg, kind)
         h = rmsnorm(x, params["final_norm"], cfg.norm_eps)
         if last_index is None:
             last = h[:, -1]
@@ -200,19 +206,22 @@ def decode_step(params, cfg: ModelConfig, cache, tokens: torch.Tensor, pos,
         pos = torch.as_tensor(pos, dtype=torch.int32, device=x.device)
         for kind, p, si, r, i in transformer.layer_iter(params, cfg):
             entry = cache[f"stage{si}"][f"b{i}"]
-            h = rmsnorm(x, p["ln1"], cfg.norm_eps)
-            if kind == "rec":
-                h = _decode_rec(h, p["mixer"], cfg, entry["lru"][r],
-                                entry["conv"][r])
-            elif kind == "ssm":
-                h = _decode_ssm(h, p["mixer"], cfg, _ssm_entry(entry, r))
-            else:
-                window = cfg.local_window if kind == "attn_local" else None
-                h = _decode_gqa(h, p["attn"], cfg, entry["k"][r],
-                                entry["v"][r], pos, window)
-            if cfg.use_post_norm:
-                h = rmsnorm(h, p["post_ln1"], cfg.norm_eps)
-            x = _ffn(x + h, p, cfg, kind)
+            with stage_trace.repeat(r):
+                h = rmsnorm(x, p["ln1"], cfg.norm_eps)
+                if kind == "rec":
+                    h = _decode_rec(h, p["mixer"], cfg, entry["lru"][r],
+                                    entry["conv"][r])
+                elif kind == "ssm":
+                    h = _decode_ssm(h, p["mixer"], cfg,
+                                    _ssm_entry(entry, r))
+                else:
+                    window = (cfg.local_window if kind == "attn_local"
+                              else None)
+                    h = _decode_gqa(h, p["attn"], cfg, entry["k"][r],
+                                    entry["v"][r], pos, window)
+                if cfg.use_post_norm:
+                    h = rmsnorm(h, p["post_ln1"], cfg.norm_eps)
+                x = _ffn(x + h, p, cfg, kind)
         h = rmsnorm(x, params["final_norm"], cfg.norm_eps)
         return transformer.unembed(params, cfg, h[:, 0]), cache
 

@@ -23,6 +23,14 @@ are taken back and kept as `per_step`; each replay adds them to the
 kernel modules' counters, so `ops.launch_counts()` stays the number of
 launches the card ran.  The warm-up's launches ran and stay counted.
 
+The host ledger of `guard.health` is kept by the capture: the warm-up
+runs with host records off (`stage_trace.quiet`: it serves no token), and
+the counters the capture records (the tuned-plan lookups, the MoE
+capacity slots under `moe.track_capacity_slots`, whatever a step records
+on the host) stand for the first replay's.  Their increments are kept as
+`host_per_step` and every later replay adds them, so a graphed run leaves
+the ledger an eager run of the same steps leaves.
+
 On CPU tensors (the caller asks for the CPU) there is no graph: the same
 object warms up on a scratch copy and `step` calls `engine.decode_step`
 on the same static buffers.  On CUDA a failed capture or replay raises;
@@ -37,10 +45,21 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import config as mmcfg
+from repro_torch.core import stage_trace
+from repro_torch.guard import health
 from repro_torch.kernels import ops
+from repro_torch.obs.metrics import REGISTRY
 from repro_torch.serve import engine
 
 WARMUP_STEPS = 1
+
+
+def _counters() -> dict[str, int]:
+    """The health registry's counters, its gauges and the tracer's
+    `obs_*` counters set apart (those count spans, and a replay makes
+    none)."""
+    return {name: m["value"] for name, m in REGISTRY.snapshot().items()
+            if m["kind"] == "counter" and not name.startswith("obs_")}
 
 
 def clone_cache(cache):
@@ -71,15 +90,18 @@ class DecodeGraph:
         self.graph = None
         self.per_step: list[collections.Counter] = [
             collections.Counter() for _ in ops.launch_counters()]
+        self.host_per_step: dict[str, int] = {}
+        self._replays = 0
         scratch = clone_cache(cache)
         if dev.type != "cuda":
-            for _ in range(WARMUP_STEPS):
-                out = self._run(scratch)
+            with stage_trace.quiet():
+                for _ in range(WARMUP_STEPS):
+                    out = self._run(scratch)
             self.logits = torch.empty_like(out)
             return
         side = torch.cuda.Stream(dev)
         side.wait_stream(torch.cuda.current_stream(dev))
-        with torch.cuda.stream(side):
+        with torch.cuda.stream(side), stage_trace.quiet():
             for _ in range(WARMUP_STEPS):
                 self._run(scratch)
         torch.cuda.current_stream(dev).wait_stream(side)
@@ -87,6 +109,7 @@ class DecodeGraph:
         self.graph = torch.cuda.CUDAGraph()
         counters = ops.launch_counters()
         before = [collections.Counter(c) for c in counters]
+        host = _counters()
         try:
             with torch.cuda.graph(self.graph):
                 self.logits = self._run(cache)
@@ -95,6 +118,9 @@ class DecodeGraph:
                 step.update(c - b)
                 c.clear()
                 c.update(b)
+        self.host_per_step = {name: v - host.get(name, 0)
+                              for name, v in _counters().items()
+                              if v != host.get(name, 0)}
 
     def _run(self, cache) -> torch.Tensor:
         logits, _ = engine.decode_step(self.params, self.cfg, cache,
@@ -121,4 +147,8 @@ class DecodeGraph:
         self.graph.replay()
         for c, step in zip(ops.launch_counters(), self.per_step):
             c.update(step)
+        if self._replays:
+            for name, n in self.host_per_step.items():
+                health.record(name, n)
+        self._replays += 1
         return self.logits

@@ -10,6 +10,9 @@ and its conv tail ``conv`` (R, B, K-1, W) of the last K-1 conv inputs.
 A Mamba-2 (``ssm``) block keeps its fp32 SSD state ``state`` (R, B, H, S,
 P) and the conv tails of its three segments: ``cx`` (R, B, K-1, d_inner),
 ``cb`` and ``cc`` (R, B, K-1, G * S).
+
+The continuous-batching scheduler grows its live slab along the batch
+axis (`pad_axis`) and hands out its rows through `SlotFreeList`.
 """
 
 from __future__ import annotations
@@ -48,6 +51,53 @@ def place_kv(dst: torch.Tensor, t: torch.Tensor) -> None:
     slots = torch.remainder(torch.arange(s - cache_len, s, device=t.device),
                             cache_len)
     dst[:, slots] = t[:, s - cache_len:]
+
+
+def pad_axis(t: torch.Tensor, axis: int, length: int) -> torch.Tensor:
+    """A new zero tensor with `axis` of length `length` and `t` copied into
+    its leading entries, on `t`'s device; `t` itself when it already has
+    that length.  Used only when the scheduler's slab grows."""
+    cur = t.shape[axis]
+    if cur == length:
+        return t
+    if cur > length:
+        raise ValueError(f"axis {axis} is {cur}, cannot pad to {length}")
+    out = t.new_zeros(t.shape[:axis] + (length,) + t.shape[axis + 1:])
+    out.narrow(axis, 0, cur).copy_(t)
+    return out
+
+
+class SlotFreeList:
+    """Free-list over the rows of a live KV slab.
+
+    The continuous-batching scheduler allocates one slab row per live
+    request; finished requests return their row here and admissions pop
+    the lowest free row (deterministic — replay-stable)."""
+
+    def __init__(self, capacity: int):
+        self._free = list(range(capacity))
+        self.capacity = capacity
+
+    def __len__(self) -> int:
+        return len(self._free)
+
+    def grow(self, new_capacity: int) -> None:
+        if new_capacity < self.capacity:
+            raise ValueError("free-list cannot shrink below capacity")
+        self._free.extend(range(self.capacity, new_capacity))
+        self._free.sort()
+        self.capacity = new_capacity
+
+    def alloc(self) -> int:
+        if not self._free:
+            raise IndexError("no free KV slots")
+        self._free.sort()
+        return self._free.pop(0)
+
+    def release(self, slot: int) -> None:
+        if not 0 <= slot < self.capacity or slot in self._free:
+            raise ValueError(f"bad slot release: {slot}")
+        self._free.append(slot)
 
 
 def init_block_cache(cfg: ModelConfig, kind: str, batch: int, max_len: int,

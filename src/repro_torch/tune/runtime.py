@@ -31,7 +31,7 @@ import threading
 import warnings
 from typing import Iterator
 
-from repro_torch.core import hw
+from repro_torch.core import hw, stage_trace
 from repro_torch.core.costmodel import BlockPlan
 from repro_torch.guard import faults as _faults
 from repro_torch.guard import health as _health
@@ -133,6 +133,9 @@ def _count(entry, key: str) -> None:
     # Hit / miss ledger: a run that promises every GEMM resolves in-cache
     # checks tuned_misses == 0.  Split-K hits are counted apart, so a
     # decode run can show its GEMV classes are active, not just covered.
+    # A repeat r > 0 of a stage counts nothing (`core.stage_trace`).
+    if not stage_trace.recording():
+        return
     hit = entry is not None
     gemv = hit and entry.schedule == "splitk"
     _health.record("tuned_hits" if hit else "tuned_misses")

@@ -16,9 +16,11 @@ run them there with
         python -m pytest -q -m cuda tests/test_torch_decode_graph.py
 
 They hold graphed decode bitwise equal to eager decode (the same kernels
-in the same order), the launch counts a replay adds equal to an eager
-step's, and a capture that meets a host sync raising instead of decoding
-eagerly.
+in the same order), the launch counts and the host counters (tuned
+lookups) a replay adds equal to an eager step's, and a capture that meets
+a host sync raising instead of decoding eagerly.  On the CPU the graph
+object's construction records no host counter and each of its steps
+records what an eager step records.
 """
 
 import dataclasses
@@ -150,6 +152,34 @@ def test_graph_steps_under_the_matmul_config_of_its_construction():
     assert torch.equal(got, want)
 
 
+def test_graph_object_leaves_the_ledger_of_eager_steps():
+    """Building the graph object records nothing (its warm-up runs with
+    host records off); each of its steps records what one eager step
+    records."""
+    from repro_torch.guard import health
+    from repro_torch.tune.cache import TuneCache
+    from repro_torch.tune.runtime import use_cache
+
+    cfg, params = _model("phi4-mini-3.8b", "cpu")
+    cache, logits, s = _prefill(cfg, params)
+    other = graphs.clone_cache(cache)
+    tok = torch.argmax(logits, -1)
+    with use_cache(TuneCache()), mm_config(plan_mode="tuned"):
+        health.reset()
+        graph = graphs.DecodeGraph(params, cfg, cache, 2)
+        assert health.snapshot() == {}
+        assert graph.host_per_step == {}
+        engine.decode_step(params, cfg, other, tok, s)
+        eager = health.snapshot()
+        health.reset()
+        for i in range(3):
+            graph.step(tok, s + i)
+        graphed = health.snapshot()
+    health.reset()
+    assert eager["tuned_misses"] > 0
+    assert graphed == {k: 3 * v for k, v in eager.items()}
+
+
 # ------------------------------------------------------------ on the card
 @pytest.fixture
 def dev():
@@ -193,6 +223,34 @@ def test_replay_launch_counts_equal_an_eager_step(dev, arch):
     torch.cuda.synchronize()
     assert {k: v for k, v in ops.launch_counts().items() if v} == {
         k: 3 * v for k, v in eager.items()}
+
+
+@pytest.mark.cuda
+def test_replays_add_the_host_counters_of_an_eager_step(dev):
+    """A replay makes no tuned lookup: the warm-up records nothing, the
+    capture's lookups stand for the first replay's and every later replay
+    adds them, so the ledger counts what eager steps count."""
+    from repro_torch.guard import health
+    from repro_torch.tune.cache import TuneCache
+    from repro_torch.tune.runtime import use_cache
+
+    cfg, params = _model("phi4-mini-3.8b", dev, dtype="bfloat16")
+    cache, logits, s = _prefill(cfg, params)
+    tok = torch.argmax(logits, -1)
+    with use_cache(TuneCache()), mm_config(plan_mode="tuned"):
+        health.reset()
+        engine.decode_step(params, cfg, graphs.clone_cache(cache), tok, s)
+        eager = health.snapshot()
+        health.reset()
+        graph = graphs.DecodeGraph(params, cfg, cache, 2)
+        assert graph.graph is not None and health.snapshot() == eager
+        assert graph.host_per_step == eager
+        for i in range(3):
+            graph.step(tok, s + i)
+        torch.cuda.synchronize()
+        graphed = health.snapshot()
+    health.reset()
+    assert graphed == {k: 3 * v for k, v in eager.items()}
 
 
 @pytest.mark.cuda

@@ -727,8 +727,12 @@ def test_track_capacity_slots_counts_static_slots():
     snap = health.snapshot()
     t, k = 16, cfg.n_experts_per_tok
     cap = moe._capacity(t, cfg)
-    layers = len(log)
-    assert layers > 0
+    # every MoE layer routes, but the slot counts are recorded once per
+    # stage site, as under the JAX engine's lax.scan (core.stage_trace)
+    assert len(log) == cfg.n_layers
+    layers = sum(kind.endswith("_moe") for unit, _ in cfg.stage_list()
+                 for kind in unit)
+    assert 0 < layers < len(log)
     assert snap["moe_slots_total"] == layers * cfg.n_experts * cap
     assert snap["moe_slots_filled"] == layers * min(t * k,
                                                     cfg.n_experts * cap)

@@ -1,10 +1,9 @@
 """The port's structured tracing (`repro_torch.obs`) against the JAX
 package's `repro.obs`, on the CPU.
 
-* Every test of `tests/test_obs.py` but `test_serve_telemetry_histograms`
-  (it drives the serving scheduler's telemetry, not ported yet: ROADMAP
-  queue 1, item 6), ported: the span tree, the registry, the health
-  facade, attribution, the exporters, provenance and concurrency.
+* Every test of `tests/test_obs.py`, ported: the span tree, the
+  registry, the health facade (the scheduler's telemetry histograms
+  included), attribution, the exporters, provenance and concurrency.
 * The trace launcher's matmul workload (`--size 64 --skew 4`) under the
   sim clock on tpu_v5e, in both packages: the JAX package's "xla" backend
   against the port's "torch" (both the reference rung) and its "pallas"
@@ -14,10 +13,13 @@ package's `repro.obs`, on the CPU.
   mapped to the port's names (`backend` "xla" / "pallas" -> "torch" /
   "cuda", `kernel` "xla_dot" -> "torch_matmul"), and nothing else is
   mapped; drift reports equal (all 0).
-* The `obs_disarmed` row of `benchmarks/baselines/obs.json` rebuilt by
-  the port passes `bench.compare`.  Its `obs_serve_trace` and `obs_drift`
-  rows drive the serving scheduler and wait for it (ROADMAP queue 1,
-  item 6).
+* Every row of `benchmarks/baselines/obs.json` rebuilt by the port
+  passes `bench.compare`: `obs_disarmed`, and `obs_serve_trace` /
+  `obs_drift` from the JAX obs suite's sim-clock serve run through the
+  port's scheduler (131 spans, 40 dispatches each carrying the tune key,
+  rung, modeled and measured us; 40 tuned hits, 0 misses; 13 drift
+  classes, all 0).  The port's span digest, drift report and tuned ledger
+  of that run equal the JAX package's.
 """
 
 import argparse
@@ -260,6 +262,18 @@ class TestHealthFacade:
         assert health.snapshot() == {
             "calibration_rejected": 1, "tuned_hits": 1,
             "tuned_hits_gemv": 1, "tuned_misses": 1}
+
+    def test_serve_telemetry_histograms(self):
+        from repro_torch.serve.sched import ServeTelemetry
+
+        t = ServeTelemetry()
+        t.observe_admission(0)
+        t.observe_first_token(2)
+        t.observe_completion(5, 3)
+        t.record_health()
+        assert REGISTRY.histogram("serve_ttft").count() == 1
+        fields = health.provenance_fields()
+        assert fields["serve_latency_p95"] == 5
 
     def test_reset_clears_histograms(self):
         REGISTRY.histogram("drift/m1k2n3b1").observe(0.5)
@@ -567,8 +581,7 @@ def test_trace_workload_equals_the_reference(jbackend):
 # --------------------------------------------- the obs_disarmed baseline
 def test_obs_disarmed_row_passes_compare():
     """The JAX obs suite's `obs_disarmed` row, rebuilt: a dispatch with no
-    trace scope armed adds no obs counter.  (`obs_serve_trace` and
-    `obs_drift` drive the serving scheduler: ROADMAP queue 1, item 6.)"""
+    trace scope armed adds no obs counter."""
     records: list = []
     rec = Recorder("obs", records)
     guard.reset()
@@ -587,3 +600,127 @@ def test_obs_disarmed_row_passes_compare():
     report = compare.compare(records, base)
     assert report.ok, report.summary(verbose=True)
     assert report.counts()["ok"] == 1
+
+
+# ------------------------------------- the serve trace and drift rows
+_OBS_ENTRIES = [(0, 3, 2), (1, 5, 1), (2, 7, 2)]
+
+
+def _serve_trace(pkg):
+    """The JAX obs suite's workload in one package: a scripted serve run
+    on reduced phi4-mini under the sim clock and plan_mode="tuned", the
+    covering cache tuned by the cost model outside the scope (chip
+    tpu_v5e, the suite's default).  Returns (trace, drift report, health
+    snapshot, scheduler)."""
+    if pkg == "jax":
+        import jax
+
+        from repro.configs.base import get_config as jget_config
+        from repro.guard import health as jhealth
+        from repro.models.model import build_model as jbuild_model
+        from repro.obs import SimClock as JSimClock
+        from repro.obs import trace_scope as jtrace_scope
+        from repro.serve import sched as jsched
+        from repro.tune import runtime as jruntime
+
+        cfg = jget_config("phi4-mini-3.8b").reduced()
+        params = jbuild_model(cfg).init(jax.random.PRNGKey(0))
+        mod, scope, clock, ledger = jsched, jtrace_scope, JSimClock, jhealth
+        cfg_scope, runtime, drift = jmm_config, jruntime, jdrift_report
+    else:
+        from repro_torch.configs.base import get_config
+        from repro_torch.models.model import build_model
+        from repro_torch.serve import sched
+        from repro_torch.tune import runtime as truntime
+
+        cfg = get_config("phi4-mini-3.8b").reduced()
+        params = build_model(cfg, "cpu").init(0)
+        mod, scope, clock, ledger = sched, trace_scope, SimClock, health
+        cfg_scope, runtime, drift = mm_config, truntime, drift_report
+    with cfg_scope(chip="tpu_v5e"):
+        table = mod.BucketTable.for_workload(max_batch=2, max_prompt=8,
+                                             max_new=2)
+        specs = mod.capture_gemm_specs(params, cfg, table)
+        cache = mod.build_tuned_cache(params, cfg, table)
+        mod.assert_covered(cache, specs)
+        reqs = mod.scripted_trace(_OBS_ENTRIES, vocab_size=cfg.vocab_size,
+                                  seed=3)
+        guard.reset()
+        jguard.reset()
+        with runtime.use_cache(cache), cfg_scope(plan_mode="tuned"):
+            with scope(clock=clock()) as tr:
+                s = mod.Scheduler(params, cfg, table)
+                results = s.run(reqs, max_ticks=200)
+        out = (tr, drift(), ledger.snapshot(), s)
+    guard.reset()
+    jguard.reset()
+    assert len(results) == len(reqs)
+    return out
+
+
+def test_serve_trace_equals_the_reference():
+    jtr, jdrift, jsnap, js = _serve_trace("jax")
+    tr, drift, snap, s = _serve_trace("port")
+    assert tr.digest() == jtr.digest()
+    assert drift == jdrift
+    assert snap == jsnap
+    assert s.telemetry.summary() == js.telemetry.summary()
+
+
+def test_obs_serve_trace_and_drift_rows_pass_compare():
+    """The JAX obs suite's `obs_serve_trace` and `obs_drift` rows, rebuilt
+    with the port's scheduler; every decode tick's dispatch spans carry
+    the tune key, the rung and the modeled and measured us."""
+    tr, drift, snap, s = _serve_trace("port")
+    decode_dispatches = 0
+    for sp in tr.spans():
+        if sp.kind != "decode":
+            continue
+        for child in sp.walk():
+            if child.kind != "dispatch":
+                continue
+            decode_dispatches += 1
+            assert "tune_key" in child.attrs and "rung" in child.attrs
+            assert child.modeled_us is not None
+            assert child.measured_us == child.modeled_us
+    assert decode_dispatches
+    chrome = to_chrome(tr)
+    validate_chrome(chrome)
+    digest = tr.digest()
+    records: list = []
+    rec = Recorder("obs", records)
+    with mm_config(chip="tpu_v5e"):
+        rec("obs_serve_trace",
+            axes={"arch": "phi4-mini-3.8b", "clock": "sim"},
+            metrics={
+                "spans_total": digest["total"],
+                "dispatch_spans": digest.get("dispatch", 0),
+                "plan_spans": digest.get("plan", 0),
+                "rung_spans": digest.get("rung", 0),
+                "tune_spans": digest.get("tune", 0),
+                "tick_spans": digest.get("tick", 0),
+                "decode_spans": digest.get("decode", 0),
+                "prefill_spans": digest.get("prefill", 0),
+                "admit_spans": digest.get("admit", 0),
+                "chrome_events": len(chrome["traceEvents"]),
+                "tuned_hits": snap.get("tuned_hits", 0),
+                "tuned_misses": snap.get("tuned_misses", 0),
+                "ticks": s.telemetry.ticks,
+            },
+            info={"digest": "/".join(f"{k}:{v}"
+                                     for k, v in sorted(digest.items()))})
+        rec("obs_drift", axes={"arch": "phi4-mini-3.8b", "clock": "sim"},
+            metrics={"drift_max": drift["max_abs_log"],
+                     "drift_classes": drift["classes_total"],
+                     "drift_accepted": int(drift["accepted"])},
+            info={"classes": "/".join(sorted(drift["classes"]))})
+    _, base = bench_io.read_baselines(str(BASELINES))
+    base = [r for r in base if r.name in ("obs_serve_trace", "obs_drift")]
+    assert len(base) == 2
+    report = compare.compare(records, base)
+    assert report.ok, report.summary(verbose=True)
+    assert report.counts()["ok"] == sum(len(r.metrics) for r in base)
+    assert (digest["total"], snap["tuned_hits"]) == (131, 40)
+    assert drift["classes_total"] == 13 and drift["max_abs_log"] == 0.0
+    assert records[1].info == base[[r.name for r in base].index(
+        "obs_drift")].info

@@ -1,8 +1,7 @@
 """`python -m repro_torch.launch.trace` on the CPU: the matmul workload's
 trace-smoke gate passes under the sim and wall clocks, the Chrome
-document it writes validates, and `--mode serve` (the serving
-scheduler, not ported yet) exits with a message naming ROADMAP queue 1,
-item 6 rather than doing something else."""
+document it writes validates, and `--mode serve` traces the serving
+scheduler and passes the same gate."""
 
 import json
 
@@ -61,10 +60,17 @@ def test_check_flags_missing_attribution():
         assert field in problems[0]
 
 
-def test_serve_mode_names_the_missing_scheduler():
-    with pytest.raises(SystemExit) as ei:
-        trace.main(["--mode", "serve"])
-    assert "queue 1, item 6" in str(ei.value)
+def test_serve_mode_names_the_missing_scheduler(capsys):
+    """`--mode serve` once exited naming the missing scheduler; now that
+    the scheduler is ported it traces a scripted serve run and passes the
+    trace-smoke gate, the tune key on every dispatch included."""
+    rc = trace.main(["--mode", "serve", "--device", "cpu", "--check",
+                     "--quiet"])
+    out = capsys.readouterr().out
+    assert rc == 0
+    assert "[trace] check ok" in out
+    assert ("[trace] admit:3/decode:2/dispatch:40/plan:40/prefill:3/"
+            "tick:3/total:131/tune:40") in out
 
 
 @pytest.mark.parametrize("clock,calls", [("sim", 4), ("wall", 8)])

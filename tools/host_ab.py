@@ -26,7 +26,14 @@ tokens), each on the host clock ending in a synchronise.  Where the tree
 has the guard's explicit envelope, the eager decode is also timed in
 the same process in turns with the envelope and with it replaced by a
 direct kernel call (three of each), a control free of the spread
-between processes.  Needs one CUDA card.
+between processes.  Last, the three decode rows of the paper's Figure 5
+(m 1 / 4 / 8 x 4096 x 32768 bf16, `skewmm.matmul` on seeded operands) as
+the drift table reads them: each dispatch span's measured us under a
+wall-clock trace (three passes, after an untraced warm-up), and host us a
+call without a trace (200 calls).  Where the tree's `skewmm.record_plan`
+skips the repeats of a stage (`core.stage_trace`), those untraced calls
+are also timed in the same process in turns with it and with a
+`record_plan` without that check (three of each).  Needs one CUDA card.
 """
 
 import json
@@ -48,6 +55,66 @@ def host_us(torch, fn) -> float:
         fn()
     torch.cuda.synchronize()
     return (time.perf_counter() - t0) / CALLS * 1e6
+
+
+def fig5_decode(torch, gen, dev) -> dict:
+    """Measured us of each traced dispatch, and untraced host us a call,
+    of the fig5 decode rows (keys m1 / m4 / m8)."""
+    from repro_torch import guard
+    from repro_torch.core import skewmm
+    from repro_torch.obs import WallClock, trace_scope
+
+    bf = torch.bfloat16
+    operands = {}
+    for m in (1, 4, 8):
+        operands[m] = (
+            torch.randn((m, 4096), generator=gen, device=dev).to(bf),
+            (torch.randn((4096, 32768), generator=gen, device=dev)
+             * 4096 ** -0.5).to(bf))
+        skewmm.matmul(*operands[m])                 # warm-up, untraced
+    torch.cuda.synchronize()
+    with trace_scope(clock=WallClock()) as tr:
+        for _ in range(3):
+            for m in operands:
+                skewmm.matmul(*operands[m])
+    traced: dict = {}
+    for sp in tr.spans():
+        if sp.kind == "dispatch":
+            traced.setdefault(f"m{sp.attrs['m']}", []).append(sp.measured_us)
+    guard.reset()
+
+    def untraced() -> dict:
+        out = {}
+        for m, (a, b) in operands.items():
+            for _ in range(10):
+                skewmm.matmul(a, b)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(200):
+                skewmm.matmul(a, b)
+            torch.cuda.synchronize()
+            out[f"m{m}"] = (time.perf_counter() - t0) / 200 * 1e6
+        return out
+
+    res = {"fig5_decode_traced_us": traced,
+           "fig5_decode_untraced_us": untraced()}
+    if hasattr(skewmm, "stage_trace"):
+        # in-process control: record_plan with and without the repeat
+        # check, in turns
+        checked = skewmm.record_plan
+
+        def unchecked(cost) -> None:
+            for log in skewmm._ACTIVE_LOGS:
+                log.append(cost)
+
+        turns = {"checked": [], "unchecked": []}
+        for turn in ("checked", "unchecked") * 3:
+            skewmm.record_plan = checked if turn == "checked" else unchecked
+            turns[turn].append(untraced())
+        skewmm.record_plan = checked
+        res.update({f"fig5_decode_untraced_{k}_us": v
+                    for k, v in turns.items()})
+    return res
 
 
 def main() -> None:
@@ -121,6 +188,9 @@ def main() -> None:
     res = serve_mod.serve(cfg=cfg, params=params, batch=4, prompt_len=128,
                           gen=16, seed=0)
     out["graphed_decode_ms"] = res["decode_s_per_token"] * 1e3
+    del params, cache
+    torch.cuda.empty_cache()
+    out.update(fig5_decode(torch, gen, dev))
     out["card"] = torch.cuda.get_device_name(0)
     print(json.dumps(out), flush=True)
 
