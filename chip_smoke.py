@@ -222,9 +222,32 @@ then the dense archs, each after the last one's weights are freed:
   4h. / 5h. command-r-35b (the eighth) — every width and all 40 layers
      where they fit beside 12 GB (else cut, and the cut printed), batch 4
      x 128 + 16, as in phase 4f; parity at 2 layers;
+then deepseek-v3-671b, after command-r's weights are freed:
+  4i. serve deepseek-v3-671b (the twelfth main path) — every published
+     width (MLA: q_lora 1536, kv_lora 512, qk 128 + 64, v 128, 128 heads;
+     256 routed experts top-8 and one shared; ff 18432 / 2048; the MTP
+     head), depth cut to 5 of 61 layers (the 3 dense and 2 MoE layers,
+     54.6 GB of bf16; the whole model is ~1.3 TB), checked against the
+     card's memory on the meta device first; batch 4 x prompt 128 + 16
+     generated tokens through `serve(cfg=...)`.  Counts are zeroed just
+     before and read just after: K5 3 launches per MoE layer per step
+     (prefill, warm-up, replays), K7 one per layer of the prefill (at q / k
+     width 192, v width 128) and none at decode (the absorbed form's fp32
+     contractions over the latent cache).  Graphed against eager decode
+     within phase 5's bounds, as in phase 4b;
+  5i. whole-path parity at full width on one dense and one MoE layer, as
+     in phase 5b; the fp32 run's weights are made from the bf16 ones in
+     place (the two copies, ~82 GB, do not fit side by side);
+  6i. K7 at MLA's prefill shape (4 x 128 heads x 128, q / k 192, v 128 as
+     the model reads it, causal, scale 192^-0.5) and K5 at 256 groups
+     (decode rows 8, prefill rows 24; gate / up and down) held against
+     their plain versions at phase 3's tolerance, then timed beside their
+     bounds and `scaled_dot_product_attention` / `torch.bmm`;
   7. the served decode ms per token, graphed and eager, of every run; the
-     `kernels` JSON line (K1-K9, K8's three kernels apart; launches summed
-     over the eleven main paths), then the device line.
+     `kernels` JSON line (K1-K9, K8's three kernels apart, launches summed
+     over the twelve main paths; then phase 6i's five deepseek rows, each
+     with its "shape" and the deepseek path's launches), then the device
+     line.
 Every phase from 3 on runs between two `guard_disarmed` checks: no ladder
 floor above 0, no fault scope or trace armed, and no fallbacks /
 plans_rejected / scrubbed_batches / faults_* / obs_* counter (a trip
@@ -360,6 +383,12 @@ GEMMA2_PARITY_UNITS = 2
 GRANITE_LAYERS = 8
 DENSE_PARITY_LAYERS = 2
 DENSE_RESERVE = 12e9
+# deepseek-v3-671b: 61 layers (3 dense, then 58 MoE of 256 experts) are
+# ~1.3 TB of bf16 weights.  The serve keeps every width and cuts depth to
+# 5 layers (the 3 dense ones and 2 MoE ones, 54.6 GB); the whole-path
+# parity to one dense and one MoE layer, its fp32 run's weights made from
+# the bf16 ones in place (both copies, ~82 GB, do not fit side by side).
+DEEPSEEK_LAYERS, DEEPSEEK_PARITY = 5, (2, 1)   # (n_layers, first_k_dense)
 # serve()'s sampling in every run here; the eager decode that phases 4-4h
 # hold the graphed one against draws from the same seeded sampler.
 SERVE_SEED, SERVE_TEMPERATURE = 0, 0.8
@@ -899,12 +928,41 @@ def _float_tree(tree):
     return tree.float()
 
 
-def phase_path_parity(torch, cfg, params) -> dict:
+def _float_in_place(tree):
+    """Every tensor of a parameter tree turned to fp32 in place: each bf16
+    tensor is freed as its copy is made, where nothing else holds it."""
+    # walk the keys, not a snapshot of the values: a snapshot would hold
+    # every bf16 tensor of the dict until the walk ends
+    for key in list(tree.keys() if isinstance(tree, dict)
+                    else range(len(tree))):
+        if isinstance(tree[key], (dict, list)):
+            _float_in_place(tree[key])
+        else:
+            tree[key] = tree[key].float()
+    return tree
+
+
+def phase_path_parity(torch, cfg, params, consume: bool = False,
+                      routed_rows: bool = False) -> dict:
     """Prefill and first-decode logits: the "cuda" backend against the
     "torch" backend on the same bf16 weights, and both against an fp32 run
-    of the same weights (the "torch" backend on fp32 copies).  For an MoE
-    model, also the share of top-k routing choices (every layer, every
-    token, prefill and decode) on which "cuda" and "torch" agree."""
+    of the same weights (the "torch" backend on fp32 copies; with
+    `consume`, `params` itself turned to fp32 in place after the bf16
+    runs, for a model whose two copies do not fit the card side by side).
+    For an MoE model, also the share of top-k routing choices (every
+    layer, every token, prefill and decode) on which "cuda" and "torch"
+    agree.
+
+    `routed_rows` (a model whose one MoE layer is its last): the fp32
+    ratio is taken over the rows whose own token chose the same experts
+    and kept the same copies in all three runs (`routed_alike`), and at
+    least one row must be left; the cuda~torch bounds hold over every
+    row.  A row's logits then depend on no other token's routing, and a
+    row where one run flips a near-tied choice compares two different
+    expert sets: with 256 experts top-8 that happens to a few of 512
+    tokens, and on 4 rows it swings the ratio either way (0.51-2.02 over
+    six weight / prompt draws on an H100 80GB HBM3 at 700 W, the torch
+    path as often the worse; 0.99-1.03 on the dense layers alone)."""
     import numpy as np
     from repro_torch.core.config import mm_config
     from repro_torch.models import moe
@@ -917,7 +975,13 @@ def phase_path_parity(torch, cfg, params) -> dict:
             ("fp32", dataclasses.replace(cfg, dtype="float32"), None))
     out, routes = {}, {}
     for name, c, p in runs:
-        if p is None:
+        if p is None and consume:
+            gc.collect()
+            torch.cuda.empty_cache()
+            say(f"path parity: {torch.cuda.memory_allocated() / 1e9:.2f} GB "
+                f"allocated before the fp32 copy is made in place")
+            p = _float_in_place(params)
+        elif p is None:
             p = _float_tree(params)
         with mm_config(backend="cuda" if name == "cuda" else "torch"), \
                 moe.routing_capture() as log:
@@ -930,22 +994,40 @@ def phase_path_parity(torch, cfg, params) -> dict:
         del cache, p
         torch.cuda.empty_cache()
     res = {}
+    b, s = toks.shape
     for i, what in enumerate(("prefill", "decode")):
         got, want, exact = (out[n][i] for n in ("cuda", "torch", "fp32"))
+        rows = torch.ones(b, dtype=torch.bool, device=got.device)
+        if routed_rows:
+            if any(len(r) != 2 for r in routes.values()):
+                fail("routed_rows takes a model with one MoE layer")
+            own = [r * s + s - 1 for r in range(b)] if i == 0 else range(b)
+            rows = routed_alike(torch, [routes[n][i] for n in routes],
+                                own, cfg).to(got.device)
+            say(f"path parity {what}: {int(rows.sum())} of {b} rows routed "
+                f"alike in all three runs (the fp32 ratio's rows)")
+            if not bool(rows.any()):
+                fail(f"no {what} row routed alike in all three runs")
         rel = {}
         for tag, x, y in (("cuda~torch", got, want), ("cuda~fp32", got, exact),
                           ("torch~fp32", want, exact)):
             diff = (x - y).abs()
             rel[tag] = (diff.max().item() / y.abs().max().item(),
                         diff.mean().item() / y.abs().mean().item())
+        for tag, x, y in (("cuda~fp32 alike", got, exact),
+                          ("torch~fp32 alike", want, exact)):
+            diff = (x[rows] - y[rows]).abs()
+            rel[tag] = (diff.max().item() / y[rows].abs().max().item(),
+                        diff.mean().item() / y[rows].abs().mean().item())
         agree = (got.argmax(-1) == want.argmax(-1)).float().mean().item()
+        shown = [t for t in rel if routed_rows or "alike" not in t]
         say(f"path parity {what}: " + " ".join(
-            f"{t} max={a:.3e} mean={b:.3e}" for t, (a, b) in rel.items())
+            f"{t} max={rel[t][0]:.3e} mean={rel[t][1]:.3e}" for t in shown)
             + f" argmax(cuda)==argmax(torch) {agree:.2f}")
         ok = (rel["cuda~torch"][0] <= PATH_TOL_MAX
               and rel["cuda~torch"][1] <= PATH_TOL_MEAN
-              and rel["cuda~fp32"][1] <= PATH_TOL_RATIO
-              * rel["torch~fp32"][1])
+              and rel["cuda~fp32 alike"][1] <= PATH_TOL_RATIO
+              * rel["torch~fp32 alike"][1])
         if not ok:
             fail(f"cuda and torch backends disagree on {what} logits")
         res[what] = rel
@@ -957,6 +1039,23 @@ def phase_path_parity(torch, cfg, params) -> dict:
             f"({len(routes['cuda'])} MoE calls; fp32 run agrees with cuda "
             f"on {routing_agreement(torch, routes, cfg, 'fp32'):.5f})")
     return res
+
+
+def routed_alike(torch, calls, tokens, cfg):
+    """(len(tokens),) bool: whether each token chose the same top-k experts
+    and kept the same of its copies in every run of one MoE call (`calls`:
+    each run's (T, K) experts).  A copy is kept when fewer than the
+    capacity of earlier copies (token-major order) chose its expert, as
+    `moe._dispatch_compute_combine` packs them."""
+    from repro_torch.models import moe
+    cap = moe._capacity(calls[0].shape[0], cfg)
+
+    def own(experts, t):
+        return sorted((int(e), int((experts[:t] == e).sum()) < cap)
+                      for e in experts[t])
+
+    return torch.tensor([all(own(c, t) == own(calls[0], t) for c in calls)
+                         for t in tokens])
 
 
 def routing_agreement(torch, routes, cfg, other: str = "torch") -> float:
@@ -1248,6 +1347,22 @@ def plan_key(cost) -> tuple:
     return (dd.m, dd.k, dd.n, dd.batch)
 
 
+def planned_kernels(log) -> set[str]:
+    """The K1-K4 kernels the dense plans of a capture run (grouped plans,
+    K5's, left out)."""
+    used = set()
+    for c in log:
+        if hasattr(c, "layout"):
+            continue
+        if c.plan.schedule == "splitk":
+            used |= {"gemv_splitk_partial", "gemv_splitk_reduce"}
+        elif c.plan.batch_grid and c.dims.batch > 1:
+            used.add("skew_matmul_batched")
+        else:
+            used.add(f"skew_matmul_{c.plan.schedule}")
+    return used
+
+
 def phase_serve_moe(torch, cfg):
     """The second main path: dbrx-132b at every published width, depth cut
     to `cfg.n_layers`, served through `serve(cfg=...)`."""
@@ -1307,17 +1422,8 @@ def phase_serve_moe(torch, cfg):
              f"launches a step, expected {3 * cfg.n_layers}")
     say(f"K5 launches: {counts['grouped_matmul'] // steps} per step "
         f"({cfg.n_layers} MoE layers x 3 expert GEMMs)")
-    used = {"grouped_matmul", "flash_attention"}
-    for c in log:
-        if hasattr(c, "layout"):
-            continue
-        if c.plan.schedule == "splitk":
-            used |= {"gemv_splitk_partial", "gemv_splitk_reduce"}
-        elif c.plan.batch_grid and c.dims.batch > 1:
-            used.add("skew_matmul_batched")
-        else:
-            used.add(f"skew_matmul_{c.plan.schedule}")
-    for name in sorted(used):
+    for name in sorted(planned_kernels(log) | {"grouped_matmul",
+                                               "flash_attention"}):
         if counts.get(name, 0) <= 0:
             fail(f"kernel {name} was not launched on the dbrx main path")
     graph = [graph_vs_eager(torch, cfg, params, res, batch, prompt, gen,
@@ -1544,13 +1650,7 @@ def serve_runs(torch, cfg, runs, bounds_fn) -> dict:
     for key, c in seen.items():
         say(f"plan {key}: {c.explain()}")
     say(f"launch counts on the {cfg.name} main path: {counts}")
-    for c in log:
-        if c.plan.schedule == "splitk":
-            name = "gemv_splitk_partial"
-        elif c.plan.batch_grid and c.dims.batch > 1:
-            name = "skew_matmul_batched"
-        else:
-            name = f"skew_matmul_{c.plan.schedule}"
+    for name in sorted(planned_kernels(log)):
         if counts.get(name, 0) <= 0:
             fail(f"kernel {name} was not launched on the {cfg.name} path")
     graph = [graph_vs_eager(torch, cfg, params, res, b, p, g, bitwise=True)
@@ -3429,6 +3529,257 @@ def phase_sched(torch, cfg, params, errs: dict) -> dict:
     return {"counts": counts}
 
 
+# ----------------------------------------------------------------- MLA
+def mla_layer_ops(cfg, kind: str, p, tokens: int) -> tuple[float, int]:
+    """(bf16 operations, weight elements) of one layer's planned matmuls
+    for `tokens` tokens: 2 a token and weight element of every tensor of
+    two or more dims (MLA's five projections, the dense MLP or the router
+    and shared expert), and, for an MoE layer, its three expert GEMMs
+    over all E x capacity slots."""
+    from repro_torch.models import moe
+    w = 0
+    for name, t in p.items():
+        if name == "moe":   # the expert stacks run per capacity slot
+            t = {k: x for k, x in t.items() if not k.startswith("w_")}
+        w += sum(x.numel() for x in _leaves(t) if x.dim() >= 2)
+    ops_ = 2 * tokens * w
+    if kind.endswith("_moe"):
+        ops_ += 3 * 2 * cfg.n_experts * moe._capacity(tokens, cfg) \
+            * cfg.d_model * cfg.moe_d_ff
+    return ops_, w
+
+
+def mla_serve_bounds(cfg, params, batch: int, prompt: int,
+                     kv_bytes: int) -> tuple[float, float]:
+    """(prefill bound ms, decode bound ms per token) of the MLA serve.
+
+    Bytes: every weight the step reads (all but the input embedding, of
+    which only the token rows are read, and the MTP head, which serving
+    never runs), plus the latent cache at decode.  Operations
+    (`mla_layer_ops`) at the bf16 rate, plus attention: at prefill
+    2 * (nope + rope + v) per visible (row, col) pair and head; at decode
+    the absorbed form's fp32 scores and latent context, 2 * (2 kvr + rope)
+    per valid position and head, at the fp32 rate; and the LM head on the
+    last positions."""
+    from repro_torch.models import transformer
+    from repro_torch.models.model import param_bytes
+    d, v, h = cfg.d_model, cfg.vocab_size, cfg.n_heads
+    qk, vd = cfg.qk_nope_dim + cfg.qk_rope_dim, cfg.v_head_dim
+    kvr, rd = cfg.kv_lora_rank, cfg.qk_rope_dim
+    pre_ops = dec_ops = 2 * batch * d * v
+    for kind, p, *_ in transformer.layer_iter(params, cfg):
+        pre_ops += mla_layer_ops(cfg, kind, p, batch * prompt)[0]
+        dec_ops += mla_layer_ops(cfg, kind, p, batch)[0]
+    pre_ops += cfg.n_layers * 2 * (qk + vd) * h * batch * visible_pairs(
+        prompt, None)
+    dec_f32 = cfg.n_layers * 2 * (2 * kvr + rd) * h * batch * (prompt + 1)
+    emb = params["embed"]
+    row = emb.shape[1] * emb.element_size()
+    read = param_bytes(params) - emb.shape[0] * row - param_bytes(
+        params.get("mtp", {}))
+    pre = max(pre_ops / PEAK_BF16, (read + batch * prompt * row) / HBM_BW)
+    dec = max(dec_ops / PEAK_BF16 + dec_f32 / PEAK_FP32,
+              (read + batch * row + kv_bytes) / HBM_BW)
+    return pre * 1e3, dec * 1e3
+
+
+def phase_serve_mla(torch, cfg, of_layers: int):
+    """deepseek-v3-671b at every published width, depth cut to
+    `cfg.n_layers` of `of_layers` (its size checked against the card on
+    the meta device first), served b4 p128 g16 through `serve(cfg=...)`:
+    K5 3 launches an MoE layer a step (prefill, warm-up, replays), K7 one
+    per layer of the prefill and none at decode, every planned kernel
+    launched; graphed decode against eager within phase 5's bounds (the
+    MoE combine's `index_add_` has no fixed order)."""
+    from repro_torch.core import skewmm
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve as serve_mod
+    from repro_torch.models import transformer
+    from repro_torch.models.model import build_model, param_bytes
+    from repro_torch.serve import kvcache
+
+    whole = param_bytes(transformer.init_lm(
+        dataclasses.replace(cfg, n_layers=of_layers), None, "meta"))
+    cut = param_bytes(transformer.init_lm(cfg, None, "meta"))
+    room = torch.cuda.get_device_properties(0).total_memory - DENSE_RESERVE
+    say(f"{cfg.name}: {whole / 1e9:.1f} GB of bf16 weights at all "
+        f"{of_layers} layers; cut to {cfg.n_layers} layers "
+        f"({cfg.first_k_dense} dense + {cfg.n_layers - cfg.first_k_dense} "
+        f"MoE, the MTP head kept): {cut / 1e9:.3f} GB, the card holds "
+        f"{room / 1e9:.1f} GB beside {DENSE_RESERVE / 1e9:.0f} GB for "
+        f"caches and activations")
+    if cut > room:
+        fail(f"{cfg.name} at {cfg.n_layers} layers does not fit the card")
+    t0 = time.perf_counter()
+    params = build_model(cfg, "cuda").init(0)
+    torch.cuda.synchronize()
+    pbytes = param_bytes(params)
+    say(f"init {cfg.name} at {cfg.n_layers} of {of_layers} layers: "
+        f"{pbytes / 1e9:.3f} GB of bf16 weights in "
+        f"{time.perf_counter() - t0:.1f} s")
+
+    batch, prompt, gen = 4, 128, 16
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    # ---- the main path: counts zeroed above, read right after it.
+    with skewmm.plan_capture() as log:
+        res = serve_mod.serve(cfg=cfg, params=params, batch=batch,
+                              prompt_len=prompt, gen=gen, seed=SERVE_SEED,
+                              temperature=SERVE_TEMPERATURE)
+    counts = ops.launch_counts()
+    # ---- end of the main path.
+    peak = torch.cuda.max_memory_allocated()
+    if not res["logits_finite"]:
+        fail(f"{cfg.name} serve produced non-finite logits")
+    kv = kvcache.cache_bytes(kvcache.init_cache(cfg, batch, prompt + gen,
+                                                "meta"))
+    pre_b, dec_b = mla_serve_bounds(cfg, params, batch, prompt, kv)
+    say(f"serve {cfg.name} ({cfg.n_layers} of {of_layers} layers) "
+        f"b{batch} p{prompt} g{gen}: prefill {res['prefill_s'] * 1e3:.1f} "
+        f"ms (bound {pre_b:.2f} ms), decode "
+        f"{res['decode_s_per_token'] * 1e3:.2f} ms/token (bound "
+        f"{dec_b:.2f} ms), peak memory {peak / 2**30:.2f} GiB of "
+        f"{pbytes / 2**30:.2f} GiB weights, latent cache {kv / 1e6:.2f} MB")
+    seen = {}
+    for c in log:
+        seen.setdefault(plan_key(c), c)
+    for key, c in seen.items():
+        say(f"plan {key}: {c.explain()}")
+    say(f"launch counts on the {cfg.name} main path: {counts}")
+    n_moe = cfg.n_layers - cfg.first_k_dense
+    steps = 1 + res["decode_warmup_steps"] + gen
+    if counts["grouped_matmul"] != 3 * n_moe * steps:
+        fail(f"K5 launched {counts['grouped_matmul']} times, expected "
+             f"{3 * n_moe * steps} (3 per MoE layer per step, {steps} "
+             f"steps: the prefill, {res['decode_warmup_steps']} warm-up, "
+             f"{gen} replays)")
+    per_step = res["decode_launches_per_step"]
+    if per_step.get("grouped_matmul", 0) != 3 * n_moe:
+        fail(f"the decode graph replays {per_step.get('grouped_matmul')} "
+             f"K5 launches a step, expected {3 * n_moe}")
+    if counts["flash_attention"] != cfg.n_layers:
+        fail(f"K7 launched {counts['flash_attention']} times, expected "
+             f"{cfg.n_layers} (one per layer of the prefill)")
+    if per_step.get("flash_attention", 0):
+        fail(f"{cfg.name}: the decode graph launches K7")
+    say(f"K5 launches: {3 * n_moe} per step ({n_moe} MoE layers x 3 expert "
+        f"GEMMs); K7: {cfg.n_layers} per prefill, 0 per decode step")
+    for name in sorted(planned_kernels(log) | {"grouped_matmul",
+                                               "flash_attention"}):
+        if counts.get(name, 0) <= 0:
+            fail(f"kernel {name} was not launched on the {cfg.name} path")
+    graph = [graph_vs_eager(torch, cfg, params, res, batch, prompt, gen,
+                            bitwise=False)]
+    warm = warm_prefill_ms(torch, cfg, params, batch, prompt)
+    say(f"{cfg.name}: prefill b{batch} p{prompt} again, its shapes planned "
+        f"and its kernels loaded: {warm:.1f} ms (the served first prefill "
+        f"{res['prefill_s'] * 1e3:.1f} ms)")
+    if "--profile" in sys.argv[1:]:
+        profile_steps(torch, cfg, params)
+    return {"serve": res, "peak": peak, "bounds": (pre_b, dec_b),
+            "params": params, "params_bytes": pbytes, "kv_bytes": kv,
+            "counts": counts, "graph": graph, "warm_prefill_ms": warm}
+
+
+def warm_prefill_ms(torch, cfg, params, batch: int, prompt: int) -> float:
+    """Host ms of one more prefill of the served prompt (a synchronise on
+    each side), after the main path: every shape already planned."""
+    import numpy as np
+
+    from repro_torch.serve import engine
+    toks = torch.tensor(np.random.default_rng(SERVE_SEED).integers(
+        0, cfg.vocab_size, (batch, prompt)), dtype=torch.long, device="cuda")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    engine.prefill(params, cfg, toks, max_len=prompt + 1)
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3
+
+
+def mla_parity_params(params, n_dense: int, n_moe: int) -> dict:
+    """The first `n_dense` dense and `n_moe` MoE layers of a deepseek
+    parameter tree, sharing its tensors; the MTP head left out (serving
+    never runs it)."""
+    out = {k: v for k, v in params.items()
+           if not k.startswith("stage") and k != "mtp"}
+    out["stage0"] = params["stage0"][:n_dense]
+    out["stage1"] = params["stage1"][:n_moe]
+    return out
+
+
+def phase_timings_mla(torch, cfg, counts, errs) -> list[dict]:
+    """K7 at MLA's prefill shape (4 x 128 heads x 128 tokens, q / k 192, v
+    128 read as the model reads it, causal, scale 192^-0.5) and K5 at 256
+    groups (decode rows 8 and prefill rows 24, gate / up and down, bf16
+    in, fp32 out as the MoE layer calls it), each held against its plain
+    version at phase 3's tolerance, then timed beside its plain version,
+    its bound and `scaled_dot_product_attention` / `torch.bmm` on the
+    same inputs."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import grouped_matmul as gmm
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(96)
+    check = functools.partial(check_kernel, torch, errs)
+    row = functools.partial(timing_row, torch, counts, errs)
+    bf, fp = torch.bfloat16, torch.float32
+    rows = []
+
+    b, h, s = 4, cfg.n_heads, 128
+    qk, vd = cfg.qk_nope_dim + cfg.qk_rope_dim, cfg.v_head_dim
+    scale = qk ** -0.5
+
+    def rnd(shape, dtype=bf, sc=1.0):
+        return (torch.randn(shape, generator=gen, device="cuda") * sc
+                ).to(dtype)
+
+    q = rnd((b, s, h, qk)).transpose(1, 2)
+    k = rnd((b, s, h, qk)).transpose(1, 2)
+    v = rnd((b, s, h, cfg.qk_nope_dim + vd))[..., cfg.qk_nope_dim:] \
+        .transpose(1, 2)
+    shape = f"MLA prefill {b}x{h}x{s}x{qk}/{vd} causal"
+    check("flash_attention", fa.flash_attention_cuda(q, k, v, scale=scale),
+          fa.flash_attention_plain(q, k, v, scale=scale), bf, shape)
+    rows.append(row(
+        "flash_attention",
+        lambda: fa.flash_attention_cuda(q, k, v, scale=scale),
+        lambda: fa.flash_attention_plain(q, k, v, scale=scale),
+        lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True,
+                                               scale=scale),
+        2 * (q.numel() + k.numel() + v.numel() + b * h * s * vd),
+        2 * (qk + vd) * h * b * visible_pairs(s, None), shape))
+    del q, k, v
+
+    e, d, f = cfg.n_experts, cfg.d_model, cfg.moe_d_ff
+    for kk, n, what in ((d, f, "gate/up"), (f, d, "down")):
+        w = rnd((e, kk, n), sc=kk ** -0.5)
+        for m, when in ((8, "decode"), (24, "prefill")):
+            a = rnd((e, m, kk))
+            bm, bk, bn = grouped_blocks(e, m, kk, n, 2)
+            tag = f"{when} {what} {e}x{m}x{kk}x{n} bf16->fp32"
+            check("grouped_matmul",
+                  gmm.grouped_matmul_cuda(a, w, bm=bm, bk=bk, bn=bn,
+                                          out_dtype=fp),
+                  gmm.grouped_matmul_plain(a, w, bk=bk, out_dtype=fp), fp,
+                  tag)
+            rows.append(row(
+                "grouped_matmul",
+                lambda a=a, w=w, bm=bm, bk=bk, bn=bn:
+                    gmm.grouped_matmul_cuda(a, w, bm=bm, bk=bk, bn=bn,
+                                            out_dtype=fp),
+                lambda a=a, w=w, bk=bk: gmm.grouped_matmul_plain(
+                    a, w, bk=bk, out_dtype=fp),
+                lambda a=a, w=w: torch.bmm(a, w),
+                (e * m * kk + e * kk * n) * 2 + e * m * n * 4,
+                2 * e * m * kk * n, f"{tag} {(bm, bk, bn)}"))
+            del a
+        del w
+        torch.cuda.empty_cache()
+    return rows
+
+
 # ----------------------------------------------------------------- dense
 def dense_depth(torch, cfg) -> int:
     """The layers of `cfg` to serve: all of them where their bf16 weights
@@ -3665,22 +4016,50 @@ def main() -> None:
         dataclasses.replace(ccfg, n_layers=dense_depth(torch, ccfg)),
         ((4, 128, 16),), ccfg.n_layers, DENSE_PARITY_LAYERS)
 
+    # deepseek-v3-671b: MLA and 256 experts, cut to 5 of 61 layers.
+    ds = get_config("deepseek-v3-671b")
+    mcfg = dataclasses.replace(ds, n_layers=DEEPSEEK_LAYERS)
+    say(f"config: {mcfg.name} L={mcfg.n_layers} (of {ds.n_layers}; "
+        f"{mcfg.first_k_dense} dense) d={mcfg.d_model} H={mcfg.n_heads} "
+        f"MLA q_lora={mcfg.q_lora_rank} kv_lora={mcfg.kv_lora_rank} "
+        f"qk={mcfg.qk_nope_dim}+{mcfg.qk_rope_dim} v={mcfg.v_head_dim} "
+        f"E={mcfg.n_experts} top-{mcfg.n_experts_per_tok} "
+        f"shared={mcfg.n_shared_experts} ff={mcfg.d_ff}/{mcfg.moe_d_ff} "
+        f"V={mcfg.vocab_size} mtp={mcfg.mtp_heads}")
+    mla_path = guarded("phase 4i", phase_serve_mla, torch, mcfg,
+                       ds.n_layers)
+    n_parity, k_parity = DEEPSEEK_PARITY
+    params6 = mla_parity_params(mla_path.pop("params"), k_parity,
+                                n_parity - k_parity)
+    gc.collect()          # the served layers left out of params6 go now
+    torch.cuda.empty_cache()
+    guarded("phase 5i", phase_path_parity, torch, dataclasses.replace(
+        mcfg, n_layers=n_parity, first_k_dense=k_parity), params6,
+        consume=True, routed_rows=True)
+    del params6
+    torch.cuda.empty_cache()
+    mla_rows = guarded("phase 6i", phase_timings_mla, torch, mcfg,
+                       mla_path["counts"], errs)
+    torch.cuda.empty_cache()
+
     say("served decode, ms per token (host clock): " + "; ".join(
         f"{g['tag']} graphed {g['graph_ms']:.2f} eager {g['eager_ms']:.2f}"
         for path in (phi4_graph, moe_path, hyb_path, ssm_path, gemma_path,
-                     granite_path, cr_path)
+                     granite_path, cr_path, mla_path)
         for g in (path if isinstance(path, list) else path["graph"])))
 
     # One entry per kernel for the contract line (the LM-head shape for
     # K1-K4, the dbrx decode gate/up shape for K5, recurrentgemma's batch-4
     # prefill for K6 and K7, mamba2's for K8, the tuner's 4096^2 (32, 128)
-    # d 0.25 layout for K9); the other shapes are in the log above.
-    # Launches: summed over the eleven main paths.
+    # d 0.25 layout for K9), then deepseek's rows of phase 6i (K7 at MLA's
+    # 192 / 128 widths, K5 at 256 groups) with their "shape"; the other
+    # shapes are in the log above.  Launches: summed over the twelve main
+    # paths; a deepseek row's are those of the deepseek path.
     launches = {n: sum(c.get(n, 0) for c in (
         phi4_counts, moe_path["counts"], hyb_path["counts"],
         ssm_path["counts"], tune_path["counts"], fig5_path["counts"],
         gemma_path["counts"], granite_path["counts"], cr_path["counts"],
-        guard_path["counts"], sched_path["counts"]))
+        guard_path["counts"], sched_path["counts"], mla_path["counts"]))
         for n in KERNELS}
     first = {}
     for r in rows:
@@ -3689,10 +4068,12 @@ def main() -> None:
                for r in first.values()]
     for r in kernels:
         r["launches"] = int(launches[r["name"]])
+    kernels += mla_rows
+    for r in kernels:
         for key in ("ms", "plain_ms", "bound_ms"):
             if not (isinstance(r[key], float) and math.isfinite(r[key])):
                 fail(f"{r['name']}: {key} not measured")
-    if sorted(r["name"] for r in kernels) != sorted(KERNELS):
+    if sorted(set(r["name"] for r in kernels)) != sorted(KERNELS):
         fail("the kernels line does not list every kernel")
     say(f"total {time.perf_counter() - t_start:.1f} s")
     print(card, flush=True)

@@ -4,10 +4,10 @@ One `ModelConfig` describes any member of the zoo (dense / MoE / SSM / hybrid
 / enc-dec / VLM).  Each ported architecture gets a module under
 `repro_torch.configs` registering its exact published config; `reduced()`
 derives the same-family smoke-test config.  The port registers the archs
-it can run (the dense GQA archs, MoE without MLA, the RG-LRU hybrid, the
-Mamba-2 SSM and the paper's bare-matmul config); the dataclass keeps
-every field so configs stay field-for-field comparable with the JAX
-package's.
+it can run (the dense GQA archs, MoE with GQA or MLA attention, the
+RG-LRU hybrid, the Mamba-2 SSM and the paper's bare-matmul config); the
+dataclass keeps every field so configs stay field-for-field comparable
+with the JAX package's.
 """
 
 from __future__ import annotations
@@ -19,7 +19,8 @@ from typing import Callable
 _REGISTRY: dict[str, Callable[[], "ModelConfig"]] = {}
 
 ARCH_IDS = ["phi4-mini-3.8b", "gemma2-27b", "granite-34b", "command-r-35b",
-            "dbrx-132b", "recurrentgemma-9b", "mamba2-2.7b", "paper-skewmm"]
+            "dbrx-132b", "deepseek-v3-671b", "recurrentgemma-9b",
+            "mamba2-2.7b", "paper-skewmm"]
 
 _MODULE_FOR = {
     "phi4-mini-3.8b": "phi4_mini_3p8b",
@@ -27,6 +28,7 @@ _MODULE_FOR = {
     "granite-34b": "granite_34b",
     "command-r-35b": "command_r_35b",
     "dbrx-132b": "dbrx_132b",
+    "deepseek-v3-671b": "deepseek_v3_671b",
     "recurrentgemma-9b": "recurrentgemma_9b",
     "mamba2-2.7b": "mamba2_2p7b",
     "paper-skewmm": "paper_skewmm",

@@ -18,10 +18,15 @@
 // columns past Skv are zero-filled and masked), so no length has to divide
 // a tile.
 //
+// Head widths: q and k share D, v (and the output) have DV <= D, both
+// multiples of 16 (MLA's prefill runs D 192, DV 128; every other caller
+// DV = D).  V's rows sit in shared memory at K's pitch, so one walk copies
+// both; only O's registers and the P@V loop shrink to DV.
+//
 // Bound on the H100: at prefill lengths, operations — QK^T and PV are
-// 4 * D flops per visible (row, col) pair and q head (6 * D as the kernel
-// runs them, P@V twice for P's two terms, below); at the serving prefill
-// of 4 x 128 tokens, bytes and launch latency.
+// 2 * (D + DV) flops per visible (row, col) pair and q head (2 * D + 4 *
+// DV as the kernel runs them, P@V twice for P's two terms, below); at the
+// serving prefill of 4 x 128 tokens, bytes and launch latency.
 //
 // bf16 (the served route, `fa_mma_kernel`): S, P and O live in registers.
 // Each warp owns 16 rows of the q tile (128 rows and 8 warps by default; any
@@ -39,12 +44,13 @@
 // Warps whose rows see nothing of a kv tile skip it.  Shared memory holds
 // only Q and the ring (rows padded by 16 bytes, so ldmatrix's 8 rows hit
 // distinct banks): 128 x 64 tiles take 104 KB at D = 128 (two CTAs an SM)
-// and 203 KB at D = 256 (one).  Registers: O is 16 x D fp32 a warp, D / 2
-// a lane; with 128 x 64 tiles ptxas gives 128 a thread at D = 128 (held
-// there, see fa_mma_kernel) and 229 at D = 256 (246 with a softcap), with
-// no spills; each build's count lands in build/*.log and chip_smoke.py
-// prints it.  The 128-row tile halves the
-// K / V bytes each q row pulls from L2 against a 64-row one, and the loop
+// and 203 KB at D = 256 (one).  Registers: O is 16 x DV fp32 a warp, DV /
+// 2 a lane; with 128 x 64 tiles ptxas gives 128 a thread at D = 128 (held
+// there, see fa_mma_kernel), 229 at D = 256 (238 with a softcap) and 165
+// at MLA's D 192 / DV 128 (O at 128: 168 with a softcap), with no spills;
+// each build's count lands in build/*.log and chip_smoke.py prints it.
+// The 128-row tile halves the K / V bytes each q row pulls from L2
+// against a 64-row one, and the loop
 // body is kept short (see fa_mma_kernel).  wgmma and TMA are later work.
 //
 // P keeps fp32 precision, as in the TPU kernel: for bf16, P is split into
@@ -78,7 +84,7 @@ struct FaArgs {
   void* o;
   long long o_b, o_h, o_s;
   int group;                   // Hq / Hkv
-  int sq, skv, d, bq, bkv;
+  int sq, skv, d, dv, bq, bkv;  // d: q / k width, dv <= d: v / out width
   float scale, softcap;        // softcap <= 0: none
   int causal, window;          // window <= 0: none
 };
@@ -155,8 +161,9 @@ __device__ __forceinline__ void fa_split(float x, float y, unsigned& hi, unsigne
 }
 
 // blockIdx = (q head, batch row, q tile from the last); 2 * bq threads, a
-// warp for each 16 rows; kFaBkv kv columns a tile.  DM: the register width
-// of O, d <= DM (d a multiple of 16; columns past d are never touched);
+// warp for each 16 rows; kFaBkv kv columns a tile.  DM: the widest q / k
+// width the QK^T loop walks, d <= DM; DV: the register width of O, dv <=
+// DV (d and dv multiples of 16; columns past them are never touched);
 // CAP: a softcap.  A lane holds, for each 8-column block j of S (and of
 // O), the values at row g = lane / 4 (x[0], x[1]) and g + 8 (x[2], x[3]),
 // columns 8 j + 2 (lane % 4) + {0, 1}.  The loop body is kept short (no
@@ -165,11 +172,11 @@ __device__ __forceinline__ void fa_split(float x, float y, unsigned& hi, unsigne
 // and a body that outgrows the instruction cache costs more than its
 // arithmetic.  Up to D = 128 the kernel is held to 128 registers, so two
 // CTAs of 8 warps share an SM (as their 104 KB of shared memory allow).
-template <int DM, bool CAP>
+template <int DM, int DV, bool CAP>
 __global__ void __launch_bounds__(256, DM <= 128 ? 2 : 1) fa_mma_kernel(FaArgs a, int stages) {
-  constexpr int BKV = kFaBkv, NT = BKV / 8, DT = DM / 8;
+  constexpr int BKV = kFaBkv, NT = BKV / 8, DT = DV / 8;
   extern __shared__ __align__(128) unsigned char smem[];
-  const int d = a.d, ld = d + 8, nch = d / 8, S = stages;
+  const int d = a.d, dv = a.dv, ld = d + 8, nch = d / 8, nchv = dv / 8, S = stages;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g = lane >> 2, t4 = lane & 3;
   const long long h = blockIdx.x, b = blockIdx.y, hk = h / a.group;
@@ -190,7 +197,7 @@ __global__ void __launch_bounds__(256, DM <= 128 ? 2 : 1) fa_mma_kernel(FaArgs a
   // else fa_load_rows (visible after the next barrier).  A thread walks
   // the (row, 16-byte chunk) pairs from its own with a fixed stride, so
   // the loop divides nothing; K and V tiles share one walk (their second
-  // rows `dst + gap`, `src2`).
+  // rows `dst + gap`, `src2`: its first nchv chunks of a row).
   const bool vec = a.q_s % 8 == 0 && a.k_s % 8 == 0 && a.v_s % 8 == 0 &&
                    ((reinterpret_cast<uintptr_t>(Q) | reinterpret_cast<uintptr_t>(K) |
                      reinterpret_cast<uintptr_t>(V)) & 15) == 0;
@@ -200,7 +207,7 @@ __global__ void __launch_bounds__(256, DM <= 128 ? 2 : 1) fa_mma_kernel(FaArgs a
                   long long gap, int r0, int R, int nr) {
     if (!vec) {
       fa_load_rows(dst, ld, src, s_r, r0, R, d, nr);
-      if (src2) fa_load_rows(dst + gap, ld, src2, s_r2, r0, R, d, nr);
+      if (src2) fa_load_rows(dst + gap, ld, src2, s_r2, r0, R, dv, nr);
       return;
     }
     int r = cr0, c = cc0;
@@ -208,7 +215,7 @@ __global__ void __launch_bounds__(256, DM <= 128 ? 2 : 1) fa_mma_kernel(FaArgs a
       const bool ok = r0 + r < nr;
       const long long go = (long long)(r0 + r);
       cp_async16(dst + r * ld + 8 * c, ok ? src + go * s_r + 8 * c : src, ok ? 16 : 0);
-      if (src2)
+      if (src2 && c < nchv)
         cp_async16(dst + gap + r * ld + 8 * c, ok ? src2 + go * s_r2 + 8 * c : src2,
                    ok ? 16 : 0);
       r += dr;
@@ -330,7 +337,7 @@ __global__ void __launch_bounds__(256, DM <= 128 ? 2 : 1) fa_mma_kernel(FaArgs a
     lrow[1] = lrow[1] * alpha[1] + sum[1];
 #pragma unroll
     for (int i = 0; i < DT; ++i) {
-      if (8 * i >= d) break;
+      if (8 * i >= dv) break;
       o[i][0] *= alpha[0];
       o[i][1] *= alpha[0];
       o[i][2] *= alpha[1];
@@ -348,8 +355,8 @@ __global__ void __launch_bounds__(256, DM <= 128 ? 2 : 1) fa_mma_kernel(FaArgs a
       fa_split(s[2 * kc + 1][2], s[2 * kc + 1][3], hi[3], lo[3]);
       const bf16* pv = sv + kc * 16 * ld;
 #pragma unroll
-      for (int nb = 0; nb < DM / 16; ++nb) {
-        if (16 * nb >= d) break;
+      for (int nb = 0; nb < DV / 16; ++nb) {
+        if (16 * nb >= dv) break;
         unsigned bv[4];
         ldsm_x4_trans(bv, pv + nb * 16);
         mma_16816(o[2 * nb], hi, bv[0], bv[1]);
@@ -375,7 +382,7 @@ __global__ void __launch_bounds__(256, DM <= 128 ? 2 : 1) fa_mma_kernel(FaArgs a
   bf16* so = sq + wq * ld;
 #pragma unroll
   for (int i = 0; i < DT; ++i) {
-    if (8 * i >= d) break;
+    if (8 * i >= dv) break;
     const int c = 8 * i + 2 * t4;
     *reinterpret_cast<__nv_bfloat162*>(so + g * ld + c) =
         __floats2bfloat162_rn(o[i][0] * rl[0], o[i][1] * rl[0]);
@@ -386,8 +393,8 @@ __global__ void __launch_bounds__(256, DM <= 128 ? 2 : 1) fa_mma_kernel(FaArgs a
   bf16* out = static_cast<bf16*>(a.o) + b * a.o_b + h * a.o_h;
   const bool ovec = a.o_s % 8 == 0 && (reinterpret_cast<uintptr_t>(out) & 15) == 0;
   const int wrows = min(16, rows - wq);
-  for (int idx = lane; idx < wrows * nch; idx += 32) {
-    const int r = idx / nch, c = (idx - r * nch) * 8;
+  for (int idx = lane; idx < wrows * nchv; idx += 32) {
+    const int r = idx / nchv, c = (idx - r * nchv) * 8;
     const bf16* src = so + r * ld + c;
     bf16* dst = out + (long long)(wr0 + r) * a.o_s + c;
     if (ovec) {
@@ -399,22 +406,22 @@ __global__ void __launch_bounds__(256, DM <= 128 ? 2 : 1) fa_mma_kernel(FaArgs a
   }
 }
 
-template <int DM, bool CAP>
+template <int DM, int DV, bool CAP>
 int launch_fa_mma(const FaArgs& a, int batch, int hq, int stages, long long smem,
                   cudaStream_t stream) {
   const cudaError_t err = cudaFuncSetAttribute(
-      fa_mma_kernel<DM, CAP>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      fa_mma_kernel<DM, DV, CAP>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid(hq, batch, (a.sq + a.bq - 1) / a.bq);
-  fa_mma_kernel<DM, CAP><<<grid, 2 * a.bq, smem, stream>>>(a, stages);
+  fa_mma_kernel<DM, DV, CAP><<<grid, 2 * a.bq, smem, stream>>>(a, stages);
   return (int)cudaGetLastError();
 }
 
-template <int DM>
+template <int DM, int DV>
 int launch_fa_cap(const FaArgs& a, int batch, int hq, int stages, long long smem,
                   cudaStream_t stream) {
-  if (a.softcap > 0.0f) return launch_fa_mma<DM, true>(a, batch, hq, stages, smem, stream);
-  return launch_fa_mma<DM, false>(a, batch, hq, stages, smem, stream);
+  if (a.softcap > 0.0f) return launch_fa_mma<DM, DV, true>(a, batch, hq, stages, smem, stream);
+  return launch_fa_mma<DM, DV, false>(a, batch, hq, stages, smem, stream);
 }
 
 // bf16 tiles: bq a multiple of 16 up to 128 (a warp each 16 rows), 64 kv
@@ -426,36 +433,38 @@ int launch_fa_bf16(const FaArgs& a, int batch, int hq, cudaStream_t stream) {
   const int stages = fa_mma_stages(a.bq, a.bkv, a.d);
   if (stages == 0) return (int)cudaErrorInvalidValue;
   const long long smem = fa_mma_smem(a.bq, a.bkv, a.d, stages);
-  if (a.d <= 64) return launch_fa_cap<64>(a, batch, hq, stages, smem, stream);
-  if (a.d <= 128) return launch_fa_cap<128>(a, batch, hq, stages, smem, stream);
-  return launch_fa_cap<256>(a, batch, hq, stages, smem, stream);
+  if (a.d <= 64) return launch_fa_cap<64, 64>(a, batch, hq, stages, smem, stream);
+  if (a.d <= 128) return launch_fa_cap<128, 128>(a, batch, hq, stages, smem, stream);
+  // past 128, O's registers follow v's width: MLA's 192 / 128 holds O at 128
+  if (a.dv <= 128) return launch_fa_cap<256, 128>(a, batch, hq, stages, smem, stream);
+  return launch_fa_cap<256, 256>(a, batch, hq, stages, smem, stream);
 }
 
 // ---------------------------------------------------------------- fp32
 // Shared-memory bytes of one fp32 tile set; mirrored by smem_bytes() in
 // kernels/flash_attention.py.
-inline long long fa_smem_bytes(int bq, int bkv, int d) {
+inline long long fa_smem_bytes(int bq, int bkv, int d, int dv) {
   constexpr int P = pad<float>();
   return align128((long long)bq * (d + P) * 4) +       // Q
          align128((long long)d * (bkv + P) * 4) +      // K^T
-         align128((long long)bkv * (d + P) * 4) +      // V
+         align128((long long)bkv * (dv + P) * 4) +     // V
          align128((long long)bq * (bkv + 4) * 4) +     // S
          align128((long long)bq * (bkv + P) * 4) +     // P
-         align128((long long)bq * (d + 4) * 4) +       // O
+         align128((long long)bq * (dv + 4) * 4) +      // O
          2 * align128((long long)bq * 4);              // m, l
 }
 
 struct FaTiles {
   float *q, *kt, *v, *p, *s, *o, *m, *l;
   int ldq, ldk, ldv, lds, ldp, ldo;
-  __device__ FaTiles(unsigned char* base, int bq, int bkv, int d) {
+  __device__ FaTiles(unsigned char* base, int bq, int bkv, int d, int dv) {
     constexpr int P = pad<float>();
     ldq = d + P;
     ldk = bkv + P;
-    ldv = d + P;
+    ldv = dv + P;
     lds = bkv + 4;
     ldp = bkv + P;
-    ldo = d + 4;
+    ldo = dv + 4;
     unsigned char* c = base;
     auto take = [&](long long n) {
       float* p = reinterpret_cast<float*>(c);
@@ -520,7 +529,7 @@ __device__ void fa_softmax(const FaArgs& a, FaTiles& t, int q0, int k0, int rows
     sum = warp_sum(sum);
     const float alpha = expf(m_prev - m_new);
     float* orow = t.o + r * t.ldo;
-    for (int c = lane; c < a.d; c += 32) orow[c] *= alpha;
+    for (int c = lane; c < a.dv; c += 32) orow[c] *= alpha;
     if (lane == 0) {
       t.l[r] = t.l[r] * alpha + sum;
       t.m[r] = m_new;
@@ -532,7 +541,7 @@ __device__ void fa_softmax(const FaArgs& a, FaTiles& t, int q0, int k0, int rows
 // across the kv loop.
 __global__ void __launch_bounds__(kThreads) fa_kernel(FaArgs a) {
   extern __shared__ __align__(128) unsigned char smem[];
-  FaTiles t(smem, a.bq, a.bkv, a.d);
+  FaTiles t(smem, a.bq, a.bkv, a.d, a.dv);
   const int q0 = blockIdx.x * a.bq;
   const long long h = blockIdx.y, b = blockIdx.z;
   const long long hk = h / a.group;
@@ -553,25 +562,25 @@ __global__ void __launch_bounds__(kThreads) fa_kernel(FaArgs a) {
     __syncthreads();
     // K^T tile: element (dd, j) = K[k0 + j][dd], i.e. unit row stride.
     load_tile(t.kt, t.ldk, K, 1, a.k_s, 0, k0, a.d, a.bkv, a.d, a.skv);
-    load_tile(t.v, t.ldv, V, a.v_s, 1, k0, 0, a.bkv, a.d, a.skv, a.d);
+    load_tile(t.v, t.ldv, V, a.v_s, 1, k0, 0, a.bkv, a.dv, a.skv, a.dv);
     __syncthreads();
     mma_block(t.q, t.ldq, t.kt, t.ldk, t.s, t.lds, a.bq, a.d, a.bkv, rows, true);
     __syncthreads();
     fa_softmax(a, t, q0, k0, rows);
     __syncthreads();
-    mma_block(t.p, t.ldp, t.v, t.ldv, t.o, t.ldo, a.bq, a.bkv, a.d, rows, false);
+    mma_block(t.p, t.ldp, t.v, t.ldv, t.o, t.ldo, a.bq, a.bkv, a.dv, rows, false);
   }
   __syncthreads();
   float* out = static_cast<float*>(a.o) + b * a.o_b + h * a.o_h;
-  for (int idx = threadIdx.x; idx < rows * a.d; idx += blockDim.x) {
-    const int r = idx / a.d, c = idx - r * a.d;
+  for (int idx = threadIdx.x; idx < rows * a.dv; idx += blockDim.x) {
+    const int r = idx / a.dv, c = idx - r * a.dv;
     out[(long long)(q0 + r) * a.o_s + c] = t.o[r * t.ldo + c] / fmaxf(t.l[r], 1e-30f);
   }
 }
 
 int launch_fa_f32(const FaArgs& a, int batch, int hq, cudaStream_t stream) {
   if (a.bq % 16 || a.bkv % 16) return (int)cudaErrorInvalidValue;
-  const long long smem = fa_smem_bytes(a.bq, a.bkv, a.d);
+  const long long smem = fa_smem_bytes(a.bq, a.bkv, a.d, a.dv);
   if (smem > kSmemMax || hq > 65535 || batch > 65535) return (int)cudaErrorInvalidValue;
   cudaError_t err =
       cudaFuncSetAttribute(fa_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -583,9 +592,10 @@ int launch_fa_f32(const FaArgs& a, int batch, int hq, cudaStream_t stream) {
 
 }  // namespace rt
 
-// q (batch, hq, sq, d), k / v (batch, hq / group, skv, d), out like q, all
-// read or written through their (batch, head, sequence) strides in elements
-// with a unit stride along d; q, k, v and out share one type (bf16 if
+// q / k (batch, hq or hq / group, sq or skv, d), v (batch, hq / group, skv,
+// dv), out (batch, hq, sq, dv), all read or written through their (batch,
+// head, sequence) strides in elements with a unit stride along the width;
+// dv <= d, both multiples of 16; q, k, v and out share one type (bf16 if
 // is_bf16, else fp32).  window <= 0 means no window, softcap <= 0 no cap.
 // Returns the cudaError_t of the launch.
 extern "C" int rt_flash_attention(int is_bf16, const void* q, long long q_b, long long q_h,
@@ -593,11 +603,13 @@ extern "C" int rt_flash_attention(int is_bf16, const void* q, long long q_b, lon
                                   long long k_s, const void* v, long long v_b, long long v_h,
                                   long long v_s, void* out, long long o_b, long long o_h,
                                   long long o_s, int batch, int hq, int group, int sq, int skv,
-                                  int d, int bq, int bkv, float scale, float softcap, int causal,
-                                  int window, void* stream) {
-  if (d % 16 || d < 16 || d > 256 || group < 1 || hq % group) return (int)cudaErrorInvalidValue;
-  rt::FaArgs a{q,   q_b, q_h, q_s, k,     k_b, k_h, k_s, v,  v_b,   v_h,     v_s,    out,
-               o_b, o_h, o_s, group, sq,  skv, d,   bq,  bkv, scale, softcap, causal, window};
+                                  int d, int dv, int bq, int bkv, float scale, float softcap,
+                                  int causal, int window, void* stream) {
+  if (d % 16 || d < 16 || d > 256 || dv % 16 || dv < 16 || dv > d || group < 1 || hq % group)
+    return (int)cudaErrorInvalidValue;
+  rt::FaArgs a{q,   q_b,   q_h, q_s, k,   k_b, k_h, k_s,   v,       v_b,    v_h,   v_s,
+               out, o_b,   o_h, o_s, group, sq, skv, d,  dv, bq, bkv, scale, softcap, causal,
+               window};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (is_bf16) return rt::launch_fa_bf16(a, batch, hq, s);
   return rt::launch_fa_f32(a, batch, hq, s);

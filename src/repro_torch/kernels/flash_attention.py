@@ -8,13 +8,16 @@ Kernel (CUDA C++, `csrc/flash_attention.cu`):
        can see (replaces `repro/kernels/flash_attention.py::
        flash_attention`).
 
-q (B, Hq, Sq, D) and k, v (B, Hkv, Skv, D) are read through their strides
-(the model's transposed views cost no copy); D must be a multiple of 16 up
-to 256 with a unit stride.  Rows and columns are indexed from 0, as in the
-TPU kernel: the prefill's positions.  Ragged Sq and Skv are masked, so no
+q (B, Hq, Sq, D), k (B, Hkv, Skv, D) and v (B, Hkv, Skv, Dv) are read
+through their strides (the model's transposed views cost no copy); D must
+be a multiple of 16 up to 256 and Dv one no larger than D (MLA's prefill:
+D 192, Dv 128), each with a unit stride.  Rows and columns are indexed
+from 0, as in the TPU kernel: the prefill's positions.  Ragged Sq and Skv are masked, so no
 length has to divide a tile.  The kernel writes its output in (B, Sq, Hq,
-D) memory and returns the (B, Hq, Sq, D) view, so the model's transpose
-back to tokens is free.
+Dv) memory and returns the (B, Hq, Sq, Dv) view, so the model's transpose
+back to tokens is free.  The bf16 route keeps O's registers at Dv's width
+(128 at MLA's 192 / 128, not 256); V's rows sit at K's pitch in shared
+memory, so the tiles and stages below depend on D alone.
 
 Tiles (q rows x kv columns): `tiles(dtype, d)`.  bf16 (the served
 route: S, P and O in registers, K and V on a `cp.async` ring): 128 x 64 at
@@ -76,39 +79,51 @@ def stages(bq: int, bkv: int, d: int) -> int:
     return 0
 
 
-def smem_bytes(dtype: torch.dtype, bq: int, bkv: int, d: int) -> int:
-    """Shared memory of one CTA.  bf16 (mirrors `fa_mma_smem`): Q and the
-    K / V ring, rows padded by 16 bytes (two stages' worth where none
-    fits).  fp32 (mirrors `fa_smem_bytes`): Q, K^T, V, the scores S, P, O
-    and the running max and sum."""
+def smem_bytes(dtype: torch.dtype, bq: int, bkv: int, d: int,
+               dv: int | None = None) -> int:
+    """Shared memory of one CTA at q / k width d and v width dv (default
+    d).  bf16 (mirrors `fa_mma_smem`): Q and the K / V ring, rows padded by
+    16 bytes (two stages' worth where none fits), V at K's pitch.  fp32
+    (mirrors `fa_smem_bytes`): Q, K^T, V, the scores S, P, O and the
+    running max and sum."""
     if dtype == torch.bfloat16:
         return _bf16_smem(bq, bkv, d, stages(bq, bkv, d) or 2)
+    dv = dv or d
     pad = 4
     return (_align128(bq * (d + pad) * 4) + _align128(d * (bkv + pad) * 4)
-            + _align128(bkv * (d + pad) * 4) + _align128(bq * (bkv + 4) * 4)
+            + _align128(bkv * (dv + pad) * 4) + _align128(bq * (bkv + 4) * 4)
             + _align128(bq * (bkv + pad) * 4)
-            + _align128(bq * (d + 4) * 4) + 2 * _align128(bq * 4))
+            + _align128(bq * (dv + 4) * 4) + 2 * _align128(bq * 4))
 
 
-def tiles(dtype: torch.dtype, d: int) -> tuple[int, int]:
-    """The kernel's (q rows, kv columns) per tile at head dim `d`."""
+def tiles(dtype: torch.dtype, d: int,
+          dv: int | None = None) -> tuple[int, int]:
+    """The kernel's (q rows, kv columns) per tile at q / k width `d` and v
+    width `dv` (default d)."""
     if dtype == torch.bfloat16:
         return 128, BF16_BKV
     for bq, bkv in TILE_CHOICES:
-        if smem_bytes(dtype, bq, bkv, d) <= SMEM_MAX:
+        if smem_bytes(dtype, bq, bkv, d, dv) <= SMEM_MAX:
             return bq, bkv
     raise ValueError(f"no flash-attention tile fits head dim {d}")
 
 
-def takes_tiles(dtype: torch.dtype, bq: int, bkv: int, d: int) -> bool:
-    """Whether the kernel takes (bq, bkv) at head dim d: bf16 q rows a
+def takes_tiles(dtype: torch.dtype, bq: int, bkv: int, d: int,
+                dv: int | None = None) -> bool:
+    """Whether the kernel takes (bq, bkv) at widths d / dv: bf16 q rows a
     multiple of 16 up to 128 and 64 kv columns, fp32 multiples of 16;
     either within shared memory."""
     if dtype == torch.bfloat16:
         ok = bq % 16 == 0 and 16 <= bq <= 128 and bkv == BF16_BKV
     else:
         ok = bq % 16 == 0 and bkv % 16 == 0 and bq > 0 and bkv > 0
-    return ok and smem_bytes(dtype, bq, bkv, d) <= SMEM_MAX
+    return ok and smem_bytes(dtype, bq, bkv, d, dv) <= SMEM_MAX
+
+
+def _check_widths(d: int, dv: int) -> None:
+    """v's width may be narrower than q / k's (MLA), never wider."""
+    if dv > d:
+        raise ValueError(f"v width {dv} exceeds the q / k width {d}")
 
 
 def _reachable(q0: int, rows: int, k0: int, bkv: int, causal: bool,
@@ -127,25 +142,27 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                           bq: int | None = None,
                           bkv: int | None = None) -> torch.Tensor:
     """The blockwise online softmax over (bq, bkv) tiles in PyTorch: q
-    (B, Hq, Sq, D), k / v (B, Hkv, Skv, D) -> (B, Hq, Sq, D) in q's dtype.
-    Kv heads are broadcast over their q-head group, never repeated."""
+    (B, Hq, Sq, D), k (B, Hkv, Skv, D), v (B, Hkv, Skv, Dv), Dv <= D ->
+    (B, Hq, Sq, Dv) in q's dtype.  Kv heads are broadcast over their
+    q-head group, never repeated."""
     b, hq, sq, d = q.shape
-    hkv, skv = k.shape[1], k.shape[2]
+    hkv, skv, dv = k.shape[1], k.shape[2], v.shape[3]
     if hq % hkv:
         raise ValueError(f"q heads {hq} not a multiple of kv heads {hkv}")
+    _check_widths(d, dv)
     g = hq // hkv
-    dq, dkv = tiles(q.dtype, d)
+    dq, dkv = tiles(q.dtype, d, dv)
     bq, bkv = bq or dq, bkv or dkv
     scale = scale if scale is not None else d ** -0.5
     qg = q.reshape(b, hkv, g, sq, d)
-    out = torch.empty((b, hkv, g, sq, d), dtype=q.dtype, device=q.device)
+    out = torch.empty((b, hkv, g, sq, dv), dtype=q.dtype, device=q.device)
     for q0 in range(0, sq, bq):
         rows = min(bq, sq - q0)
         qi = qg[:, :, :, q0:q0 + rows].float()
         row = torch.arange(q0, q0 + rows, device=q.device)[:, None]
         m = torch.full((b, hkv, g, rows, 1), NEG_INF, device=q.device)
         l = torch.zeros((b, hkv, g, rows, 1), device=q.device)
-        acc = torch.zeros((b, hkv, g, rows, d), device=q.device)
+        acc = torch.zeros((b, hkv, g, rows, dv), device=q.device)
         for k0 in range(0, skv, bkv):
             if not _reachable(q0, rows, k0, bkv, causal, window):
                 continue
@@ -174,7 +191,7 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             m = m_new
         out[:, :, :, q0:q0 + rows] = (acc / torch.clamp(l, min=1e-30)
                                       ).to(q.dtype)
-    return out.reshape(b, hq, sq, d)
+    return out.reshape(b, hq, sq, dv)
 
 
 # ------------------------------------------------------------ CUDA launch
@@ -185,7 +202,7 @@ def _lib() -> ctypes.CDLL:
         ctypes.c_float
     lib.rt_flash_attention.argtypes = [
         i, p, ll, ll, ll, p, ll, ll, ll, p, ll, ll, ll, p, ll, ll, ll,
-        i, i, i, i, i, i, i, i, f, f, i, i, p]
+        i, i, i, i, i, i, i, i, i, f, f, i, i, p]
     lib.rt_flash_attention.restype = i
     return lib
 
@@ -202,11 +219,12 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
         raise ValueError("q, k, v must be 4-D (B, H, S, D)")
     b, hq, sq, d = q.shape
-    hkv, skv = k.shape[1], k.shape[2]
-    if (tuple(v.shape) != tuple(k.shape) or k.shape[0] != b
+    hkv, skv, dv = k.shape[1], k.shape[2], v.shape[3]
+    if (tuple(v.shape[:3]) != tuple(k.shape[:3]) or k.shape[0] != b
             or k.shape[3] != d):
         raise ValueError(f"shapes q {tuple(q.shape)} k {tuple(k.shape)} "
                          f"v {tuple(v.shape)} do not match")
+    _check_widths(d, dv)
     if hq % hkv:
         raise ValueError(f"q heads {hq} not a multiple of kv heads {hkv}")
     if not (q.device == k.device == v.device):
@@ -215,21 +233,22 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             torch.bfloat16, torch.float32):
         raise TypeError(f"q, k, v must share dtype bfloat16 or float32, got "
                         f"{q.dtype}, {k.dtype}, {v.dtype}")
-    if d % 16 or d > 256:
-        raise ValueError(f"head dim {d} must be a multiple of 16 up to 256")
+    if d % 16 or d > 256 or dv % 16:
+        raise ValueError(f"head dim {d} must be a multiple of 16 up to 256, "
+                         f"v width {dv} a multiple of 16")
     if any(t.stride(3) != 1 for t in (q, k, v)):
         raise ValueError("q, k, v need a unit stride along the head dim")
     if window is not None and window < 1:
         raise ValueError(f"window must be >= 1, got {window}")
-    dq, dkv = tiles(q.dtype, d)
+    dq, dkv = tiles(q.dtype, d, dv)
     bq, bkv = bq or dq, bkv or dkv
-    if not takes_tiles(q.dtype, bq, bkv, d):
+    if not takes_tiles(q.dtype, bq, bkv, d, dv):
         raise ValueError(f"tiles ({bq}, {bkv}) at head dim {d} are not ones "
                          f"the {q.dtype} kernel takes (bf16: q rows a "
                          f"multiple of 16 up to 128, 64 kv columns; fp32: "
                          f"multiples of 16) or exceed shared memory")
     scale = scale if scale is not None else d ** -0.5
-    out = torch.empty((b, sq, hq, d), dtype=q.dtype,
+    out = torch.empty((b, sq, hq, dv), dtype=q.dtype,
                       device=q.device).transpose(1, 2)
     if out.numel() == 0:
         return out
@@ -239,7 +258,7 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         int(q.dtype == torch.bfloat16), q.data_ptr(), sq_[0], sq_[1], sq_[2],
         k.data_ptr(), sk_[0], sk_[1], sk_[2], v.data_ptr(), sv_[0], sv_[1],
         sv_[2], out.data_ptr(), so_[0], so_[1], so_[2], b, hq, hq // hkv, sq,
-        skv, d, bq, bkv, float(scale), float(softcap), int(causal),
+        skv, d, dv, bq, bkv, float(scale), float(softcap), int(causal),
         int(window or 0), stream)
     build.check(err, "flash_attention")
     LAUNCHES["flash_attention"] += 1

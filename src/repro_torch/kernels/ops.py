@@ -399,8 +399,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     softcap: float = 0.0, scale: float | None = None,
                     bq: int | None = None,
                     bkv: int | None = None) -> torch.Tensor:
-    """Prefill attention.  q (B, Hq, S, D), k / v (B, Hkv, S, D) ->
-    (B, Hq, S, D): K7 on a CUDA tensor, its plain version on a CPU tensor.
+    """Prefill attention.  q (B, Hq, S, D), k (B, Hkv, S, D), v (B, Hkv, S,
+    Dv), Dv <= D -> (B, Hq, S, Dv): K7 on a CUDA tensor, its plain version
+    on a CPU tensor.
     Rows and columns are positions 0..S-1.  Tiles default to the kernel's
     choice for the head dim (`flash_attention.tiles`); S need not divide
     them."""

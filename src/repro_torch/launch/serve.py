@@ -4,8 +4,9 @@
       --batch 4 --prompt-len 128 --gen 16
 
 ``--arch`` takes every ported config: phi4-mini-3.8b, gemma2-27b,
-granite-34b, command-r-35b, dbrx-132b, recurrentgemma-9b, mamba2-2.7b and
-paper-skewmm (``--reduced`` for the small config).
+granite-34b, command-r-35b, dbrx-132b, deepseek-v3-671b,
+recurrentgemma-9b, mamba2-2.7b and paper-skewmm (``--reduced`` for the
+small config).
 
 Runs on the CUDA card unless ``--device cpu`` is given.  The published
 weights are not in the repository: weights are drawn from ``--seed``.

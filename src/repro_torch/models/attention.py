@@ -1,4 +1,8 @@
-"""Attention sublayers: GQA (the dense archs).  MLA is not ported yet."""
+"""Attention sublayers: GQA (the dense archs) and MLA (deepseek-v3).
+
+Prefill attention runs K7 (`ops.flash_attention`) under the "cuda" backend
+and `blockwise_attention` under "torch"; decode attention lives in
+`repro_torch.serve.engine` and reuses the projection helpers here."""
 
 from __future__ import annotations
 
@@ -7,7 +11,8 @@ import torch
 from repro_torch.core import config, skewmm
 from repro_torch.kernels import ops
 from repro_torch.models import layers
-from repro_torch.models.layers import apply_rope, linear_init, rope_freqs
+from repro_torch.models.layers import (apply_rope, linear_init, rmsnorm,
+                                      rope_freqs)
 
 
 def init_gqa(gen, cfg, device) -> dict:
@@ -76,14 +81,82 @@ def gqa_attn(x: torch.Tensor, p: dict, cfg, *, window: int | None,
     return skewmm.matmul(ctx, p["wo"])
 
 
+# --------------------------------------------------------------------- MLA
+def init_mla(gen, cfg, device) -> dict:
+    d, h = cfg.d_model, cfg.n_heads
+    qr, kvr = cfg.q_lora_rank, cfg.kv_lora_rank
+    nope, rope_d, vd = cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim
+    dt = layers.dtype_of(cfg)
+    return {
+        "wq_a": linear_init(gen, d, qr, dt, device),
+        "q_norm": torch.zeros((qr,), dtype=dt, device=device),
+        "wq_b": linear_init(gen, qr, h * (nope + rope_d), dt, device),
+        # kv_a projects to the latent and the shared (MQA-style) rope key
+        "wkv_a": linear_init(gen, d, kvr + rope_d, dt, device),
+        "kv_norm": torch.zeros((kvr,), dtype=dt, device=device),
+        "wkv_b": linear_init(gen, kvr, h * (nope + vd), dt, device),
+        "wo": linear_init(gen, h * vd, d, dt, device),
+    }
+
+
+def mla_latent(x: torch.Tensor, p: dict, cfg, positions: torch.Tensor):
+    """Compressed cache entries: latent (B, S, kvr), rope key (B, S, rd)."""
+    kvr, rd = cfg.kv_lora_rank, cfg.qk_rope_dim
+    kv_a = skewmm.matmul(x, p["wkv_a"])
+    latent = rmsnorm(kv_a[..., :kvr], p["kv_norm"], cfg.norm_eps)
+    cos, sin = rope_freqs(positions, rd, cfg.rope_theta)
+    k_rope = apply_rope(kv_a[..., kvr:][..., None, :], cos, sin)[..., 0, :]
+    return latent, k_rope
+
+
+def mla_queries(x: torch.Tensor, p: dict, cfg, positions: torch.Tensor):
+    """q_nope (B, S, H, nope), q_rope (B, S, H, rd)."""
+    b, s, _ = x.shape
+    h, nope, rd = cfg.n_heads, cfg.qk_nope_dim, cfg.qk_rope_dim
+    q = rmsnorm(skewmm.matmul(x, p["wq_a"]), p["q_norm"], cfg.norm_eps)
+    q = skewmm.matmul(q, p["wq_b"]).reshape(b, s, h, nope + rd)
+    cos, sin = rope_freqs(positions, rd, cfg.rope_theta)
+    return q[..., :nope], apply_rope(q[..., nope:], cos, sin)
+
+
+def mla_attn(x: torch.Tensor, p: dict, cfg, *, positions: torch.Tensor,
+             causal: bool = True, window: int | None = None) -> torch.Tensor:
+    """Prefill MLA: the latent expanded to full K / V, then attention at
+    q / k width nope + rd and v width vd, scaled by (nope + rd)^-0.5.
+    Under the "cuda" backend it runs `ops.flash_attention` (K7 on the
+    card), else `blockwise_attention` on `positions`, as in
+    `sequence_attention`."""
+    b, s, _ = x.shape
+    h = cfg.n_heads
+    nope, rd, vd = cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim
+    q_nope, q_rope = mla_queries(x, p, cfg, positions)
+    latent, k_rope = mla_latent(x, p, cfg, positions)
+    kv = skewmm.matmul(latent, p["wkv_b"]).reshape(b, s, h, nope + vd)
+    k_nope, v = kv[..., :nope], kv[..., nope:]
+    # queries / keys concat [nope, rope]; the rope key is shared by heads
+    q = torch.cat([q_nope, q_rope], dim=-1).transpose(1, 2)
+    k = torch.cat([k_nope, k_rope[:, :, None, :].expand(b, s, h, rd)],
+                  dim=-1).transpose(1, 2)
+    v = v.transpose(1, 2)
+    scale = (nope + rd) ** -0.5
+    if config.resolve().backend == "cuda":
+        ctx = ops.flash_attention(q, k, v, causal=causal, window=window,
+                                  softcap=cfg.attn_softcap, scale=scale)
+    else:
+        ctx = layers.blockwise_attention(
+            q, k, v, causal=causal, window=window, softcap=cfg.attn_softcap,
+            scale=scale, q_positions=positions, kv_positions=positions)
+    ctx = ctx.transpose(1, 2).reshape(b, s, h * vd)
+    return skewmm.matmul(ctx, p["wo"])
+
+
 def init_attn(gen, cfg, device) -> dict:
-    if cfg.use_mla:
-        raise NotImplementedError("MLA attention is not ported yet")
-    return init_gqa(gen, cfg, device)
+    return (init_mla if cfg.use_mla else init_gqa)(gen, cfg, device)
 
 
 def attn(x, p, cfg, *, window, positions, causal=True):
     if cfg.use_mla:
-        raise NotImplementedError("MLA attention is not ported yet")
+        return mla_attn(x, p, cfg, positions=positions, causal=causal,
+                        window=window)
     return gqa_attn(x, p, cfg, window=window, positions=positions,
                     causal=causal)

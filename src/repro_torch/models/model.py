@@ -25,16 +25,13 @@ class ModelBundle:
 
 
 def build_model(cfg: ModelConfig | str, device=None) -> ModelBundle:
-    """Bundle for a decoder LM: dense, MoE (without MLA), the RG-LRU hybrid
-    or the Mamba-2 SSM.  `device` defaults to the card and raises when CUDA
-    is absent (pass device="cpu" to run on the CPU)."""
+    """Bundle for a decoder LM: dense, MoE (GQA or MLA attention), the
+    RG-LRU hybrid or the Mamba-2 SSM.  `device` defaults to the card and
+    raises when CUDA is absent (pass device="cpu" to run on the CPU)."""
     if isinstance(cfg, str):
         cfg = get_config(cfg)
     if cfg.family not in ("dense", "moe", "hybrid", "ssm"):
         raise NotImplementedError(f"family {cfg.family!r} is not ported yet")
-    if cfg.use_mla:
-        raise NotImplementedError(f"{cfg.name}: MLA attention is not "
-                                  f"ported yet")
     dev = resolve_device(device)
 
     def init(seed: int = 0):

@@ -1,8 +1,10 @@
 """Decoder-only LM assembly: a Python loop over the layers.
 
 Parameters are a plain dict: ``embed``, ``final_norm``, optional
-``unembed``, and per stage of ``cfg.stage_list()`` a list ``stage{si}`` of
-unit dicts ``{"b{i}": block params}`` — the JAX package's stacked stage
+``unembed``, optional ``mtp`` (deepseek's multi-token-prediction head:
+``proj``, ``norm`` and an ``attn_dense`` block), and per stage of
+``cfg.stage_list()`` a list ``stage{si}`` of unit dicts ``{"b{i}": block
+params}`` — the JAX package's stacked stage
 arrays unstacked along the layer axis (see `repro_torch.convert`).
 Each repeat runs in `stage_trace.repeat(r)`, so host records are made
 once per stage site, as under the JAX package's `lax.scan`.
@@ -32,6 +34,14 @@ def init_lm(cfg, gen: torch.Generator, device) -> dict:
             {f"b{i}": blocks.init_block(gen, cfg, kind, device)
              for i, kind in enumerate(unit)}
             for _ in range(n)]
+    if cfg.mtp_heads:
+        # deepseek-style MTP: next-next-token head = proj([h; emb]) + block
+        params["mtp"] = {
+            "proj": linear_init(gen, 2 * cfg.d_model, cfg.d_model, dt,
+                                device),
+            "norm": torch.zeros((cfg.d_model,), dtype=dt, device=device),
+            "block": blocks.init_block(gen, cfg, "attn_dense", device),
+        }
     return params
 
 
@@ -75,3 +85,17 @@ def unembed(params, cfg, h: torch.Tensor) -> torch.Tensor:
     if cfg.final_softcap > 0.0:
         logits = cfg.final_softcap * torch.tanh(logits / cfg.final_softcap)
     return logits
+
+
+def mtp_hidden(params, cfg, h: torch.Tensor, tokens: torch.Tensor
+               ) -> torch.Tensor:
+    """deepseek MTP: predict token t+2 from [h_t ; emb(token_{t+1})].
+    h (B, S, D), tokens (B, S) -> (B, S-1, D)."""
+    p = params["mtp"]
+    emb_next = embed_tokens(params, cfg, tokens)[:, 1:]
+    cat = torch.cat([rmsnorm(h[:, :-1], p["norm"], cfg.norm_eps), emb_next],
+                    dim=-1)
+    x = skewmm.matmul(cat, p["proj"])
+    positions = torch.arange(x.shape[1], dtype=torch.int32, device=x.device)
+    x, _ = blocks.block_fwd(x, p["block"], cfg, "attn_dense", positions)
+    return x

@@ -1,6 +1,6 @@
-"""Serving engine: prefill + single-token decode for the GQA archs, with a
-dense or an MoE FFN, for the RG-LRU hybrid (recurrent and local attention
-blocks) and for the Mamba-2 SSM (mixer-only blocks, no FFN).
+"""Serving engine: prefill + single-token decode for the GQA and MLA archs,
+with a dense or an MoE FFN, for the RG-LRU hybrid (recurrent and local
+attention blocks) and for the Mamba-2 SSM (mixer-only blocks, no FFN).
 
 `prefill` runs the full-sequence forward while filling the cache;
 `decode_step` advances one token against it.  Unlike the JAX package's
@@ -9,12 +9,16 @@ the new token's k/v (or a recurrent or SSM block's state and conv tails)
 into the cache tensors it is given (and returns the same dict), so no
 per-step copy of the cache is made.
 
-Prefill attention goes through `attention.sequence_attention` (K7 under
-the "cuda" backend), the recurrent scan through `rglru.rec_mixer` (K6) and
-the SSD scan through `ssm.ssm_mixer` (K8, which also returns the fp32
-state for decode); decode attention stays `blockwise_attention` over the
-cache positions, and the decode recurrences `rglru_decode_step` and
-`ssd_decode_step`, as in the JAX package.
+Prefill attention goes through `attention.sequence_attention` or, for
+MLA, `attention.mla_attn` (K7 under the "cuda" backend), the recurrent
+scan through `rglru.rec_mixer` (K6) and the SSD scan through
+`ssm.ssm_mixer` (K8, which also returns the fp32 state for decode);
+decode attention stays `blockwise_attention` over the cache positions
+(MLA's absorbed form: five fp32 contractions over the latent cache), and
+the decode recurrences `rglru_decode_step` and `ssd_decode_step`, as in
+the JAX package.  An MLA prefill projects
+`wkv_a` twice a layer (once for the cache entry, once inside `mla_attn`),
+as the JAX engine does, so the plan logs of both packages stay equal.
 
 Each repeat of a stage's unit runs in `stage_trace.repeat(r)`: the host
 records (plan log, tuned-lookup ledger, spans, MoE slot counts) are made
@@ -44,10 +48,10 @@ from repro_torch.serve import kvcache
 
 
 def _check(cfg: ModelConfig) -> None:
-    if (cfg.use_mla or cfg.family not in ("dense", "moe", "hybrid", "ssm")
+    if (cfg.family not in ("dense", "moe", "hybrid", "ssm")
             or cfg.pos_embedding != "rope"):
         raise NotImplementedError(
-            f"{cfg.name}: only dense, MoE and RG-LRU hybrid GQA archs with "
+            f"{cfg.name}: only dense, MoE and RG-LRU hybrid archs with "
             f"rope, and the Mamba-2 SSM, are ported")
 
 
@@ -59,6 +63,14 @@ def _attn_prefill(h, p, cfg, kind, positions, k_dst, v_dst):
     ctx = attn_mod.sequence_attention(q, k, v, cfg, window=window,
                                       positions=positions)
     return skewmm.matmul(ctx, p["wo"])
+
+
+def _mla_prefill(h, p, cfg, kind, positions, latent_dst, k_rope_dst):
+    window = cfg.local_window if kind == "attn_local" else None
+    latent, k_rope = attn_mod.mla_latent(h, p, cfg, positions)
+    kvcache.place_kv(latent_dst, latent)
+    kvcache.place_kv(k_rope_dst, k_rope)
+    return attn_mod.mla_attn(h, p, cfg, positions=positions, window=window)
 
 
 def _rec_prefill(h, p, cfg, lru_dst, conv_dst):
@@ -119,6 +131,9 @@ def prefill(params, cfg: ModelConfig, tokens: torch.Tensor, *, max_len: int,
                 elif kind == "ssm":
                     h = _ssm_prefill(h, p["mixer"], cfg,
                                      _ssm_entry(entry, r))
+                elif cfg.use_mla:
+                    h = _mla_prefill(h, p["attn"], cfg, kind, positions,
+                                     entry["latent"][r], entry["k_rope"][r])
                 else:
                     h = _attn_prefill(h, p["attn"], cfg, kind, positions,
                                       entry["k"][r], entry["v"][r])
@@ -158,6 +173,48 @@ def _decode_gqa(h, p, cfg: ModelConfig, k_cache, v_cache, pos, window):
         causal=True, window=window, softcap=cfg.attn_softcap,
         q_positions=q_pos, kv_positions=kv_pos)
     ctx = ctx.transpose(1, 2).reshape(b, 1, cfg.n_heads * cfg.head_dim)
+    return skewmm.matmul(ctx, p["wo"])
+
+
+def _decode_mla(h, p, cfg: ModelConfig, latent, k_rope, pos):
+    """Absorbed-form MLA decode: scores and values through the latent
+    cache, never the full K / V.  h (B, 1, D); latent (B, L, kvr) and
+    k_rope (B, L, rd), written in place; pos a 0-d int tensor (written at
+    slot pos) or (B,) per-row positions.  The five contractions are fp32,
+    unplanned, as in the JAX engine."""
+    b = h.shape[0]
+    nh, nope, rd = cfg.n_heads, cfg.qk_nope_dim, cfg.qk_rope_dim
+    kvr, vd = cfg.kv_lora_rank, cfg.v_head_dim
+    idx = torch.arange(latent.shape[1], device=h.device)
+    if pos.dim() == 0:
+        pos1 = pos.reshape(1)
+        latent_new, k_rope_new = attn_mod.mla_latent(h, p, cfg, pos1)
+        latent.index_copy_(1, pos1.long(), latent_new)
+        k_rope.index_copy_(1, pos1.long(), k_rope_new)
+        valid = (idx <= pos)[None]                         # (1, L)
+    else:
+        pos1 = pos[:, None]
+        latent_new, k_rope_new = attn_mod.mla_latent(h, p, cfg, pos1)
+        rows = torch.arange(b, device=h.device)
+        latent[rows, pos.long()] = latent_new[:, 0]
+        k_rope[rows, pos.long()] = k_rope_new[:, 0]
+        valid = idx[None, :] <= pos[:, None]               # (B, L)
+    q_nope, q_rope = attn_mod.mla_queries(h, p, cfg, pos1)
+    q_nope, q_rope = q_nope[:, 0].float(), q_rope[:, 0].float()  # (B, H, *)
+    wkv_b = p["wkv_b"].reshape(kvr, nh, nope + vd).float()
+    wk, wv = wkv_b[..., :nope], wkv_b[..., nope:]
+    lat = latent.float()
+    q_lat = torch.einsum("bhn,rhn->bhr", q_nope, wk)       # (B, H, kvr)
+    scores = torch.einsum("bhr,blr->bhl", q_lat, lat)
+    scores = scores + torch.einsum("bhd,bld->bhl", q_rope, k_rope.float())
+    scores = scores * (nope + rd) ** -0.5
+    if cfg.attn_softcap > 0.0:
+        scores = cfg.attn_softcap * torch.tanh(scores / cfg.attn_softcap)
+    scores = torch.where(valid[:, None], scores, -1e30)
+    w = torch.softmax(scores, dim=-1)
+    ctx_lat = torch.einsum("bhl,blr->bhr", w, lat)
+    ctx = torch.einsum("bhr,rhv->bhv", ctx_lat, wv)
+    ctx = ctx.reshape(b, 1, nh * vd).to(h.dtype)
     return skewmm.matmul(ctx, p["wo"])
 
 
@@ -214,6 +271,9 @@ def decode_step(params, cfg: ModelConfig, cache, tokens: torch.Tensor, pos,
                 elif kind == "ssm":
                     h = _decode_ssm(h, p["mixer"], cfg,
                                     _ssm_entry(entry, r))
+                elif cfg.use_mla:
+                    h = _decode_mla(h, p["attn"], cfg, entry["latent"][r],
+                                    entry["k_rope"][r], pos)
                 else:
                     window = (cfg.local_window if kind == "attn_local"
                               else None)

@@ -5,6 +5,8 @@ GQA caches are full (L = max_len) or ring (L = window) k/v tensors shaped
 ``cache[f"stage{si}"][f"b{i}"]["k"]``.  Ring semantics: the token at
 absolute position p lives in slot p % L; slot validity is recovered
 arithmetically from the decode position (scalar, or (B,) per row).
+An MLA block keeps the compressed entries instead: ``latent`` (R, B, L,
+kv_lora_rank) and ``k_rope`` (R, B, L, qk_rope_dim), always full length.
 A recurrent (``rec``) block keeps its fp32 scan state ``lru`` (R, B, W)
 and its conv tail ``conv`` (R, B, K-1, W) of the last K-1 conv inputs.
 A Mamba-2 (``ssm``) block keeps its fp32 SSD state ``state`` (R, B, H, S,
@@ -120,6 +122,9 @@ def init_block_cache(cfg: ModelConfig, kind: str, batch: int, max_len: int,
                 "cb": z(cfg.conv_kernel - 1, gs),
                 "cc": z(cfg.conv_kernel - 1, gs)}
     length = attn_cache_len(cfg, kind, max_len)
+    if cfg.use_mla:
+        return {"latent": z(length, cfg.kv_lora_rank),
+                "k_rope": z(length, cfg.qk_rope_dim)}
     return {"k": z(length, cfg.n_kv_heads, cfg.head_dim),
             "v": z(length, cfg.n_kv_heads, cfg.head_dim)}
 

@@ -524,6 +524,29 @@ def test_flash_attention_bf16_tiles_match_plain(dev, case, s):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("s", [1, 65, 257])
+def test_flash_attention_mla_widths_match_plain(dev, dtype, s):
+    """K7 at MLA's prefill widths: q / k 192 (nope 128 + rope 64), v 128,
+    scale 192^-0.5, read as the model reads them (k the concatenated
+    (B, S, H, 192) keys, v the strided last 128 columns of wkv_b's
+    (B, S, H, 256) output); the output is (B, H, S, 128)."""
+    q = _t((2, s, 8, 192), dtype, dev).transpose(1, 2)
+    k = _t((2, s, 8, 192), dtype, dev).transpose(1, 2)
+    v = _t((2, s, 8, 256), dtype, dev)[..., 128:].transpose(1, 2)
+    kw = dict(scale=192 ** -0.5)
+    fa_mod.LAUNCHES.clear()
+    got = fa_mod.flash_attention(q, k, v, **kw)
+    want = fa_mod.flash_attention_plain(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert fa_mod.LAUNCHES["flash_attention"] == 1
+    assert got.shape == (2, 8, s, 128) and got.dtype == dtype
+    torch.testing.assert_close(got.float(), want.float(), **TOL[dtype])
+    with pytest.raises(ValueError, match="v width"):
+        fa_mod.flash_attention_cuda(q[..., :128], k[..., :128], k)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("length", [1, 37, 300])
 def test_rglru_scan_and_carry_match_plain(dev, dtype, length):
     """K6 at ragged L (no chunk) with its fp32 carry, the gates read

@@ -32,6 +32,7 @@ from repro_torch.core import skewmm
 from repro_torch.core.config import mm_config
 from repro_torch.models import moe
 from repro_torch.models.model import build_model
+from repro_torch.serve import engine
 from repro_torch.sparse.costmodel import SparseMatmulCost
 
 RTOL = ATOL = 1e-5
@@ -138,8 +139,23 @@ def test_forward_hidden_aux_matches_jax():
     assert aux.item() > 0
 
 
-def test_model_refuses_mla():
-    cfg = dataclasses.replace(get_config("dbrx-132b").reduced(),
-                              use_mla=True)
-    with pytest.raises(NotImplementedError, match="MLA"):
-        build_model(cfg, "cpu")
+def test_mla_moe_config_builds_and_serves_one_step():
+    """dbrx's reduced MoE config with MLA attention (deepseek's reduced
+    latent widths) builds, prefills and decodes one step on the CPU, on
+    an MLA cache: finite logits of the vocabulary's width."""
+    ds = get_config("deepseek-v3-671b").reduced()
+    cfg = dataclasses.replace(
+        get_config("dbrx-132b").reduced(), use_mla=True,
+        **{f: getattr(ds, f) for f in ("q_lora_rank", "kv_lora_rank",
+                                       "qk_nope_dim", "qk_rope_dim",
+                                       "v_head_dim")})
+    params = build_model(cfg, "cpu").init(0)
+    toks = torch.tensor(np.random.default_rng(4).integers(
+        0, cfg.vocab_size, (2, 6)))
+    cache, logits = engine.prefill(params, cfg, toks, max_len=8)
+    assert set(cache["stage0"]["b0"]) == {"latent", "k_rope"}
+    logits, cache = engine.decode_step(params, cfg, cache,
+                                       torch.argmax(logits, -1), 6)
+    assert tuple(logits.shape) == (2, cfg.vocab_size)
+    assert bool(torch.isfinite(logits).all())
+    assert bool(cache["stage0"]["b0"]["latent"][:, :, 6].abs().sum() > 0)
