@@ -243,11 +243,35 @@ then deepseek-v3-671b, after command-r's weights are freed:
      (decode rows 8, prefill rows 24; gate / up and down) held against
      their plain versions at phase 3's tolerance, then timed beside their
      bounds and `scaled_dot_product_attention` / `torch.bmm`;
+then internvl2-1b and seamless-m4t-large-v2, after deepseek's weights
+are freed (both front ends stubs: seeded patch / frame embeddings):
+  4j. serve internvl2-1b (the thirteenth main path) — every width and all
+     24 layers (0.99 GB of bf16; a GQA group of 7 at head dim 64, the q /
+     k / v bias, the tied LM head at n 151655): batch 4 x prompt 128 + 16
+     through `serve(cfg=...)` with no prefix, then 256 seeded patch
+     embeddings ahead of the prompt through
+     `engine.prefill(prefix_embeds=)`, decoded through a DecodeGraph at
+     positions offset by 256.  Counts are zeroed before both runs and
+     read after both: K7 24 a prefill, none at decode; each run's graphed
+     decode bitwise equal to eager; the prefill and decode bounds;
+  5j. whole-path parity at full width and all 24 layers, with the prefix;
+  4k. serve seamless-m4t-large-v2 (the fourteenth) — every width and all
+     24 + 24 layers (2.74 GB), batch 4 with 4096 seeded frames, prompt 128
+     + 16 through `serve(cfg=...)` (`serve.encdec_engine`): K7 72 a
+     prefill (24 encoder self, 24 decoder self, 24 cross-attention at 128
+     rows over 4096 columns), none at decode; graphed decode bitwise
+     equal to eager; the encoder's share of a warm prefill's device time;
+  5k. whole-path parity at full width, 2 + 2 layers and all 4096 frames;
+  6j. K7 at the four attention shapes of 4j / 4k (Sq != Skv among them)
+     and K1 at the odd LM heads (4 x 896 x 151655, 4 x 1024 x 256206, E^T,
+     fp32 out; every dense schedule and the split-K plan checked) and
+     their 1-row decode, against their plain versions at phase 3's
+     tolerance, then timed beside their bounds and SDPA / torch.matmul;
   7. the served decode ms per token, graphed and eager, of every run; the
      `kernels` JSON line (K1-K9, K8's three kernels apart, launches summed
-     over the twelve main paths; then phase 6i's five deepseek rows, each
-     with its "shape" and the deepseek path's launches), then the device
-     line.
+     over the fourteen main paths; then phase 6i's five deepseek rows and
+     phase 6j's rows, each with its "shape" and its paths' launches), then
+     the device line.
 Every phase from 3 on runs between two `guard_disarmed` checks: no ladder
 floor above 0, no fault scope or trace armed, and no fallbacks /
 plans_rejected / scrubbed_batches / faults_* / obs_* counter (a trip
@@ -389,6 +413,12 @@ DENSE_RESERVE = 12e9
 # parity to one dense and one MoE layer, its fp32 run's weights made from
 # the bf16 ones in place (both copies, ~82 GB, do not fit side by side).
 DEEPSEEK_LAYERS, DEEPSEEK_PARITY = 5, (2, 1)   # (n_layers, first_k_dense)
+# internvl2-1b: all 24 layers (0.99 GB of bf16) fit; its parity runs whole,
+# with the 256-row prefix (drawn from its own seed).  seamless-m4t-large-v2:
+# all 24 + 24 layers (2.74 GB) fit; its parity keeps 2 + 2 of them and all
+# 4096 frames, so K7's Sq != Skv route is on its path.
+VLM_PREFIX_SEED = 12
+ENCDEC_PARITY_LAYERS = 2
 # serve()'s sampling in every run here; the eager decode that phases 4-4h
 # hold the graphed one against draws from the same seeded sampler.
 SERVE_SEED, SERVE_TEMPERATURE = 0, 0.8
@@ -441,6 +471,12 @@ def phase_build() -> None:
 
 
 # ----------------------------------------------------------------- helpers
+def depth(cfg) -> str:
+    """"L layers", or "E + L layers" for an encoder-decoder."""
+    enc = f"{cfg.enc_layers} + " if cfg.enc_layers else ""
+    return f"{enc}{cfg.n_layers} layers"
+
+
 def rel_err(torch, got, want) -> tuple[float, float]:
     """(max |got - want|, that divided by max |want|)."""
     diff = (got.float() - want.float()).abs().max().item()
@@ -851,11 +887,14 @@ def lm_head_splitk_plan(cfg):
 
 
 def graph_vs_eager(torch, cfg, params, res, batch: int, prompt: int,
-                   gen: int, bitwise: bool) -> dict:
+                   gen: int, bitwise: bool, prefix=None) -> dict:
     """`serve()` decoded through its CUDA graph; decode the same prompt once
     more with an eager loop over `engine.decode_step`: the same prefill,
     the served tokens fed back step by step, and the same seeded sampler
-    choosing a token from each step's logits.
+    choosing a token from each step's logits.  An encoder-decoder takes
+    serve()'s seeded frames and `encdec_engine`; a VLM run served with a
+    `prefix` (`serve_prefix`) is prefilled with it, its positions offset
+    by its length.
 
     bitwise: the eager choices and the first and last decode logits must
     equal the graphed run's bit for bit (the same kernels in the same
@@ -867,14 +906,26 @@ def graph_vs_eager(torch, cfg, params, res, batch: int, prompt: int,
     import numpy as np
 
     from repro_torch.kernels import ops
-    from repro_torch.serve import engine
+    from repro_torch.serve import encdec_engine, engine
 
     rng = np.random.default_rng(SERVE_SEED)
     toks = torch.tensor(rng.integers(0, cfg.vocab_size, (batch, prompt)),
                         dtype=torch.long, device="cuda")
     sampler = torch.Generator(device="cuda")
     sampler.manual_seed(SERVE_SEED + 1)
-    cache, logits = engine.prefill(params, cfg, toks, max_len=prompt + gen)
+    off = 0 if prefix is None else prefix.shape[1]
+    step_fn = engine.decode_step
+    if cfg.family == "encdec":
+        frames = torch.tensor(
+            rng.normal(size=(batch, cfg.frontend_len, cfg.d_model)),
+            dtype=torch.float32, device="cuda")
+        cache, logits = encdec_engine.prefill(params, cfg, frames, toks,
+                                              max_len=prompt + gen)
+        step_fn = encdec_engine.decode_step
+    else:
+        cache, logits = engine.prefill(params, cfg, toks,
+                                       max_len=off + prompt + gen,
+                                       prefix_embeds=prefix)
     served = res["tokens"].to("cuda")
     chosen = [torch.argmax(logits, -1)]
     torch.cuda.synchronize()
@@ -882,8 +933,8 @@ def graph_vs_eager(torch, cfg, params, res, batch: int, prompt: int,
     for i in range(gen):
         if i == 0:
             ops.reset_launch_counts()
-        logits, _ = engine.decode_step(params, cfg, cache, served[:, i],
-                                       prompt + i)
+        logits, _ = step_fn(params, cfg, cache, served[:, i],
+                            off + prompt + i)
         if i == 0:
             step_counts = {k: v for k, v in ops.launch_counts().items() if v}
             first = logits
@@ -898,7 +949,9 @@ def graph_vs_eager(torch, cfg, params, res, batch: int, prompt: int,
     diff = (logits - last).abs()
     rel_max = diff.max().item() / last.abs().max().item()
     rel_mean = diff.mean().item() / last.abs().mean().item()
-    tag = f"{cfg.name} ({cfg.n_layers} layers) b{batch} p{prompt} g{gen}"
+    tag = f"{cfg.name} ({depth(cfg)}) b{batch} p{prompt} g{gen}"
+    if off:
+        tag += f" prefix {off}"
     say(f"graph~eager {tag}: decode {graph_ms:.2f} ms/token graphed, "
         f"{eager_ms:.2f} eager (warm-up and capture "
         f"{res['decode_setup_s'] * 1e3:.1f} ms); tokens equal "
@@ -943,7 +996,8 @@ def _float_in_place(tree):
 
 
 def phase_path_parity(torch, cfg, params, consume: bool = False,
-                      routed_rows: bool = False) -> dict:
+                      routed_rows: bool = False, prefix=None,
+                      frames=None) -> dict:
     """Prefill and first-decode logits: the "cuda" backend against the
     "torch" backend on the same bf16 weights, and both against an fp32 run
     of the same weights (the "torch" backend on fp32 copies; with
@@ -962,17 +1016,21 @@ def phase_path_parity(torch, cfg, params, consume: bool = False,
     expert sets: with 256 experts top-8 that happens to a few of 512
     tokens, and on 4 rows it swings the ratio either way (0.51-2.02 over
     six weight / prompt draws on an H100 80GB HBM3 at 700 W, the torch
-    path as often the worse; 0.99-1.03 on the dense layers alone)."""
+    path as often the worse; 0.99-1.03 on the dense layers alone).
+
+    A VLM takes `prefix` (B, F, D) ahead of the prompt (decode at 128 +
+    F); an encoder-decoder `frames` (B, F, D) through `encdec_engine`."""
     import numpy as np
     from repro_torch.core.config import mm_config
     from repro_torch.models import moe
-    from repro_torch.serve import engine
+    from repro_torch.serve import encdec_engine, engine
 
     rng = np.random.default_rng(0)
     toks = torch.tensor(rng.integers(0, cfg.vocab_size, (4, 128)),
                         dtype=torch.long, device="cuda")
     runs = (("cuda", cfg, params), ("torch", cfg, params),
             ("fp32", dataclasses.replace(cfg, dtype="float32"), None))
+    off = 0 if prefix is None else prefix.shape[1]
     out, routes = {}, {}
     for name, c, p in runs:
         if p is None and consume:
@@ -985,10 +1043,17 @@ def phase_path_parity(torch, cfg, params, consume: bool = False,
             p = _float_tree(params)
         with mm_config(backend="cuda" if name == "cuda" else "torch"), \
                 moe.routing_capture() as log:
-            cache, pre = engine.prefill(p, c, toks, max_len=144)
+            if frames is not None:
+                cache, pre = encdec_engine.prefill(p, c, frames, toks,
+                                                   max_len=144)
+                step_fn = encdec_engine.decode_step
+            else:
+                cache, pre = engine.prefill(p, c, toks, max_len=144 + off,
+                                            prefix_embeds=prefix)
+                step_fn = engine.decode_step
             if name == "cuda":
                 nxt = torch.argmax(pre, -1)
-            dec, _ = engine.decode_step(p, c, cache, nxt, 128)
+            dec, _ = step_fn(p, c, cache, nxt, 128 + off)
         out[name] = (pre, dec)
         routes[name] = [r["experts"] for r in log]
         del cache, p
@@ -1589,6 +1654,19 @@ def layer_serve_bounds(cfg, params, batch: int, prompt: int,
     return pre * 1e3, dec * 1e3
 
 
+def served_cache_bytes(cfg, batch: int, max_len: int) -> int:
+    """Bytes of the decode caches a serve of `cfg` holds (the self and
+    cross caches of an encoder-decoder), sized on the meta device."""
+    from repro_torch.serve import encdec_engine, kvcache
+    if cfg.family == "encdec":
+        return sum(t.numel() * t.element_size()
+                   for t in encdec_engine.init_cache(
+                       cfg, batch, max_len, cfg.frontend_len,
+                       "meta").values())
+    return kvcache.cache_bytes(kvcache.init_cache(cfg, batch, max_len,
+                                                  "meta"))
+
+
 def _leaves(tree):
     if isinstance(tree, (dict, list)):
         for v in (tree.values() if isinstance(tree, dict) else tree):
@@ -1609,7 +1687,6 @@ def serve_runs(torch, cfg, runs, bounds_fn) -> dict:
     from repro_torch.kernels import ops
     from repro_torch.launch import serve as serve_mod
     from repro_torch.models.model import build_model, param_bytes
-    from repro_torch.serve import kvcache
 
     t0 = time.perf_counter()
     params = build_model(cfg, "cuda").init(0)
@@ -1635,10 +1712,10 @@ def serve_runs(torch, cfg, runs, bounds_fn) -> dict:
     for (b, p, g), res in zip(runs, results):
         if not res["logits_finite"]:
             fail(f"{cfg.name} serve b{b} p{p} produced non-finite logits")
-        cb = kvcache.cache_bytes(kvcache.init_cache(cfg, b, p + g, "meta"))
+        cb = served_cache_bytes(cfg, b, p + g)
         pre_b, dec_b = bounds_fn(cfg, params, b, p, cb)
         bounds.append((pre_b, dec_b))
-        say(f"serve {cfg.name} ({cfg.n_layers} layers) b{b} p{p} g{g}: "
+        say(f"serve {cfg.name} ({depth(cfg)}) b{b} p{p} g{g}: "
             f"prefill {res['prefill_s'] * 1e3:.1f} ms (bound {pre_b:.2f} "
             f"ms), decode {res['decode_s_per_token'] * 1e3:.2f} ms/token "
             f"(bound {dec_b:.2f} ms), caches {cb / 1e6:.1f} MB")
@@ -1705,14 +1782,15 @@ def prefill_decode_counts(torch, cfg, params) -> tuple[dict, dict]:
     return per_prefill, ops.launch_counts()
 
 
-def sdpa_call(torch, F, q, k, v, window=None):
+def sdpa_call(torch, F, q, k, v, window=None, causal: bool = True):
     """One `scaled_dot_product_attention` call computing causal GQA
-    attention on q, k, v; with a window shorter than the sequence, through
+    attention on q, k, v (with `causal` False, unmasked, where q's length
+    may differ from k's); with a window shorter than the sequence, through
     a boolean band mask (col <= row, col > row - window) built here, before
     any timing.  Kv heads are expanded beforehand where this PyTorch takes
     no `enable_gqa` (or not with a mask)."""
     s = q.shape[2]
-    kw = dict(is_causal=True)
+    kw = dict(is_causal=causal)
     if window is not None and window < s:
         i = torch.arange(s, device=q.device)
         kw = dict(attn_mask=(i[None, :] <= i[:, None])
@@ -3839,6 +3917,348 @@ def phase_serve_dense(torch, cfg, runs, of_layers: int,
     return out
 
 
+# ----------------------------------------------------------------- VLM
+def seeded_prefix(torch, cfg, batch: int):
+    """The stub frontend's output: (B, frontend_len, D) fp32 patch
+    embeddings drawn from VLM_PREFIX_SEED."""
+    import numpy as np
+    rng = np.random.default_rng(VLM_PREFIX_SEED)
+    return torch.tensor(
+        rng.normal(size=(batch, cfg.frontend_len, cfg.d_model)),
+        dtype=torch.float32, device="cuda")
+
+
+def serve_prefix(torch, cfg, params, prefix, batch: int, prompt: int,
+                 gen: int) -> dict:
+    """`serve()`'s loop with a VLM prefix: serve()'s seeded prompt after
+    `prefix` through `engine.prefill(prefix_embeds=)`, then `gen` tokens
+    decoded through one DecodeGraph at positions offset by the prefix and
+    drawn by serve()'s seeded sampler.  Returns serve()'s keys."""
+    import numpy as np
+
+    from repro_torch.serve import engine, graphs
+
+    off = prefix.shape[1]
+    rng = np.random.default_rng(SERVE_SEED)
+    toks = torch.tensor(rng.integers(0, cfg.vocab_size, (batch, prompt)),
+                        dtype=torch.long, device="cuda")
+    sampler = torch.Generator(device="cuda")
+    sampler.manual_seed(SERVE_SEED + 1)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    cache, logits = engine.prefill(params, cfg, toks,
+                                   max_len=off + prompt + gen,
+                                   prefix_embeds=prefix)
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    finite = torch.isfinite(logits).all()
+    tok = torch.argmax(logits, -1)
+    t0 = time.perf_counter()
+    step = graphs.DecodeGraph(params, cfg, cache, batch)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    out, first = [], None
+    t0 = time.perf_counter()
+    for i in range(gen):
+        out.append(tok)
+        logits = step.step(tok, off + prompt + i)
+        if first is None:
+            first = logits.clone()
+        finite = finite & torch.isfinite(logits).all()
+        probs = torch.softmax(logits / SERVE_TEMPERATURE, dim=-1)
+        tok = torch.multinomial(probs, 1, generator=sampler)[:, 0]
+    last = logits.clone()
+    torch.cuda.synchronize()
+    decode_s = time.perf_counter() - t0
+    return dict(tokens=torch.stack(out, 1).cpu(), first_decode_logits=first,
+                last_decode_logits=last, logits_finite=bool(finite),
+                prefill_s=prefill_s, decode_setup_s=setup_s,
+                decode_warmup_steps=graphs.WARMUP_STEPS,
+                decode_launches_per_step=step.launches_per_step,
+                decode_s_per_token=decode_s / gen)
+
+
+def model_line(cfg, of_layers=None) -> str:
+    layers = f"L={cfg.n_layers}" + (f" (of {of_layers})" if of_layers
+                                    else "")
+    if cfg.enc_layers:
+        layers += f" + {cfg.enc_layers} encoder"
+    return (f"config: {cfg.name} [{cfg.family}] {layers} d={cfg.d_model} "
+            f"H={cfg.n_heads}/{cfg.n_kv_heads} hd={cfg.head_dim} "
+            f"mlp={cfg.mlp_type} ff={cfg.d_ff} V={cfg.vocab_size} "
+            f"pos={cfg.pos_embedding} frontend={cfg.frontend} x "
+            f"{cfg.frontend_len} tied={cfg.tie_embeddings}")
+
+
+def phase_serve_vlm(torch, cfg):
+    """internvl2-1b (the thirteenth main path) at every published width and
+    all 24 layers: b4 p128 g16 through `serve(cfg=...)` with no prefix, as
+    the launcher serves it; then b4 with 256 seeded patch embeddings ahead
+    of p128 through `engine.prefill(prefix_embeds=)` and g16 through a
+    DecodeGraph at positions offset by 256 (`serve_prefix`).  Counts are
+    zeroed before both runs and read after both: K7 24 launches a prefill
+    (a GQA group of 7 at head dim 64) and none at decode, every planned
+    kernel launched (the LM head at n 151655); each run's graphed decode
+    bitwise equal to an eager one."""
+    from repro_torch.core import skewmm
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve as serve_mod
+    from repro_torch.models.model import build_model, param_bytes
+
+    say(model_line(cfg))
+    t0 = time.perf_counter()
+    params = build_model(cfg, "cuda").init(0)
+    torch.cuda.synchronize()
+    pbytes = param_bytes(params)
+    say(f"init {cfg.name}: {pbytes / 1e9:.3f} GB of bf16 weights in "
+        f"{time.perf_counter() - t0:.1f} s")
+    batch, prompt, gen = 4, 128, 16
+    off = cfg.frontend_len
+    prefix = seeded_prefix(torch, cfg, batch)
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    # ---- the main path: counts zeroed above, read right after it.
+    with skewmm.plan_capture() as log:
+        res = serve_mod.serve(cfg=cfg, params=params, batch=batch,
+                              prompt_len=prompt, gen=gen, seed=SERVE_SEED,
+                              temperature=SERVE_TEMPERATURE)
+        res_p = serve_prefix(torch, cfg, params, prefix, batch, prompt, gen)
+    counts = ops.launch_counts()
+    # ---- end of the main path.
+    peak = torch.cuda.max_memory_allocated()
+    bounds = []
+    for tag, r, t in (("no prefix", res, prompt),
+                      (f"prefix {off}", res_p, off + prompt)):
+        if not r["logits_finite"]:
+            fail(f"{cfg.name} serve ({tag}) produced non-finite logits")
+        cb = served_cache_bytes(cfg, batch, t + gen)
+        pre_b, dec_b = layer_serve_bounds(cfg, params, batch, t, cb)
+        bounds.append((pre_b, dec_b))
+        say(f"serve {cfg.name} ({depth(cfg)}) b{batch} p{prompt} "
+            f"g{gen} {tag}: prefill {r['prefill_s'] * 1e3:.1f} ms (bound "
+            f"{pre_b:.3f} ms), decode {r['decode_s_per_token'] * 1e3:.2f} "
+            f"ms/token (bound {dec_b:.3f} ms), KV cache {cb / 1e6:.1f} MB")
+    say(f"serve {cfg.name}: peak memory {peak / 2**30:.2f} GiB of "
+        f"{pbytes / 2**30:.2f} GiB weights")
+    seen = {}
+    for c in log:
+        seen.setdefault(plan_key(c), c)
+    for key, c in seen.items():
+        say(f"plan {key}: {c.explain()}")
+    say(f"launch counts on the {cfg.name} main path: {counts}")
+    if counts["flash_attention"] != 2 * cfg.n_layers:
+        fail(f"K7 launched {counts['flash_attention']} times on the "
+             f"{cfg.name} path, expected {2 * cfg.n_layers} (one per layer "
+             f"of each of 2 prefills)")
+    for r in (res, res_p):
+        if r["decode_launches_per_step"].get("flash_attention", 0):
+            fail(f"{cfg.name}: the decode graph launches K7")
+    for name in sorted(planned_kernels(log) | {"flash_attention"}):
+        if counts.get(name, 0) <= 0:
+            fail(f"kernel {name} was not launched on the {cfg.name} path")
+    say(f"K7 launches: {cfg.n_layers} per prefill (2 prefills, one with "
+        f"the {off}-row prefix), 0 per decode step")
+    graph = [graph_vs_eager(torch, cfg, params, res, batch, prompt, gen,
+                            bitwise=True),
+             graph_vs_eager(torch, cfg, params, res_p, batch, prompt, gen,
+                            bitwise=True, prefix=prefix)]
+    if "--profile" in sys.argv[1:]:
+        profile_steps(torch, cfg, params)
+    return {"serve": [res, res_p], "peak": peak, "bounds": bounds,
+            "params": params, "params_bytes": pbytes, "counts": counts,
+            "graph": graph, "prefix": prefix}
+
+
+# ----------------------------------------------------------------- enc-dec
+def seeded_frames(torch, cfg, batch: int, prompt: int):
+    """serve()'s seeded prompt and the frames it draws after it."""
+    import numpy as np
+    rng = np.random.default_rng(SERVE_SEED)
+    toks = torch.tensor(rng.integers(0, cfg.vocab_size, (batch, prompt)),
+                        dtype=torch.long, device="cuda")
+    frames = torch.tensor(
+        rng.normal(size=(batch, cfg.frontend_len, cfg.d_model)),
+        dtype=torch.float32, device="cuda")
+    return toks, frames
+
+
+def encdec_serve_bounds(cfg, params, batch: int, prompt: int,
+                        kv_bytes: int) -> tuple[float, float]:
+    """(prefill bound ms, decode bound ms per token) of the encoder-decoder
+    serve.
+
+    Bytes: at prefill every weight once (the tied embedding is the LM
+    head); at decode the decoder's weights but its cross-attention wk / wv
+    (their k / v are cached), the embedding as the LM head, and the self
+    and cross caches.  Operations: 2 per token and weight of every matrix
+    (the encoder's and the cross wk / wv over the B x F frames, the rest
+    of the decoder over the prompt), attention's 4 * hd per (row, col)
+    pair and head (every pair of the encoder and of the cross-attention,
+    the decoder's causal pairs), and the LM head on the last positions."""
+    from repro_torch.models.model import param_bytes
+    d, v, hd, h = cfg.d_model, cfg.vocab_size, cfg.head_dim, cfg.n_heads
+    f = cfg.frontend_len
+
+    def mats(tree):
+        return sum(t.numel() for t in _leaves(tree) if t.dim() >= 2)
+
+    enc_w = sum(mats(p) for p in params["enc"])
+    xkv_w = sum(p["xattn"]["wk"].numel() + p["xattn"]["wv"].numel()
+                for p in params["dec"])
+    dec_w = sum(mats(p) for p in params["dec"]) - xkv_w
+    att = 4 * hd * h * batch
+    pre_ops = (2 * batch * f * (enc_w + xkv_w) + 2 * batch * prompt * dec_w
+               + 2 * batch * d * v
+               + att * (cfg.enc_layers * f * f + cfg.n_layers * (
+                   visible_pairs(prompt, None) + prompt * f)))
+    dec_ops = (2 * batch * (dec_w + d * v)
+               + att * cfg.n_layers * (prompt + 1 + f))
+    esize = params["embed"].element_size()
+    dec_bytes = (param_bytes(params["dec"]) - xkv_w * esize
+                 + param_bytes(params["embed"]) + kv_bytes)
+    pre = max(pre_ops / PEAK_BF16, param_bytes(params) / HBM_BW)
+    dec = max(dec_ops / PEAK_BF16, dec_bytes / HBM_BW)
+    return pre * 1e3, dec * 1e3
+
+
+def phase_serve_encdec(torch, cfg):
+    """seamless-m4t-large-v2 (the fourteenth main path) at every published
+    width and all 24 + 24 layers: b4 with 4096 seeded frames, p128 g16
+    through `serve(cfg=...)` (`serve_runs`).  K7 launches 72 times a
+    prefill (24 encoder self, 24 decoder self, 24 cross-attention at 128
+    rows over 4096 frames) and never at decode; graphed decode bitwise
+    equal to eager.  Then the encoder's share of a warm prefill's device
+    time (CUDA events)."""
+    from repro_torch.models import encdec
+    from repro_torch.serve import encdec_engine
+
+    say(model_line(cfg))
+    batch, prompt, gen = 4, 128, 16
+    out = serve_runs(torch, cfg, ((batch, prompt, gen),),
+                     encdec_serve_bounds)
+    counts = out["counts"]
+    want = cfg.enc_layers + 2 * cfg.n_layers
+    if counts["flash_attention"] != want:
+        fail(f"K7 launched {counts['flash_attention']} times on the "
+             f"{cfg.name} path, expected {want} ({cfg.enc_layers} encoder "
+             f"self, {cfg.n_layers} decoder self and {cfg.n_layers} cross "
+             f"per prefill)")
+    if out["serve"][0]["decode_launches_per_step"].get("flash_attention", 0):
+        fail(f"{cfg.name}: the decode graph launches K7")
+    say(f"K7 launches: {want} per prefill ({cfg.enc_layers} encoder self at "
+        f"{cfg.frontend_len}^2, {cfg.n_layers} decoder self at {prompt}^2, "
+        f"{cfg.n_layers} cross at {prompt} x {cfg.frontend_len}), 0 per "
+        f"decode step")
+    params = out["params"]
+    toks, frames = seeded_frames(torch, cfg, batch, prompt)
+    enc_ms = time_ms(torch, lambda: encdec.encode(params, cfg, frames),
+                     iters=3, warmup=1)
+    pre_ms = time_ms(torch, lambda: encdec_engine.prefill(
+        params, cfg, frames, toks, max_len=prompt + gen), iters=3, warmup=1)
+    out["encoder_ms"], out["prefill_ms"] = enc_ms, pre_ms
+    say(f"{cfg.name}: warm prefill b{batch} F{cfg.frontend_len} p{prompt} "
+        f"{pre_ms:.2f} ms of device time (CUDA events), the encoder "
+        f"{enc_ms:.2f} ms of it: {100 * enc_ms / pre_ms:.1f}%")
+    if "--profile" in sys.argv[1:]:
+        profile_steps(torch, cfg, params)
+    return out
+
+
+def encdec_parity_params(params, n: int) -> dict:
+    """The first `n` encoder and `n` decoder layers of an encoder-decoder
+    parameter tree, sharing its tensors."""
+    return dict(params, enc=params["enc"][:n], dec=params["dec"][:n])
+
+
+def phase_timings_vlm_encdec(torch, vcfg, vparams, ecfg, eparams, counts,
+                             errs) -> list[dict]:
+    """K7 at the four attention shapes of the two paths (internvl2-1b's
+    prefill, 4 x 14 / 2 heads x 384 x 64 causal; seamless-m4t's encoder,
+    4 x 16 x 4096 x 64, and decoder self, 4 x 16 x 128 x 64 causal; its
+    cross-attention, 128 rows over 4096 columns, not causal) and K1 at
+    the two odd LM heads (4 x 896 x 151655 and 4 x 1024 x 256206 against
+    the served E^T, bf16 in, fp32 out) and their 1-row decode: each held
+    against its plain version at phase 3's tolerance (at the heads every
+    dense schedule and the planner's split-K plan, K3 + K4), then timed
+    beside its plain version, its bound and `scaled_dot_product_attention`
+    / `torch.matmul` on the same inputs."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import skew_matmul as mm
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(95)
+    check = functools.partial(check_kernel, torch, errs)
+    row = functools.partial(timing_row, torch, counts, errs)
+    bf, fp = torch.bfloat16, torch.float32
+    rows = []
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=gen, device="cuda").to(bf)
+
+    d = vcfg.head_dim
+    fa_shapes = [
+        (f"{vcfg.name} prefill", 4, vcfg.n_heads, vcfg.n_kv_heads,
+         vcfg.frontend_len + 128, vcfg.frontend_len + 128, True),
+        (f"{ecfg.name} encoder", 4, ecfg.n_heads, ecfg.n_kv_heads,
+         ecfg.frontend_len, ecfg.frontend_len, False),
+        (f"{ecfg.name} decoder self", 4, ecfg.n_heads, ecfg.n_kv_heads, 128,
+         128, True),
+        (f"{ecfg.name} cross", 4, ecfg.n_heads, ecfg.n_heads, 128,
+         ecfg.frontend_len, False)]
+    for label, b, hq, hkv, sq, skv, causal in fa_shapes:
+        q = rnd(b, sq, hq, d).transpose(1, 2)
+        k = rnd(b, skv, hkv, d).transpose(1, 2)
+        v = rnd(b, skv, hkv, d).transpose(1, 2)
+        shape = (f"{label} {b}x{hq}/{hkv}x{sq}x{skv}x{d} "
+                 f"{'causal' if causal else 'full'}")
+        check("flash_attention", fa.flash_attention_cuda(q, k, v,
+                                                         causal=causal),
+              fa.flash_attention_plain(q, k, v, causal=causal), bf, shape)
+        pairs = visible_pairs(sq, None) if causal else sq * skv
+        rows.append(row(
+            "flash_attention",
+            lambda q=q, k=k, v=v, c=causal: fa.flash_attention_cuda(
+                q, k, v, causal=c),
+            lambda q=q, k=k, v=v, c=causal: fa.flash_attention_plain(
+                q, k, v, causal=c),
+            sdpa_call(torch, F, q, k, v, causal=causal),
+            2 * (2 * q.numel() + k.numel() + v.numel()),
+            4 * d * hq * b * pairs, shape))
+        del q, k, v
+    torch.cuda.empty_cache()
+
+    for cfg, params in ((vcfg, vparams), (ecfg, eparams)):
+        dm, n = cfg.d_model, cfg.vocab_size
+        emb_t = params["embed"].T
+        for m in (4, 1):
+            h = rnd(m, dm)
+            tag = f"{cfg.name} LM head {m}x{dm}x{n} E^T bf16->fp32"
+            want = mm.skew_matmul_plain(h, emb_t, bk=64, out_dtype=fp)
+            for sched in ("k_inner", "a_resident", "b_resident"):
+                check(f"skew_matmul_{sched}", mm.skew_matmul_cuda(
+                    h, emb_t, bm=64, bk=64, bn=128, schedule=sched,
+                    out_dtype=fp), want, fp, f"{tag} {sched}")
+            sk = splitk_plan(m, dm, n, 2)
+            check("gemv_splitk_reduce", ops.skew_matmul(
+                h, emb_t, plan=sk, out_dtype=fp), want, fp,
+                f"{tag} split-K {(sk.bm, sk.bk, sk.bn)}")
+            rows.append(row(
+                "skew_matmul_k_inner",
+                lambda h=h, e=emb_t: mm.skew_matmul_cuda(
+                    h, e, bm=64, bk=64, bn=128, out_dtype=fp),
+                lambda h=h, e=emb_t: mm.skew_matmul_plain(h, e, bk=64,
+                                                          out_dtype=fp),
+                lambda h=h, e=emb_t: torch.matmul(h, e),
+                m * dm * 2 + dm * n * 2 + m * n * 4, 2 * m * dm * n,
+                f"{tag} (64, 64, 128)"))
+            del want
+    torch.cuda.empty_cache()
+    return rows
+
+
 # ----------------------------------------------------------------- --profile
 def profile_steps(torch, cfg, params) -> None:
     """torch.profiler over one prefill and one decode step (batch 4): device
@@ -3847,11 +4267,24 @@ def profile_steps(torch, cfg, params) -> None:
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    from repro_torch.serve import engine, graphs
+    from repro_torch.serve import encdec_engine, engine, graphs
     toks = torch.randint(0, cfg.vocab_size, (4, 128), device="cuda")
-    cache, logits = engine.prefill(params, cfg, toks, max_len=144)
+    if cfg.family == "encdec":
+        frames = torch.randn((4, cfg.frontend_len, cfg.d_model),
+                             device="cuda")
+        step_fn = encdec_engine.decode_step
+
+        def prefill():
+            return encdec_engine.prefill(params, cfg, frames, toks,
+                                         max_len=144)
+    else:
+        step_fn = engine.decode_step
+
+        def prefill():
+            return engine.prefill(params, cfg, toks, max_len=144)
+    cache, logits = prefill()
     nxt = torch.argmax(logits, -1)
-    engine.decode_step(params, cfg, cache, nxt, 128)
+    step_fn(params, cfg, cache, nxt, 128)
     graph = graphs.DecodeGraph(params, cfg, cache, 4)
     graph.step(nxt, 129)
     torch.cuda.synchronize()
@@ -3860,9 +4293,9 @@ def profile_steps(torch, cfg, params) -> None:
                                  ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
             if what == "prefill":
-                engine.prefill(params, cfg, toks, max_len=144)
+                prefill()
             elif what == "decode":
-                engine.decode_step(params, cfg, cache, nxt, 130)
+                step_fn(params, cfg, cache, nxt, 130)
             else:
                 graph.step(nxt, 131)
             torch.cuda.synchronize()
@@ -4042,24 +4475,51 @@ def main() -> None:
                        mla_path["counts"], errs)
     torch.cuda.empty_cache()
 
+    # internvl2-1b whole, without and with its patch prefix; then
+    # seamless-m4t-large-v2 whole, its parity at 2 + 2 layers.
+    vcfg = get_config("internvl2-1b")
+    vlm_path = guarded("phase 4j", phase_serve_vlm, torch, vcfg)
+    guarded("phase 5j", phase_path_parity, torch, vcfg, vlm_path["params"],
+            prefix=vlm_path.pop("prefix"))
+    torch.cuda.empty_cache()
+    ecfg = get_config("seamless-m4t-large-v2")
+    ed_path = guarded("phase 4k", phase_serve_encdec, torch, ecfg)
+    n_ed = ENCDEC_PARITY_LAYERS
+    _, frames = seeded_frames(torch, ecfg, 4, 128)
+    guarded("phase 5k", phase_path_parity, torch, dataclasses.replace(
+        ecfg, n_layers=n_ed, enc_layers=n_ed),
+        encdec_parity_params(ed_path["params"], n_ed), frames=frames)
+    del frames
+    torch.cuda.empty_cache()
+    jk_counts = {n: vlm_path["counts"].get(n, 0) + ed_path["counts"].get(n, 0)
+                 for n in KERNELS}
+    jk_rows = guarded("phase 6j", phase_timings_vlm_encdec, torch, vcfg,
+                      vlm_path.pop("params"), ecfg, ed_path.pop("params"),
+                      jk_counts, errs)
+    torch.cuda.empty_cache()
+
     say("served decode, ms per token (host clock): " + "; ".join(
         f"{g['tag']} graphed {g['graph_ms']:.2f} eager {g['eager_ms']:.2f}"
         for path in (phi4_graph, moe_path, hyb_path, ssm_path, gemma_path,
-                     granite_path, cr_path, mla_path)
+                     granite_path, cr_path, mla_path, vlm_path, ed_path)
         for g in (path if isinstance(path, list) else path["graph"])))
 
     # One entry per kernel for the contract line (the LM-head shape for
     # K1-K4, the dbrx decode gate/up shape for K5, recurrentgemma's batch-4
     # prefill for K6 and K7, mamba2's for K8, the tuner's 4096^2 (32, 128)
     # d 0.25 layout for K9), then deepseek's rows of phase 6i (K7 at MLA's
-    # 192 / 128 widths, K5 at 256 groups) with their "shape"; the other
-    # shapes are in the log above.  Launches: summed over the twelve main
-    # paths; a deepseek row's are those of the deepseek path.
+    # 192 / 128 widths, K5 at 256 groups) and phase 6j's rows (K7 at the
+    # VLM and encoder-decoder shapes, Sq != Skv among them, and K1 at the
+    # odd LM heads) with their "shape"; the other shapes are in the log
+    # above.  Launches: summed over the fourteen main paths; a deepseek
+    # row's are those of the deepseek path, a phase 6j row's those of the
+    # internvl2-1b and seamless-m4t paths.
     launches = {n: sum(c.get(n, 0) for c in (
         phi4_counts, moe_path["counts"], hyb_path["counts"],
         ssm_path["counts"], tune_path["counts"], fig5_path["counts"],
         gemma_path["counts"], granite_path["counts"], cr_path["counts"],
-        guard_path["counts"], sched_path["counts"], mla_path["counts"]))
+        guard_path["counts"], sched_path["counts"], mla_path["counts"],
+        vlm_path["counts"], ed_path["counts"]))
         for n in KERNELS}
     first = {}
     for r in rows:
@@ -4068,7 +4528,7 @@ def main() -> None:
                for r in first.values()]
     for r in kernels:
         r["launches"] = int(launches[r["name"]])
-    kernels += mla_rows
+    kernels += mla_rows + jk_rows
     for r in kernels:
         for key in ("ms", "plain_ms", "bound_ms"):
             if not (isinstance(r[key], float) and math.isfinite(r[key])):

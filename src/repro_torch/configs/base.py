@@ -3,11 +3,12 @@
 One `ModelConfig` describes any member of the zoo (dense / MoE / SSM / hybrid
 / enc-dec / VLM).  Each ported architecture gets a module under
 `repro_torch.configs` registering its exact published config; `reduced()`
-derives the same-family smoke-test config.  The port registers the archs
-it can run (the dense GQA archs, MoE with GQA or MLA attention, the
-RG-LRU hybrid, the Mamba-2 SSM and the paper's bare-matmul config); the
-dataclass keeps every field so configs stay field-for-field comparable
-with the JAX package's.
+derives the same-family smoke-test config.  The port registers every
+arch of the JAX package (the dense GQA archs, MoE with GQA or MLA
+attention, the RG-LRU hybrid, the Mamba-2 SSM, the VLM backbone, the
+encoder-decoder and the paper's bare-matmul config); the dataclass keeps
+every field so configs stay field-for-field comparable with the JAX
+package's.
 """
 
 from __future__ import annotations
@@ -20,7 +21,8 @@ _REGISTRY: dict[str, Callable[[], "ModelConfig"]] = {}
 
 ARCH_IDS = ["phi4-mini-3.8b", "gemma2-27b", "granite-34b", "command-r-35b",
             "dbrx-132b", "deepseek-v3-671b", "recurrentgemma-9b",
-            "mamba2-2.7b", "paper-skewmm"]
+            "mamba2-2.7b", "internvl2-1b", "seamless-m4t-large-v2",
+            "paper-skewmm"]
 
 _MODULE_FOR = {
     "phi4-mini-3.8b": "phi4_mini_3p8b",
@@ -31,6 +33,8 @@ _MODULE_FOR = {
     "deepseek-v3-671b": "deepseek_v3_671b",
     "recurrentgemma-9b": "recurrentgemma_9b",
     "mamba2-2.7b": "mamba2_2p7b",
+    "internvl2-1b": "internvl2_1b",
+    "seamless-m4t-large-v2": "seamless_m4t_large_v2",
     "paper-skewmm": "paper_skewmm",
 }
 

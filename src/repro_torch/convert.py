@@ -1,12 +1,13 @@
 """Carry the JAX package's parameters over to the port.
 
 The JAX LM stacks each stage's repeating units along a leading layer axis
-(``params["stage{si}"]``, one array per leaf with R rows).  The port keeps
-a list of per-layer unit dicts instead.  `params_from_numpy` takes the JAX
-parameter tree with its leaves already turned into numpy arrays (for
-example ``jax.tree.map(np.asarray, params)``) and returns the port's
-parameters on `device` (the card unless told otherwise), so both packages
-compute with the same weights.
+(``params["stage{si}"]``, one array per leaf with R rows), and the
+encoder-decoder its encoder and decoder blocks (``params["enc"]`` /
+``params["dec"]``).  The port keeps a list of per-layer dicts instead.
+`params_from_numpy` takes the JAX parameter tree with its leaves already
+turned into numpy arrays (for example ``jax.tree.map(np.asarray,
+params)``) and returns the port's parameters on `device` (the card unless
+told otherwise), so both packages compute with the same weights.
 
 Every leaf keeps its dtype: an MoE block's ``(R, E, D, F)`` expert stacks
 become ``(E, D, F)`` per layer, and its router stays fp32 in a bf16 model;
@@ -58,7 +59,7 @@ def params_from_numpy(tree: dict, device=None) -> dict:
     device = resolve_device(device)
     out: dict = {}
     for key, value in tree.items():
-        if key.startswith("stage"):
+        if key.startswith("stage") or key in ("enc", "dec"):
             out[key] = [_map(_unstack(value, r), lambda x: _tensor(x, device))
                         for r in range(_rows(value))]
         elif isinstance(value, dict):

@@ -399,12 +399,13 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     softcap: float = 0.0, scale: float | None = None,
                     bq: int | None = None,
                     bkv: int | None = None) -> torch.Tensor:
-    """Prefill attention.  q (B, Hq, S, D), k (B, Hkv, S, D), v (B, Hkv, S,
-    Dv), Dv <= D -> (B, Hq, S, Dv): K7 on a CUDA tensor, its plain version
-    on a CPU tensor.
-    Rows and columns are positions 0..S-1.  Tiles default to the kernel's
-    choice for the head dim (`flash_attention.tiles`); S need not divide
-    them."""
+    """Prefill attention.  q (B, Hq, Sq, D), k (B, Hkv, Skv, D), v (B, Hkv,
+    Skv, Dv), Dv <= D -> (B, Hq, Sq, Dv): K7 on a CUDA tensor, its plain
+    version on a CPU tensor.
+    Rows are positions 0..Sq-1 and columns 0..Skv-1, so a causal or
+    windowed call needs Sq == Skv; with neither, Sq may differ from Skv
+    (cross-attention).  Tiles default to the kernel's choice for the head
+    dim (`flash_attention.tiles`); Sq and Skv need not divide them."""
     return _fa.flash_attention(q, k, v, causal=causal, window=window,
                                softcap=softcap, scale=scale, bq=bq, bkv=bkv)
 

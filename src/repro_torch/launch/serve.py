@@ -3,10 +3,14 @@
   PYTHONPATH=src python -m repro_torch.launch.serve --arch phi4-mini-3.8b \
       --batch 4 --prompt-len 128 --gen 16
 
-``--arch`` takes every ported config: phi4-mini-3.8b, gemma2-27b,
-granite-34b, command-r-35b, dbrx-132b, deepseek-v3-671b,
-recurrentgemma-9b, mamba2-2.7b and paper-skewmm (``--reduced`` for the
-small config).
+``--arch`` takes every config of the registry: phi4-mini-3.8b,
+gemma2-27b, granite-34b, command-r-35b, dbrx-132b, deepseek-v3-671b,
+recurrentgemma-9b, mamba2-2.7b, internvl2-1b, seamless-m4t-large-v2 and
+paper-skewmm (``--reduced`` for the small config).  internvl2-1b is
+served without an image prefix, as the JAX launcher serves it (the
+prefix goes through `engine.prefill(prefix_embeds=)`); seamless-m4t's
+encoder takes ``frontend_len`` seeded frame embeddings in its stub
+frontend's place and `serve.encdec_engine` serves it.
 
 Runs on the CUDA card unless ``--device cpu`` is given.  The published
 weights are not in the repository: weights are drawn from ``--seed``.
@@ -27,7 +31,7 @@ import torch
 from repro_torch.configs.base import get_config
 from repro_torch.core import config as mmcfg
 from repro_torch.models.model import build_model
-from repro_torch.serve import engine, graphs
+from repro_torch.serve import encdec_engine, engine, graphs
 
 
 def _sync(dev: torch.device) -> None:
@@ -59,12 +63,21 @@ def serve(arch: str = "phi4-mini-3.8b", *, reduced: bool = False,
     rng = np.random.default_rng(seed)
     toks = torch.tensor(rng.integers(0, cfg.vocab_size, (batch, prompt_len)),
                         dtype=torch.long, device=dev)
+    frames = None
+    if cfg.family == "encdec":
+        frames = torch.tensor(
+            rng.normal(size=(batch, cfg.frontend_len, cfg.d_model)),
+            dtype=torch.float32, device=dev)
     sampler = torch.Generator(device=dev)
     sampler.manual_seed(seed + 1)
 
     _sync(dev)
     t0 = time.perf_counter()
-    cache, logits = engine.prefill(params, cfg, toks, max_len=max_len)
+    if frames is not None:
+        cache, logits = encdec_engine.prefill(params, cfg, frames, toks,
+                                              max_len=max_len)
+    else:
+        cache, logits = engine.prefill(params, cfg, toks, max_len=max_len)
     _sync(dev)
     prefill_s = time.perf_counter() - t0
     prefill_logits = logits

@@ -1,4 +1,5 @@
-"""Attention sublayers: GQA (the dense archs) and MLA (deepseek-v3).
+"""Attention sublayers: GQA (the dense archs), MLA (deepseek-v3) and the
+encoder-decoder's cross-attention route.
 
 Prefill attention runs K7 (`ops.flash_attention`) under the "cuda" backend
 and `blockwise_attention` under "torch"; decode attention lives in
@@ -70,6 +71,26 @@ def sequence_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             qt, kt, vt, causal=causal, window=window,
             softcap=cfg.attn_softcap, q_positions=positions,
             kv_positions=positions)
+    return ctx.transpose(1, 2).reshape(b, s, cfg.n_heads * cfg.head_dim)
+
+
+def cross_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    cfg) -> torch.Tensor:
+    """Attention of Sq query rows over Skv other positions, no mask and
+    no softcap: q (B, Sq, H, hd), k / v (B, Skv, KV, hd) -> ctx (B, Sq,
+    H * hd).
+
+    The sibling of `sequence_attention` for the encoder-decoder's
+    cross-attention, where Sq != Skv.  With no causal mask or window,
+    K7's columns indexed from 0 are exact, so the "cuda" backend runs
+    `ops.flash_attention(causal=False)`; "torch" keeps
+    `blockwise_attention`, as the JAX package does."""
+    b, s = q.shape[:2]
+    qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+    if config.resolve().backend == "cuda":
+        ctx = ops.flash_attention(qt, kt, vt, causal=False)
+    else:
+        ctx = layers.blockwise_attention(qt, kt, vt, causal=False)
     return ctx.transpose(1, 2).reshape(b, s, cfg.n_heads * cfg.head_dim)
 
 

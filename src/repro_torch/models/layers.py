@@ -66,6 +66,28 @@ def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor
     return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
 
 
+def sinusoidal_pos(positions: torch.Tensor, d: int) -> torch.Tensor:
+    """positions (...) -> (..., d) fp32: [sin | cos] of position times
+    10000^(-i / (d/2)).  The fp32 exponent is raised in fp64 and rounded
+    once, so each frequency is the correctly rounded fp32 value (fp32
+    `pow` may land an ulp off, which a position of 4096 turns into 1e-4
+    of the angle)."""
+    half = d // 2
+    expo = -torch.arange(half, dtype=torch.float32,
+                         device=positions.device) / half
+    inv = (10000.0 ** expo.double()).float()
+    ang = positions.float()[..., None] * inv
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)
+
+
+def add_pos(x: torch.Tensor, cfg, positions: torch.Tensor) -> torch.Tensor:
+    """x (B, S, D) plus the sinusoidal table at `positions` ((S,), or (B,
+    S) per row) where the config uses one; x itself otherwise."""
+    if cfg.pos_embedding != "sinusoidal":
+        return x
+    return x + sinusoidal_pos(positions, cfg.d_model).to(x.dtype)
+
+
 # ------------------------------------------------------------------ MLP
 def init_mlp(gen, cfg, device, d_ff: int | None = None) -> dict:
     d, f = cfg.d_model, d_ff or cfg.d_ff

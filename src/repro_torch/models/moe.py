@@ -76,6 +76,8 @@ def init_moe(gen: torch.Generator, cfg, device) -> dict:
 
     def stack_init(d_in, d_out):
         w = torch.empty((e, d_in, d_out), dtype=dt, device=device)
+        if w.is_meta:           # shapes only: no draws to order
+            return w
         for i in range(e):
             w[i] = linear_init(gen, d_in, d_out, dt, device)
         return w

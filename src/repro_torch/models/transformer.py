@@ -61,14 +61,25 @@ def embed_tokens(params, cfg, tokens: torch.Tensor) -> torch.Tensor:
     return x
 
 
-def forward_hidden(params, cfg, tokens: torch.Tensor
-                   ) -> tuple[torch.Tensor, torch.Tensor]:
-    """tokens (B, S) -> (hidden (B, S, D) after the final norm, the summed
-    MoE aux loss, fp32 scalar)."""
-    if cfg.pos_embedding != "rope":
-        raise NotImplementedError("only rope position embeddings are ported")
+def embed_inputs(params, cfg, tokens: torch.Tensor,
+                 prefix_embeds: torch.Tensor | None = None):
+    """tokens (B, S) [+ prefix_embeds (B, F, D), cast to the model dtype
+    and put ahead of the tokens] -> (x (B, T, D), positions 0..T-1), with
+    the sinusoidal table added where the config uses one."""
     x = embed_tokens(params, cfg, tokens)
+    if prefix_embeds is not None:
+        x = torch.cat([prefix_embeds.to(x.dtype), x], dim=1)
     positions = torch.arange(x.shape[1], dtype=torch.int32, device=x.device)
+    return layers.add_pos(x, cfg, positions), positions
+
+
+def forward_hidden(params, cfg, tokens: torch.Tensor, *,
+                   prefix_embeds: torch.Tensor | None = None
+                   ) -> tuple[torch.Tensor, torch.Tensor]:
+    """tokens (B, S) [+ a VLM's prefix_embeds (B, F, D)] -> (hidden (B, T,
+    D) after the final norm, T = F + S, the summed MoE aux loss, fp32
+    scalar)."""
+    x, positions = embed_inputs(params, cfg, tokens, prefix_embeds)
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     for kind, p, _, r, _ in layer_iter(params, cfg):
         with stage_trace.repeat(r):

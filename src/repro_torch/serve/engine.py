@@ -1,6 +1,9 @@
 """Serving engine: prefill + single-token decode for the GQA and MLA archs,
 with a dense or an MoE FFN, for the RG-LRU hybrid (recurrent and local
-attention blocks) and for the Mamba-2 SSM (mixer-only blocks, no FFN).
+attention blocks), for the Mamba-2 SSM (mixer-only blocks, no FFN) and
+for the VLM backbone (`prefill(prefix_embeds=)` puts the stub frontend's
+patch embeddings ahead of the prompt; decode positions count them).  The
+encoder-decoder has its own engine, `serve.encdec_engine`.
 
 `prefill` runs the full-sequence forward while filling the cache;
 `decode_step` advances one token against it.  Unlike the JAX package's
@@ -48,11 +51,9 @@ from repro_torch.serve import kvcache
 
 
 def _check(cfg: ModelConfig) -> None:
-    if (cfg.family not in ("dense", "moe", "hybrid", "ssm")
-            or cfg.pos_embedding != "rope"):
-        raise NotImplementedError(
-            f"{cfg.name}: only dense, MoE and RG-LRU hybrid archs with "
-            f"rope, and the Mamba-2 SSM, are ported")
+    if cfg.family == "encdec":
+        raise ValueError(f"{cfg.name} is an encoder-decoder: serve it "
+                         f"through serve.encdec_engine")
 
 
 def _attn_prefill(h, p, cfg, kind, positions, k_dst, v_dst):
@@ -107,19 +108,21 @@ def _ffn(x, p, cfg, kind):
 
 @torch.no_grad()
 def prefill(params, cfg: ModelConfig, tokens: torch.Tensor, *, max_len: int,
+            prefix_embeds: torch.Tensor | None = None,
             last_index: torch.Tensor | None = None,
             mm: mmcfg.MatmulConfig | None = None):
-    """tokens (B, S) -> (cache, last-position logits (B, V) fp32).
+    """tokens (B, S) [+ prefix_embeds (B, F, D)] -> (cache, last-position
+    logits (B, V) fp32).
 
-    The cache is sized for max_len with positions [0, S) filled.
+    The cache is sized for max_len with positions [0, F + S) filled.
     `last_index` (B,) selects a per-row logit position (right-padded
     prompts).  `mm` scopes a matmul configuration over the prefill.
     """
     _check(cfg)
     with mmcfg.scope(mm):
-        b, s = tokens.shape
-        x = transformer.embed_tokens(params, cfg, tokens)
-        positions = torch.arange(s, dtype=torch.int32, device=x.device)
+        b = tokens.shape[0]
+        x, positions = transformer.embed_inputs(params, cfg, tokens,
+                                                prefix_embeds)
         cache = kvcache.init_cache(cfg, b, max_len, x.device)
         for kind, p, si, r, i in transformer.layer_iter(params, cfg):
             entry = cache[f"stage{si}"][f"b{i}"]
@@ -261,6 +264,7 @@ def decode_step(params, cfg: ModelConfig, cache, tokens: torch.Tensor, pos,
     with mmcfg.scope(mm):
         x = transformer.embed_tokens(params, cfg, tokens[:, None])
         pos = torch.as_tensor(pos, dtype=torch.int32, device=x.device)
+        x = layers.add_pos(x, cfg, pos.reshape(-1, 1))
         for kind, p, si, r, i in transformer.layer_iter(params, cfg):
             entry = cache[f"stage{si}"][f"b{i}"]
             with stage_trace.repeat(r):

@@ -2,8 +2,9 @@
 that the JAX launcher puts over `engine.decode_step`.
 
 `DecodeGraph(params, cfg, cache, batch)` captures one `engine.decode_step`
-into a `torch.cuda.CUDAGraph` against the served cache, once per (model,
-batch, cache length), and replays it for every token.  `step(tok, pos)`
+(`encdec_engine.decode_step` for an encoder-decoder) into a
+`torch.cuda.CUDAGraph` against the served cache, once per (model, batch,
+cache length), and replays it for every token.  `step(tok, pos)`
 copies the tokens and the position into static device tensors, replays
 the graph and returns the static logits (B, V) fp32; the caller consumes
 them before the next step.  A replay runs the hand-written kernels that an
@@ -49,7 +50,7 @@ from repro_torch.core import stage_trace
 from repro_torch.guard import health
 from repro_torch.kernels import ops
 from repro_torch.obs.metrics import REGISTRY
-from repro_torch.serve import engine
+from repro_torch.serve import encdec_engine, engine
 
 WARMUP_STEPS = 1
 
@@ -123,8 +124,10 @@ class DecodeGraph:
                               if v != host.get(name, 0)}
 
     def _run(self, cache) -> torch.Tensor:
-        logits, _ = engine.decode_step(self.params, self.cfg, cache,
-                                       self.tok, self.pos, mm=self.mm)
+        step = (encdec_engine.decode_step if self.cfg.family == "encdec"
+                else engine.decode_step)
+        logits, _ = step(self.params, self.cfg, cache, self.tok, self.pos,
+                         mm=self.mm)
         return logits
 
     @property

@@ -110,6 +110,36 @@ def test_transposed_b_and_decode_rows(dev, dtype):
             torch.testing.assert_close(got, want, **TOL[dtype])
 
 
+# The tied LM heads of internvl2-1b (896 x 151655) and seamless-m4t
+# (1024 x 256206): their fp32 output rows start off 16-byte alignment
+# (151655 * 4 = 12 and 256206 * 4 = 8 mod 16)
+ODD_HEADS = {"internvl2_1b": (896, 151655), "seamless_m4t": (1024, 256206)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", [1, 4])
+@pytest.mark.parametrize("head", list(ODD_HEADS))
+def test_odd_vocab_lm_head_matches_plain(dev, head, m):
+    """Every dense schedule and the planned call at an odd LM head, the
+    embedding read as E^T in place, bf16 in and fp32 out."""
+    from repro_torch.core import skewmm
+
+    k, n = ODD_HEADS[head]
+    emb = _t((n, k), torch.bfloat16, dev, 0.02)
+    a = _t((m, k), torch.bfloat16, dev)
+    want = mm_mod.skew_matmul_plain(a, emb.T, bk=64, out_dtype=torch.float32)
+    for schedule in ("k_inner", "a_resident", "b_resident"):
+        got = mm_mod.skew_matmul_cuda(a, emb.T, bm=64, bk=64, bn=128,
+                                      schedule=schedule,
+                                      out_dtype=torch.float32)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got, want, **TOL[torch.float32])
+    got = skewmm.matmul(a, emb.T, out_dtype=torch.float32)
+    torch.cuda.synchronize()
+    assert tuple(got.shape) == (m, n)
+    torch.testing.assert_close(got, want, **TOL[torch.float32])
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("m", [1, 4, 16])
@@ -436,6 +466,9 @@ FA_CASES = {  # name: (Hq, Hkv, S, D, kwargs)
     "gqa_d128_window_softcap": (4, 2, 257, 128, dict(window=64,
                                                      softcap=50.0)),
     "mha_d64_full": (2, 2, 96, 64, dict(causal=False)),
+    # internvl2-1b's prefill: a GQA group of 7 at head dim 64, 256 prefix
+    # rows + 128 prompt rows
+    "gqa7_d64_causal": (14, 2, 384, 64, dict()),
 }
 
 
@@ -452,6 +485,33 @@ def test_flash_attention_matches_plain(dev, dtype, case):
     fa_mod.LAUNCHES.clear()
     got = fa_mod.flash_attention(q, k, v, **kw)
     want = fa_mod.flash_attention_plain(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert fa_mod.LAUNCHES["flash_attention"] == 1
+    assert got.dtype == dtype and got.shape == q.shape
+    torch.testing.assert_close(got.float(), want.float(), **TOL[dtype])
+
+
+# Sq != Skv, not causal (the encoder-decoder's cross-attention): (Hq, Hkv,
+# Sq, Skv, D); seamless-m4t's 128 decoder rows over 4096 frames, ragged
+# lengths against both tiles, and one row
+FA_CROSS_CASES = {
+    "seamless_cross": (16, 16, 128, 4096, 64),
+    "ragged_cross": (4, 4, 130, 257, 64),
+    "one_row_cross": (16, 16, 1, 4096, 64),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", list(FA_CROSS_CASES))
+def test_flash_attention_cross_lengths_match_plain(dev, dtype, case):
+    hq, hkv, sq, skv, d = FA_CROSS_CASES[case]
+    q = _t((2, sq, hq, d), dtype, dev).transpose(1, 2)
+    k = _t((2, skv, hkv, d), dtype, dev).transpose(1, 2)
+    v = _t((2, skv, hkv, d), dtype, dev).transpose(1, 2)
+    fa_mod.LAUNCHES.clear()
+    got = fa_mod.flash_attention(q, k, v, causal=False)
+    want = fa_mod.flash_attention_plain(q, k, v, causal=False)
     torch.cuda.synchronize()
     assert fa_mod.LAUNCHES["flash_attention"] == 1
     assert got.dtype == dtype and got.shape == q.shape
