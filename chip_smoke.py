@@ -267,9 +267,41 @@ are freed (both front ends stubs: seeded patch / frame embeddings):
      fp32 out; every dense schedule and the split-K plan checked) and
      their 1-row decode, against their plain versions at phase 3's
      tolerance, then timed beside their bounds and SDPA / torch.matmul;
+then training, after seamless-m4t's weights are freed:
+  4l. train phi4-mini-3.8b (the fifteenth main path) — every width, depth
+     cut to 16 of 32 layers (2.225 B params; the whole model's training
+     state passes 80 GB), bf16, seeded weights from the port's init: the
+     `Trainer` and `DataLoader` of `launch.train.main` at the cut config,
+     `SyntheticLM` batches of 2 x 512, AdamW at warmup_cosine(3e-4, 2,
+     6), `loss_chunk` 128, six steps, `ckpt_every` 6 into build/ (removed
+     after).  Counts are zeroed just before and read just after: the
+     training path runs the "torch" rung, so no kernel may launch.  It
+     prints each step's loss, grad_norm and host ms (a synchronise on each
+     side), tokens/s, `train_mfu` (model_flops over the step and 989
+     TFLOP/s), `max_memory_allocated` beside the state's bytes, each
+     save's ms and the final save's bytes, and `train_bounds` (the
+     forward and backward's operations at the bf16 rate plus the update's
+     22 bytes a param).  It holds (a) every loss and grad_norm finite;
+     (b) step 1's loss within 1% of the mean NLL of the same batch under
+     the "cuda" backend and no grad (K1 at every projection and the LM
+     head, K7 at 2 x 24 / 8 heads x 512 x 128, once a layer; counted
+     apart); (c) six steps on one repeated batch at a constant lr 1e-5
+     end lower than they begin (printed beside the same run at 3e-4,
+     where Adam's first steps at this width raise the loss); (d) a step under the "cuda" backend
+     raises the kernels' forward-only refusal; (e) `launch.train.main
+     --reduced` runs on the card through its defaults;
+  5l. the train step's parity — phi4-mini reduced, fp32, TF32 off: one
+     init on the CPU copied to the card, two steps of 2 microbatches with
+     int8 error feedback on each: loss, grad_norm and lr within 1e-4, the
+     plan logs equal, params, moments and residual within 1e-4 of each
+     leaf's largest magnitude as tests/test_torch_train.py holds them
+     against JAX (int8 ties and ill-conditioned Adam elements apart),
+     step and key equal; then a `Trainer` resumed from its step-3
+     checkpoint runs steps 4-6 bitwise equal to an unbroken run (losses
+     and every state leaf), both under deterministic algorithms;
   7. the served decode ms per token, graphed and eager, of every run; the
      `kernels` JSON line (K1-K9, K8's three kernels apart, launches summed
-     over the fourteen main paths; then phase 6i's five deepseek rows and
+     over the fifteen main paths; then phase 6i's five deepseek rows and
      phase 6j's rows, each with its "shape" and its paths' launches), then
      the device line.
 Every phase from 3 on runs between two `guard_disarmed` checks: no ladder
@@ -419,6 +451,18 @@ DEEPSEEK_LAYERS, DEEPSEEK_PARITY = 5, (2, 1)   # (n_layers, first_k_dense)
 # 4096 frames, so K7's Sq != Skv route is on its path.
 VLM_PREFIX_SEED = 12
 ENCDEC_PARITY_LAYERS = 2
+# Training: phi4-mini at every width and 16 of its 32 layers (2.225 B
+# params: bf16 params 4.45 GB, grads 4.45, fp32 moments 17.8, the torch
+# rung's fp32 weight copies ~6.4 and the update's second copy ~22, ~55 GB
+# at the peak; the whole model's state would pass 80 GB), batch 2 x 512,
+# loss chunks of 128 (511 positions pad to four), six steps.
+TRAIN_LAYERS, TRAIN_BATCH, TRAIN_SEQ = 16, 2, 512
+TRAIN_CHUNK, TRAIN_STEPS = 128, 6
+# Phase 4l (c)'s constant lr on one repeated batch.  At this width the
+# loss rises at 3e-4 before it falls (Adam's first steps are sign-like, so
+# a 3072 x 3072 matrix moves by lr * 3072 in its top direction); the fall
+# is held at 1e-5, and the 3e-4 run printed beside it.
+TRAIN_DESCENT_LR = 1e-5
 # serve()'s sampling in every run here; the eager decode that phases 4-4h
 # hold the graphed one against draws from the same seeded sampler.
 SERVE_SEED, SERVE_TEMPERATURE = 0, 0.8
@@ -4259,6 +4303,442 @@ def phase_timings_vlm_encdec(torch, vcfg, vparams, ecfg, eparams, counts,
     return rows
 
 
+# ----------------------------------------------------------------- train
+def train_bounds(cfg, n_params: int, batch: int, seq: int,
+                 shapes=None) -> tuple[float, float, float]:
+    """(bound ms, operations ms, update ms) of one train step: the forward
+    and backward's operations at the bf16 rate (`model_flops` in train mode,
+    6 per token and weight, plus causal attention's QK and PV, three times
+    for the forward and backward), then the AdamW update's bytes (22 a
+    param: read the bf16 param and grad and both fp32 moments, write the
+    param and both moments) over the memory rate.  The update cannot start
+    before the backward ends, so the two add."""
+    from repro_torch.models.model import model_flops
+    hd, h = cfg.head_dim, cfg.n_heads
+    attn = 3 * 2 * 2 * batch * h * hd * seq * seq / 2 * cfg.n_layers
+    flops = model_flops(cfg, tokens=batch * seq, mode="train",
+                        shapes=shapes) + attn
+    ops_ms = flops / PEAK_BF16 * 1e3
+    upd_ms = 22 * n_params / HBM_BW * 1e3
+    return ops_ms + upd_ms, ops_ms, upd_ms
+
+
+def _finite_metrics(seen: list, tag: str) -> None:
+    for i, m in enumerate(seen):
+        if not all(math.isfinite(m[k]) for k in ("loss", "grad_norm")):
+            fail(f"{tag}: step {i + 1} metrics not finite: {m}")
+
+
+def step_split_ms(torch, bundle, opt, ts_cfg, state, batch):
+    """(forward + backward ms, update ms) of a train step, each between two
+    synchronises: the second of two runs (the first refills the caching
+    allocator, emptied after the last phase); the updates are dropped."""
+    from repro_torch.core import config as mmcfg
+    from repro_torch.train.train_step import make_loss_fn, value_and_grad
+    grad_fn = value_and_grad(make_loss_fn(bundle, ts_cfg))
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with mmcfg.mm_config(backend="torch"):
+            _, grads = grad_fn(state.params, batch)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        out = opt.update(grads, state.opt, state.params)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        del out, grads
+    return (t1 - t0) * 1e3, (t2 - t1) * 1e3
+
+
+def phase_train(torch, cfg, card: str) -> dict:
+    """phi4-mini at full width and TRAIN_LAYERS of 32, bf16: the trainer of
+    `launch.train.main` at the cut config (the seventeenth main path),
+    then checks (b)-(e)."""
+    import shutil
+    import statistics
+    from repro_torch.core import config as mmcfg
+    from repro_torch.data.pipeline import DataLoader, SyntheticLM
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train as train_cli
+    from repro_torch.models.model import build_model, count_params, \
+        model_flops, param_bytes, param_shapes
+    from repro_torch.optim.adamw import AdamW
+    from repro_torch.optim.schedule import warmup_cosine
+    from repro_torch.train.train_step import (TrainStepConfig,
+                                              init_train_state,
+                                              make_loss_fn, make_train_step)
+    from repro_torch.train.trainer import Trainer, TrainerConfig
+
+    say(model_line(cfg, 32) + f" batch {TRAIN_BATCH} x {TRAIN_SEQ}, "
+        f"loss_chunk {TRAIN_CHUNK}, {TRAIN_STEPS} steps")
+    ckpt_dir = ROOT / "build" / "train_smoke"
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    bundle = build_model(cfg, "cuda")
+    opt = AdamW(lr=warmup_cosine(3e-4, 2, TRAIN_STEPS))
+    ts_cfg = TrainStepConfig(loss_chunk=TRAIN_CHUNK)
+    t0 = time.perf_counter()
+    trainer = Trainer(bundle, opt, ts_cfg,
+                      TrainerConfig(total_steps=TRAIN_STEPS,
+                                    ckpt_every=TRAIN_STEPS,
+                                    ckpt_dir=str(ckpt_dir)), log_fn=say)
+    torch.cuda.synchronize()
+    n_params = count_params(trainer.state.params)
+    pbytes = param_bytes(trainer.state.params)
+    state_bytes = pbytes + 8 * n_params
+    say(f"train init ({card}): {n_params / 1e9:.3f} B params, "
+        f"{pbytes / 1e9:.3f} GB of bf16 weights, {state_bytes / 1e9:.2f} GB "
+        f"of state with the fp32 moments, in "
+        f"{time.perf_counter() - t0:.1f} s")
+    shapes = param_shapes(cfg)
+
+    # (b) the trained forward against the served kernels: the mean NLL of
+    # step 1's batch under the "cuda" backend, no grad (K1 at the LM head
+    # and every projection, K7 a layer), counted apart from the main path
+    source = SyntheticLM(cfg.vocab_size)
+    first = {"tokens": torch.from_numpy(source.batch(
+        0, TRAIN_BATCH, TRAIN_SEQ)).cuda()}
+    ops.reset_launch_counts()
+    with mmcfg.mm_config(backend="cuda"), torch.no_grad():
+        served_loss = float(make_loss_fn(bundle, ts_cfg)(
+            trainer.state.params, first))
+    fwd_counts = ops.launch_counts()
+    say(f"train (b) ({card}): no-grad 'cuda' forward loss {served_loss:.6f}, "
+        f"launches K1 k_inner {fwd_counts['skew_matmul_k_inner']}, "
+        f"K7 {fwd_counts['flash_attention']}")
+    if fwd_counts["flash_attention"] != cfg.n_layers \
+            or not fwd_counts["skew_matmul_k_inner"]:
+        fail("train (b): the 'cuda' forward did not run K1 and K7 "
+             "once a layer")
+
+    times, seen, saves = [], [], []
+    step_fn, save = trainer.step_fn, trainer.ckpt.save
+
+    def timed_step(state, batch):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = step_fn(state, batch)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t)
+        seen.append({k: float(v) for k, v in out[1].items()})
+        return out
+
+    def timed_save(step, tree, *, blocking=False):
+        t = time.perf_counter()
+        save(step, tree, blocking=blocking)
+        saves.append((step, blocking, time.perf_counter() - t))
+
+    trainer.step_fn, trainer.ckpt.save = timed_step, timed_save
+    loader = DataLoader(source, TRAIN_BATCH, TRAIN_SEQ, device=bundle.device,
+                        start_step=trainer.ckpt.latest_step() or 0)
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    # ---- the main path: counts zeroed above, read right after it.
+    try:
+        with mmcfg.mm_config(backend="torch"):
+            out = trainer.run(loader)
+    finally:
+        loader.close()
+    counts = ops.launch_counts()
+    # ---- end of the main path.
+    peak = torch.cuda.max_memory_allocated()
+    if any(counts.values()):
+        fail(f"train: the torch rung launched kernels {counts}")
+    _finite_metrics(seen, "train (a)")
+    ckpt = ckpt_dir / f"step-{TRAIN_STEPS:09d}" / "state.npz"
+    save_bytes = ckpt.stat().st_size
+    final_ms = saves[-1][2] * 1e3
+    steady = times[1:]
+    step_ms = statistics.median(steady) * 1e3
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    bound, ops_ms, upd_ms = train_bounds(cfg, n_params, TRAIN_BATCH,
+                                         TRAIN_SEQ, shapes)
+    mfu = model_flops(cfg, tokens=tokens, mode="train", shapes=shapes) / (
+        step_ms / 1e3) / PEAK_BF16
+    for i, (ms, m) in enumerate(zip(times, seen)):
+        say(f"train step {i + 1} ({card}): {ms * 1e3:.2f} ms loss "
+            f"{m['loss']:.6f} grad_norm {m['grad_norm']:.4f} "
+            f"lr {m['lr']:.3e}")
+    say(f"train ({card}): step {step_ms:.2f} ms (median of steps 2-"
+        f"{TRAIN_STEPS}, host clock, a synchronise on each side), "
+        f"{tokens / (step_ms / 1e3):.1f} tokens/s, train_mfu "
+        f"{mfu * 100:.3f}% of 989 TFLOP/s, bound {bound:.2f} ms "
+        f"(operations {ops_ms:.2f} + update bytes {upd_ms:.2f}; "
+        f"{step_ms / bound:.1f}x)")
+    say(f"train ({card}): peak {peak / 1e9:.2f} GB allocated "
+        f"(max_memory_allocated) beside {state_bytes / 1e9:.2f} GB of "
+        f"params and moments, {(state_bytes + pbytes) / 1e9:.2f} GB with "
+        f"the grads, {2 * state_bytes / 1e9 + pbytes / 1e9:.2f} GB with "
+        f"the update's new copy; saves "
+        + ", ".join(f"step {s} {'blocking' if b else 'async'} "
+                    f"{dt * 1e3:.0f} ms" for s, b, dt in saves)
+        + f"; the final save {save_bytes / 1e9:.2f} GB in {final_ms:.0f} ms")
+    rel = abs(seen[0]["loss"] - served_loss) / abs(served_loss)
+    say(f"train (b) ({card}): step 1 loss {seen[0]['loss']:.6f} vs 'cuda' "
+        f"forward {served_loss:.6f}: rel {rel:.2e} (limit 1e-2)")
+    if rel > 1e-2:
+        fail("train (b): the trained forward's loss disagrees with the "
+             "served kernels'")
+    if out["final_loss"] is None or not math.isfinite(out["final_loss"]):
+        fail(f"train: final loss {out['final_loss']}")
+    del trainer, out
+    gc.collect()
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    torch.cuda.empty_cache()
+
+    # (c) one repeated batch at a constant lr must lower the loss (held at
+    # TRAIN_DESCENT_LR; the run at 3e-4 is printed beside it)
+    losses = {}
+    for lr in (3e-4, TRAIN_DESCENT_LR):
+        opt = AdamW(lr=lr)
+        state = init_train_state(bundle, opt, 1, ts_cfg)
+        step = make_train_step(bundle, opt, ts_cfg)
+        if lr != TRAIN_DESCENT_LR:
+            fb_ms, upd_ms = step_split_ms(torch, bundle, opt, ts_cfg, state,
+                                          first)
+            say(f"train ({card}): a step apart: forward + backward "
+                f"{fb_ms:.2f} ms, AdamW update {upd_ms:.2f} ms (host "
+                f"clock, a synchronise on each side of each)")
+        losses[lr] = []
+        with mmcfg.mm_config(backend="torch"):
+            for _ in range(TRAIN_STEPS):
+                state, m = step(state, first)
+                losses[lr].append(float(m["loss"]))
+        say(f"train (c) ({card}): one batch, constant lr {lr:g}: losses "
+            + " ".join(f"{x:.4f}" for x in losses[lr]))
+        if lr != TRAIN_DESCENT_LR:
+            del state, step
+            gc.collect()
+            torch.cuda.empty_cache()
+    held = losses[TRAIN_DESCENT_LR]
+    if not all(math.isfinite(x) for x in held) or held[-1] >= held[0]:
+        fail("train (c): the loss did not fall on a repeated batch")
+
+    # (d) the kernels refuse a backward
+    try:
+        with mmcfg.mm_config(backend="cuda"):
+            step(state, first)
+    except RuntimeError as e:
+        if "K1-K9 are forward-only" not in str(e):
+            raise
+        say(f"train (d): a step under the 'cuda' backend raises: {e}")
+    else:
+        fail("train (d): a step under the 'cuda' backend did not raise")
+    del state, step
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (e) the launcher through its defaults (the card, the "torch" rung)
+    cli_dir = ROOT / "build" / "train_smoke_cli"
+    shutil.rmtree(cli_dir, ignore_errors=True)
+    res = train_cli.main(["--arch", "phi4-mini-3.8b", "--reduced", "--steps",
+                          "4", "--batch", "2", "--seq", "64",
+                          "--ckpt-every", "2", "--ckpt-dir", str(cli_dir)])
+    shutil.rmtree(cli_dir, ignore_errors=True)
+    if not math.isfinite(res["final_loss"]):
+        fail(f"train (e): launch.train final loss {res['final_loss']}")
+    torch.cuda.empty_cache()
+    return {"counts": counts, "step_ms": step_ms, "mfu": mfu,
+            "bound_ms": bound, "peak": peak}
+
+
+def _to_device(tree, device):
+    from repro_torch.core.tree import tree_map
+    return tree_map(lambda t: t.to(device), tree)
+
+
+def _state_to(state, device):
+    """A TrainState's tensors copied to `device` (step and key stay on the
+    host)."""
+    return type(state)(
+        params=_to_device(state.params, device),
+        opt=type(state.opt)(step=state.opt.step.clone(),
+                            mu=_to_device(state.opt.mu, device),
+                            nu=_to_device(state.opt.nu, device)),
+        ef=None if state.ef is None else type(state.ef)(
+            residual=_to_device(state.ef.residual, device)),
+        rng=state.rng.copy())
+
+
+def train_states_close(flat, ref, quanta: dict, ties: dict, opt,
+                       tag: str) -> int:
+    """One state against another, as tests/test_torch_train.py holds the
+    port against JAX: moments at 1e-4 of the leaf's largest magnitude;
+    the residual at 1e-4 of its quantizer's input range (127 quanta),
+    every element beyond that exactly one quantum off (an int8 code
+    rounded the other way: a tie, which `ties` keeps across steps, and
+    whose moments and params are not compared); params at 1e-4 but where
+    Adam's denominator sqrt(v_hat) is under 100 eps in either state (the
+    update's sensitivity to its gradient nears 1 / eps there), which must
+    move by at most a bounded step, 2 lr (1 + weight decay).  Step and key
+    equal.  Returns the number of ties."""
+    import numpy as np
+    for k in (".opt//.step", ".rng"):
+        if not np.array_equal(flat[k], ref[k]):
+            fail(f"{tag}: {k} {flat[k]} != {ref[k]}")
+    step = int(ref[".opt//.step"])
+    n_all = 0
+    for suffix, q in quanta.items():
+        key = ".ef//.residual//" + suffix
+        diff = np.abs(flat[key].astype(np.float64) - ref[key])
+        tol = 1e-4 * 127 * q
+        prev = ties.get(suffix, np.zeros(diff.shape, bool))
+        tie = (diff > tol) & ~prev
+        if not np.all(np.abs(diff[tie] - q) <= tol):
+            fail(f"{tag}: {key} off by {diff[tie].max():.3e}, not one "
+                 f"quantum {q:.3e}")
+        ties[suffix] = prev | tie
+        n_all += diff.size
+    n_ties = sum(int(np.sum(t)) for t in ties.values())
+    if n_ties > 1e-4 * n_all:
+        fail(f"{tag}: {n_ties} int8 ties of {n_all} elements")
+    lr = opt.lr                                   # a constant rate here
+    worst = 0.0
+    for k, want in ref.items():
+        if k in (".opt//.step", ".rng") or k.startswith(".ef//"):
+            continue
+        suffix = k.split("//", 2)[-1] if k.startswith(".opt") else \
+            k.split("//", 1)[-1]
+        got, want = flat[k].astype(np.float64), want.astype(np.float64)
+        skip = ties.get(suffix, np.zeros(want.shape, bool))
+        scale = max(np.abs(want).max(), 1e-30)
+        err = np.abs(got - want)
+        if k.startswith(".params"):
+            nu = np.minimum(flat[".opt//.nu//" + suffix],
+                            ref[".opt//.nu//" + suffix]).astype(np.float64)
+            ill = (np.sqrt(nu / (1 - opt.b2 ** step)) < 100 * opt.eps) \
+                & ~skip
+            bound = 2 * lr * (1 + opt.weight_decay) + 1e-4 * scale
+            if np.any(err[ill] > bound):
+                fail(f"{tag}: {k} moved {err[ill].max():.3e} at an "
+                     f"ill-conditioned element (bound {bound:.3e})")
+            skip = skip | ill
+        rel = err[~skip].max() / scale if np.any(~skip) else 0.0
+        worst = max(worst, rel)
+        if rel > 1e-4:
+            fail(f"{tag}: {k} off by {rel:.3e} of its largest magnitude")
+    say(f"{tag}: params / moments / residual within {worst:.2e} of each "
+        f"leaf's largest magnitude, {n_ties} int8 ties")
+    return n_ties
+
+
+def phase_train_parity(torch, card: str) -> None:
+    """phi4-mini reduced, fp32, TF32 off: two steps (2 microbatches, int8
+    error feedback) on the card against the CPU from the same weights,
+    then a resume at step 3 of 6 bitwise equal to an unbroken run."""
+    import shutil
+    import warnings
+    import numpy as np
+    from repro_torch.checkpoint.ckpt import flatten
+    from repro_torch.configs.base import get_config
+    from repro_torch.core import config as mmcfg
+    from repro_torch.core import skewmm
+    from repro_torch.data.pipeline import DataLoader, SyntheticLM
+    from repro_torch.models.model import build_model
+    from repro_torch.optim import compression
+    from repro_torch.optim.adamw import AdamW
+    from repro_torch.train.train_step import (TrainStepConfig,
+                                              init_train_state,
+                                              make_train_step)
+    from repro_torch.train.trainer import Trainer, TrainerConfig
+
+    cfg = get_config("phi4-mini-3.8b").reduced()
+    say(model_line(cfg) + " (reduced, fp32): two steps, 2 microbatches, "
+        "int8 error feedback, the card against the CPU")
+    ts_cfg = TrainStepConfig(n_microbatches=2, loss_chunk=16,
+                             compress_grads=True)
+    opt = AdamW()
+    cpu = build_model(cfg, "cpu")
+    gpu = build_model(cfg, "cuda")
+    # the CPU and CUDA generators draw different numbers: one init, copied
+    states = {"cpu": init_train_state(cpu, opt, 0, ts_cfg)}
+    states["cuda"] = _state_to(states["cpu"], "cuda")
+    steps = {"cpu": make_train_step(cpu, opt, ts_cfg),
+             "cuda": make_train_step(gpu, opt, ts_cfg)}
+    source = SyntheticLM(cfg.vocab_size)
+    scale_of = compression._scale
+    ties: dict = {}
+    for i in range(2):
+        host = torch.from_numpy(source.batch(i, 4, 32))
+        logs, metrics, scales = {}, {}, {}
+        for dev in ("cuda", "cpu"):
+            rec = []
+            compression._scale = lambda gs: rec.append(scale_of(gs)) \
+                or rec[-1]
+            try:
+                with mmcfg.mm_config(backend="torch"), \
+                        skewmm.plan_capture() as log:
+                    states[dev], m = steps[dev](states[dev],
+                                                {"tokens": host.to(dev)})
+            finally:
+                compression._scale = scale_of
+            logs[dev] = [(plan_key(c), c.plan, c.total_s) for c in log]
+            metrics[dev] = {k: float(v) for k, v in m.items()}
+            scales[dev] = rec
+        if logs["cuda"] != logs["cpu"] or not logs["cpu"]:
+            fail(f"train parity step {i + 1}: plan logs differ "
+                 f"({len(logs['cuda'])} vs {len(logs['cpu'])} entries)")
+        for k in ("loss", "grad_norm", "lr"):
+            a, b = metrics["cuda"][k], metrics["cpu"][k]
+            if abs(a - b) > 1e-4 * abs(b):
+                fail(f"train parity step {i + 1}: {k} {a} vs cpu {b}")
+        flat, ref = flatten(states["cuda"]), flatten(states["cpu"])
+        keys = list(flatten(states["cpu"].ef.residual))
+        quanta = dict(zip(keys, (float(s) for s in scales["cpu"])))
+        say(f"train parity step {i + 1} ({card}): loss "
+            f"{metrics['cuda']['loss']:.7f}"
+            f" / cpu {metrics['cpu']['loss']:.7f}, grad_norm "
+            f"{metrics['cuda']['grad_norm']:.6f} / "
+            f"{metrics['cpu']['grad_norm']:.6f}, plan log "
+            f"{len(logs['cpu'])} entries equal")
+        train_states_close(flat, ref, quanta, ties, opt,
+                           f"train parity step {i + 1} ({card})")
+    del states, steps
+    torch.cuda.empty_cache()
+
+    # resume: steps 4-6 from the step-3 checkpoint against an unbroken run
+    # (deterministic algorithms for both: the embedding's index backward
+    # accumulates with atomics on the card otherwise)
+    root = ROOT / "build" / "train_resume"
+    shutil.rmtree(root, ignore_errors=True)
+
+    def run(total: int, name: str):
+        trainer = Trainer(gpu, AdamW(lr=1e-3), ts_cfg, TrainerConfig(
+            total_steps=total, ckpt_every=3, log_every=1,
+            ckpt_dir=str(root / name)), log_fn=lambda _m: None)
+        loader = DataLoader(source, 4, 32, device=gpu.device,
+                            start_step=trainer.ckpt.latest_step() or 0)
+        try:
+            with mmcfg.mm_config(backend="torch"):
+                out = trainer.run(loader)
+        finally:
+            loader.close()
+        return trainer, out
+
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        try:
+            whole, out = run(6, "whole")
+            run(3, "cut")
+            resumed, out2 = run(6, "cut")
+        finally:
+            torch.use_deterministic_algorithms(False)
+    for w in {str(w.message).splitlines()[0] for w in caught}:
+        say(f"train resume: warning: {w}")
+    shutil.rmtree(root, ignore_errors=True)
+    if [s for s, _ in out2["history"]] != [4, 5, 6] \
+            or out2["history"] != out["history"][3:]:
+        fail(f"train resume: losses {out2['history']} vs "
+             f"{out['history'][3:]}")
+    want = flatten(whole.state)
+    for k, v in flatten(resumed.state).items():
+        if not np.array_equal(v, want[k]):
+            fail(f"train resume: {k} differs from the unbroken run")
+    say(f"train resume ({card}): steps 4-6 from the step-3 checkpoint, "
+        "losses " + " ".join(f"{x:.7f}" for _, x in out2["history"])
+        + f", {len(want)} state leaves: bitwise equal to the unbroken run")
+
+
 # ----------------------------------------------------------------- --profile
 def profile_steps(torch, cfg, params) -> None:
     """torch.profiler over one prefill and one decode step (batch 4): device
@@ -4498,6 +4978,14 @@ def main() -> None:
                       jk_counts, errs)
     torch.cuda.empty_cache()
 
+    # phi4-mini trained at full width and 16 of 32 layers, then the step's
+    # parity with the CPU and the resume at the reduced config.
+    train_path = guarded("phase 4l", phase_train, torch, dataclasses.replace(
+        cfg, n_layers=TRAIN_LAYERS), card)
+    torch.cuda.empty_cache()
+    guarded("phase 5l", phase_train_parity, torch, card)
+    torch.cuda.empty_cache()
+
     say("served decode, ms per token (host clock): " + "; ".join(
         f"{g['tag']} graphed {g['graph_ms']:.2f} eager {g['eager_ms']:.2f}"
         for path in (phi4_graph, moe_path, hyb_path, ssm_path, gemma_path,
@@ -4511,7 +4999,8 @@ def main() -> None:
     # 192 / 128 widths, K5 at 256 groups) and phase 6j's rows (K7 at the
     # VLM and encoder-decoder shapes, Sq != Skv among them, and K1 at the
     # odd LM heads) with their "shape"; the other shapes are in the log
-    # above.  Launches: summed over the fourteen main paths; a deepseek
+    # above.  Launches: summed over the fifteen main paths (training runs
+    # none); a deepseek
     # row's are those of the deepseek path, a phase 6j row's those of the
     # internvl2-1b and seamless-m4t paths.
     launches = {n: sum(c.get(n, 0) for c in (
@@ -4519,7 +5008,7 @@ def main() -> None:
         ssm_path["counts"], tune_path["counts"], fig5_path["counts"],
         gemma_path["counts"], granite_path["counts"], cr_path["counts"],
         guard_path["counts"], sched_path["counts"], mla_path["counts"],
-        vlm_path["counts"], ed_path["counts"]))
+        vlm_path["counts"], ed_path["counts"], train_path["counts"]))
         for n in KERNELS}
     first = {}
     for r in rows:

@@ -27,6 +27,14 @@ non-finite output or a real plan rejection raises (`strict`).  A CPU
 tensor runs the kernels' plain versions and degrades as the JAX package
 does.  Flash attention, the RG-LRU scan and the SSD scan are unguarded,
 as in the JAX package.
+
+K1-K9 are forward-only, as the JAX package's Pallas kernels are (none has
+a VJP): a kernel writes into a fresh tensor through ctypes, so its output
+has no autograd history.  Every route below therefore refuses, on either
+device, an input that requires grad while grad mode is on (`_forward_only`),
+before the guard ladder, whose reference rung would otherwise catch the
+refusal as a fault and train through the oracle.  Training runs under the
+"torch" backend.
 """
 
 from __future__ import annotations
@@ -115,6 +123,15 @@ def _run_guarded_explicit(site, run, ref_fn, strict: bool = False):
         return ref_fn()
 
 
+def _forward_only(kernel: str, *tensors) -> None:
+    """Raise when autograd would need a backward through `kernel`."""
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{kernel}: an input requires grad; K1-K9 are forward-only; "
+            f'train under the "torch" backend')
+
+
 def skew_matmul(a: torch.Tensor, b: torch.Tensor, *,
                 plan: BlockPlan | None = None, amp: float | None = None,
                 chip=None, epilogue: Epilogue | str | None = None,
@@ -131,6 +148,7 @@ def skew_matmul(a: torch.Tensor, b: torch.Tensor, *,
     n = b.shape[1]
     cfg = config.resolve(amp=amp, chip=chip)
     ep = Epilogue.parse(epilogue, bias=bias, residual=residual)
+    _forward_only("skew_matmul", a, b, ep.bias, ep.residual)
     odt = out_dtype or a.dtype
     chip_spec = cfg.chip_spec
 
@@ -194,6 +212,7 @@ def skew_matmul_batched(a: torch.Tensor, b: torch.Tensor, *,
     n = b.shape[1]
     cfg = config.resolve(amp=amp, chip=chip)
     ep = Epilogue.parse(epilogue, bias=bias, residual=residual)
+    _forward_only("skew_matmul_batched", a, b, ep.bias, ep.residual)
     odt = out_dtype or a.dtype
     chip_spec = cfg.chip_spec
 
@@ -261,6 +280,7 @@ def sparse_matmul(a: torch.Tensor, b: torch.Tensor, layout, *,
                          f"{(m, k)}")
     cfg = config.resolve(amp=amp, chip=chip)
     ep = Epilogue.parse(epilogue, bias=bias, residual=residual)
+    _forward_only("sparse_matmul", a, b, ep.bias, ep.residual)
     bm, bk = layout.block_shape
     odt = out_dtype or a.dtype
     chip_spec = cfg.chip_spec
@@ -356,6 +376,8 @@ def grouped_matmul(a: torch.Tensor, b: torch.Tensor, *,
                     chip=chip_spec))
             return _obs.measured(dsp, ref_fn)
 
+    _forward_only("grouped_matmul", a, b, ep.residual)
+
     def run(p: BlockPlan) -> torch.Tensor:
         bm, bk, bn = clip_blocks(p, m, k, n, chip_spec)
         _obs.annotate("dispatch", blocks=(bm, bk, bn), kernel=p.schedule)
@@ -406,6 +428,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     windowed call needs Sq == Skv; with neither, Sq may differ from Skv
     (cross-attention).  Tiles default to the kernel's choice for the head
     dim (`flash_attention.tiles`); Sq and Skv need not divide them."""
+    _forward_only("flash_attention", q, k, v)
     return _fa.flash_attention(q, k, v, causal=causal, window=window,
                                softcap=softcap, scale=scale, bq=bq, bkv=bkv)
 
@@ -416,6 +439,7 @@ def rglru_scan(x: torch.Tensor, r_gate: torch.Tensor, i_gate: torch.Tensor,
     """The RG-LRU scan.  x, r_gate, i_gate (B, L, D) pre-sigmoid logits,
     a_param (D,): K6 on a CUDA tensor, its plain version on a CPU tensor.
     With ``return_state`` also the fp32 state after the last step."""
+    _forward_only("rglru_scan", x, r_gate, i_gate, a_param)
     return _rglru.rglru_scan(x, r_gate, i_gate, a_param, c=c,
                              return_state=return_state)
 
@@ -427,6 +451,7 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, a_log: torch.Tensor,
     (H,), B / C (B, L, G, S): K8 on a CUDA tensor, its plain version on a
     CPU tensor.  Any L; with ``return_state`` also the fp32 state after the
     last position, (B, H, S, P)."""
+    _forward_only("ssd_scan", x, dt, a_log, b_mat, c_mat)
     return _ssd.ssd_scan(x, dt, a_log, b_mat, c_mat, chunk=chunk,
                          return_state=return_state)
 
