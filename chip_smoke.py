@@ -299,9 +299,31 @@ then training, after seamless-m4t's weights are freed:
      step and key equal; then a `Trainer` resumed from its step-3
      checkpoint runs steps 4-6 bitwise equal to an unbroken run (losses
      and every state leaf), both under deterministic algorithms;
+then the mesh, after the training state is freed:
+  4m. (the sixteenth main path) (a) `launch.mesh.make_host_mesh()` on the
+     card: a one-rank NCCL process group and its (1, 1) ("data", "model")
+     DeviceMesh (no gloo, no skip); (b) dbrx-132b at full width and 8 of
+     40 layers (phase 4b's weights, made again from its seed after 5l:
+     4b's were cut to 2 layers for 5b), batch 4 x prompt 128: three
+     prefills with the mesh as the annotation mesh, every MoE layer
+     through `moe.moe_mlp_shardmap` (8 of 8 counted, K5 inside, one
+     all_reduce of the fp32 output over "model" and one of aux over
+     "data" a layer, counted at the call), beside three meshless ones,
+     host ms each; counts zeroed before and read after the mesh prefill;
+  5m. (b)'s logits bitwise equal to the meshless prefill's (both under
+     deterministic algorithms: index_add_'s atomics otherwise order the
+     combine's sums at random) and K5's launches equal; (c) phi4-mini at
+     full width and 8 of 32 layers through `Trainer(mesh=)`, the state
+     placed as DTensors by the rules (every leaf's placements checked),
+     against the meshless `Trainer` from the same seed: step 1's loss,
+     grad_norm and lr within 1e-4, params and moments bitwise or within
+     1e-4 of each leaf's largest magnitude (phase 5l's limit), step ms of
+     both; (d) a reduced phi4 checkpoint of the meshless trainer restored
+     through `restore(specs=, mesh=)` as DTensors on the card, byte for
+     byte equal to the saved state;
   7. the served decode ms per token, graphed and eager, of every run; the
      `kernels` JSON line (K1-K9, K8's three kernels apart, launches summed
-     over the fifteen main paths; then phase 6i's five deepseek rows and
+     over the sixteen main paths; then phase 6i's five deepseek rows and
      phase 6j's rows, each with its "shape" and its paths' launches), then
      the device line.
 Every phase from 3 on runs between two `guard_disarmed` checks: no ladder
@@ -463,6 +485,10 @@ TRAIN_CHUNK, TRAIN_STEPS = 128, 6
 # a 3072 x 3072 matrix moves by lr * 3072 in its top direction); the fall
 # is held at 1e-5, and the 3e-4 run printed beside it.
 TRAIN_DESCENT_LR = 1e-5
+# Phase 4m (c): phi4-mini's trainer on the mesh and without it, at every
+# width and 8 of 32 layers (1.4 B params, ~14 GB of state each; the two
+# trainers are made one after the other), three steps each.
+MESH_TRAIN_LAYERS, MESH_TRAIN_STEPS = 8, 3
 # serve()'s sampling in every run here; the eager decode that phases 4-4h
 # hold the graphed one against draws from the same seeded sampler.
 SERVE_SEED, SERVE_TEMPERATURE = 0, 0.8
@@ -4739,6 +4765,314 @@ def phase_train_parity(torch, card: str) -> None:
         + f", {len(want)} state leaves: bitwise equal to the unbroken run")
 
 
+# ----------------------------------------------------------------- mesh
+def phase_mesh(torch, dcfg, pcfg, card: str, train_ms: float) -> dict:
+    """Phases 4m / 5m (the sixteenth main path): (a) a one-rank NCCL
+    process group and its (1, 1) ("data", "model") DeviceMesh; (b)
+    dbrx-132b at full width and DBRX_LAYERS layers (phase 4b's weights,
+    made again from its seed), one batch-4 x 128 prefill with the mesh as
+    the annotation mesh, every MoE layer through `moe_mlp_shardmap` (K5
+    inside), its logits bitwise equal to the meshless prefill's and its K5
+    launches equal; (c) phi4-mini at full width, MESH_TRAIN_LAYERS layers,
+    through `Trainer(mesh=)`: the state placed as DTensors by the rules,
+    step 1 within phase 5l's tolerance of the meshless step, step ms of
+    both beside 4l's (`train_ms`, at TRAIN_LAYERS layers); (d) a reduced phi4 checkpoint of the meshless trainer restored
+    onto the mesh through `restore(specs=, mesh=)`, bytes equal."""
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_host_mesh
+
+    # (a) the mesh: NCCL, one rank; no gloo on the card
+    t_phase = t0 = time.perf_counter()
+    mesh = make_host_mesh(device="cuda")
+    backend = dist.get_backend()
+    say(f"mesh (a) ({card}): backend {backend}, world "
+        f"{dist.get_world_size()}, {mesh} in "
+        f"{time.perf_counter() - t0:.1f} s")
+    if backend != "nccl" or tuple(mesh.shape) != (1, 1) \
+            or mesh.device_type != "cuda":
+        fail(f"mesh (a): {backend} {mesh}, expected a (1, 1) NCCL mesh")
+    prefill = mesh_prefill(torch, mesh, dcfg, card)
+    train = mesh_trainer(torch, mesh, pcfg, card)
+    say(f"mesh (c) ({card}): beside phase 4l's step of this run, "
+        f"{train_ms:.2f} ms at {TRAIN_LAYERS} layers without the mesh")
+    mesh_restore(torch, mesh, card)
+    dist.destroy_process_group()
+    torch.cuda.empty_cache()
+    say(f"mesh ({card}): phases 4m / 5m took "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    return {"counts": prefill["counts"], "prefill_ms": prefill["ms"],
+            **train}
+
+
+def mesh_prefill(torch, mesh, dcfg, card: str) -> dict:
+    """Phase 4m (b) / 5m (b): dbrx's prefill with the mesh as the
+    annotation mesh against the meshless prefill."""
+    import warnings
+    import numpy as np
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.kernels import ops
+    from repro_torch.models import moe
+    from repro_torch.models.model import build_model, param_bytes
+    from repro_torch.serve import engine
+
+    params = build_model(dcfg, "cuda").init(0)
+    torch.cuda.synchronize()
+    say(model_line(dcfg, 40) + f": {param_bytes(params) / 1e9:.3f} GB of "
+        "bf16 weights (phase 4b's, from its seed)")
+    batch, prompt = 4, 128
+    toks = torch.tensor(np.random.default_rng(SERVE_SEED).integers(
+        0, dcfg.vocab_size, (batch, prompt)), dtype=torch.long,
+        device="cuda")
+    times = {"meshless": [], "mesh": []}
+    logits, counts = {}, {}
+    # index_add_'s CUDA atomics would order the combine's sums at random:
+    # both prefills run the deterministic one
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        try:
+            for it in range(3):
+                for name in ("meshless", "mesh"):
+                    moe.reset_ep_counts()
+                    ops.reset_launch_counts()
+                    if name == "mesh":
+                        shd.set_annotation_mesh(mesh)
+                    # ---- the main path (the mesh prefill): counts zeroed
+                    # above, read right after it.
+                    try:
+                        torch.cuda.synchronize()
+                        t0 = time.perf_counter()
+                        _, out = engine.prefill(params, dcfg, toks,
+                                                max_len=prompt + 1)
+                        torch.cuda.synchronize()
+                    finally:
+                        shd.set_annotation_mesh(None)
+                    ms = (time.perf_counter() - t0) * 1e3
+                    c = ops.launch_counts()
+                    # ---- end of the main path.
+                    ep = moe.ep_counts()
+                    times[name].append(ms)
+                    if it == 0:
+                        logits[name], counts[name] = out, (c, ep)
+        finally:
+            torch.use_deterministic_algorithms(False)
+    (c_plain, ep_plain), (c_mesh, ep_mesh) = counts["meshless"], \
+        counts["mesh"]
+    n_moe = dcfg.n_layers
+    say(f"mesh (b) ({card}): dbrx prefill b{batch} p{prompt}, host ms "
+        f"(a synchronise on each side) meshless "
+        + " ".join(f"{t:.1f}" for t in times["meshless"]) + ", mesh "
+        + " ".join(f"{t:.1f}" for t in times["mesh"])
+        + f"; moe_mlp_shardmap {ep_mesh['shardmap_calls']} of {n_moe} "
+        f"layers, all_reduce calls {ep_mesh['all_reduce']} (one over "
+        f"'model' of the {batch * prompt} x {dcfg.d_model} fp32 output and "
+        f"one of aux over 'data' a layer); K5 launches "
+        f"{c_mesh['grouped_matmul']} (meshless {c_plain['grouped_matmul']})")
+    if ep_mesh["shardmap_calls"] != n_moe or ep_plain["shardmap_calls"]:
+        fail(f"mesh (b): {ep_mesh['shardmap_calls']} of {n_moe} MoE layers "
+             f"took moe_mlp_shardmap (meshless: "
+             f"{ep_plain['shardmap_calls']})")
+    if ep_mesh["all_reduce"] != 2 * n_moe:
+        fail(f"mesh (b): {ep_mesh['all_reduce']} all_reduce calls, "
+             f"expected {2 * n_moe}")
+    if c_mesh != c_plain or c_mesh["grouped_matmul"] != 3 * n_moe:
+        fail(f"mesh (b): launches {c_mesh} vs meshless {c_plain}")
+    if not torch.equal(logits["mesh"], logits["meshless"]):
+        err = (logits["mesh"] - logits["meshless"]).abs().max().item()
+        fail(f"mesh (b): the mesh prefill's logits differ from the "
+             f"meshless prefill's by up to {err:.3e}")
+    if not bool(torch.isfinite(logits["mesh"]).all()):
+        fail("mesh (b): non-finite logits")
+    say(f"mesh (b) ({card}): logits {tuple(logits['mesh'].shape)} "
+        "bitwise equal to the meshless prefill's; launches of the mesh "
+        f"prefill (the main path) "
+        f"{ {k: v for k, v in c_mesh.items() if v} }")
+    del params, logits, toks
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    return {"counts": c_mesh, "ms": times}
+
+
+def mesh_trainer(torch, mesh, pcfg, card: str) -> dict:
+    """Phase 4m (c) / 5m (c): phi4-mini's trainer on the mesh against the
+    meshless trainer, step 1 compared and both timed."""
+    import shutil
+    import statistics
+    from torch.distributed.tensor import DTensor
+    from repro_torch.core import config as mmcfg
+    from repro_torch.data.pipeline import DataLoader, SyntheticLM
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.models.model import build_model
+    from repro_torch.optim.adamw import AdamW
+    from repro_torch.train.train_step import TrainStepConfig
+    from repro_torch.train.trainer import Trainer, TrainerConfig
+
+    cfg = dataclasses.replace(pcfg, n_layers=MESH_TRAIN_LAYERS)
+    say(model_line(cfg, 32) + f" batch {TRAIN_BATCH} x {TRAIN_SEQ}, "
+        f"loss_chunk {TRAIN_CHUNK}, {MESH_TRAIN_STEPS} steps a trainer")
+    bundle = build_model(cfg, "cuda")
+    ts_cfg = TrainStepConfig(loss_chunk=TRAIN_CHUNK)
+    source = SyntheticLM(cfg.vocab_size)
+    root = ROOT / "build" / "mesh_smoke"
+    shutil.rmtree(root, ignore_errors=True)
+    results = {}
+    for name, m in (("meshless", None), ("mesh", mesh)):
+        trainer = Trainer(bundle, AdamW(lr=3e-4), ts_cfg,
+                          TrainerConfig(total_steps=MESH_TRAIN_STEPS,
+                                        ckpt_dir=str(root / name)),
+                          log_fn=say, mesh=m)
+        loader = DataLoader(source, TRAIN_BATCH, TRAIN_SEQ,
+                            device=bundle.device, mesh=m)
+        ms, seen = [], []
+        state, trainer.state = trainer.state, None   # held once, here
+        try:
+            with mmcfg.mm_config(backend="torch"):
+                for i in range(MESH_TRAIN_STEPS):
+                    batch = next(loader)
+                    torch.cuda.synchronize()
+                    t = time.perf_counter()
+                    state, metrics = trainer.step_fn(state, batch)
+                    torch.cuda.synchronize()
+                    ms.append((time.perf_counter() - t) * 1e3)
+                    seen.append({k: float(v) for k, v in metrics.items()})
+                    if i == 0:
+                        first = state
+        finally:
+            loader.close()
+        _finite_metrics(seen, f"mesh (c) {name}")
+        if m is not None:
+            specs = trainer.state_specs
+            placed = [0]
+
+            def check(x, spec):
+                if spec is not None:
+                    if not isinstance(x, DTensor) or tuple(x.placements) \
+                            != shd.to_placements(spec, mesh):
+                        fail(f"mesh (c): a leaf is not placed by {spec}")
+                    placed[0] += 1
+                return x
+            shd.map_specs(check, first, specs)
+            say(f"mesh (c) ({card}): {placed[0]} state leaves placed as "
+                "DTensors by tree_param_specs / tree_optstate_specs")
+            results[name] = (ms, seen, {
+                k: v.full_tensor() if isinstance(v, DTensor) else v
+                for k, v in _flat_tensors(first).items()})
+        else:
+            results[name] = (ms, seen, _flat_tensors(first))
+        del trainer, state, first
+        gc.collect()
+        torch.cuda.empty_cache()
+    (p_ms, p_seen, p_first), (m_ms, m_seen, m_first) = \
+        results["meshless"], results["mesh"]
+    for k in ("loss", "grad_norm", "lr"):
+        a, b = m_seen[0][k], p_seen[0][k]
+        if abs(a - b) > 1e-4 * abs(b):
+            fail(f"mesh (c): step 1 {k} {a} vs meshless {b}")
+    worst, bitwise = 0.0, 0
+    for k, want in p_first.items():
+        got = m_first[k]
+        if torch.equal(got, want):
+            bitwise += 1
+            continue
+        scale = max(want.float().abs().max().item(), 1e-30)
+        rel = (got.float() - want.float()).abs().max().item() / scale
+        worst = max(worst, rel)
+        if rel > 1e-4:
+            fail(f"mesh (c): step 1 {k} off by {rel:.3e} of its largest "
+                 "magnitude")
+    say(f"mesh (c) ({card}): step 1 loss {m_seen[0]['loss']:.7f} / "
+        f"meshless {p_seen[0]['loss']:.7f}, grad_norm "
+        f"{m_seen[0]['grad_norm']:.6f} / {p_seen[0]['grad_norm']:.6f}; "
+        f"{bitwise} of {len(p_first)} state leaves bitwise equal, the rest "
+        f"within {worst:.2e} of each leaf's largest magnitude (limit 1e-4)")
+    step_ms = statistics.median(m_ms[1:])
+    plain_ms = statistics.median(p_ms[1:])
+    say(f"mesh (c) ({card}): train step at {cfg.n_layers} layers, batch "
+        f"{TRAIN_BATCH} x {TRAIN_SEQ}: mesh {step_ms:.2f} ms, meshless "
+        f"{plain_ms:.2f} ms (median of steps 2-{MESH_TRAIN_STEPS}, host "
+        f"clock, a synchronise on each side; steps "
+        + " / ".join(f"{a:.1f}" for a in m_ms) + " vs "
+        + " / ".join(f"{a:.1f}" for a in p_ms) + ")")
+    del results, p_first, m_first, bundle
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    shutil.rmtree(root, ignore_errors=True)
+    return {"step_ms": step_ms, "plain_step_ms": plain_ms}
+
+
+def mesh_restore(torch, mesh, card: str) -> None:
+    """Phase 5m (d): a reduced checkpoint of the meshless trainer restored
+    onto the mesh, placed by its specs, bytes equal."""
+    import shutil
+    import numpy as np
+    from torch.distributed.tensor import DTensor
+    from repro_torch.checkpoint.ckpt import CheckpointManager, flatten
+    from repro_torch.configs.base import get_config
+    from repro_torch.core import config as mmcfg
+    from repro_torch.data.pipeline import DataLoader, SyntheticLM
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.models.model import build_model
+    from repro_torch.optim.adamw import AdamW
+    from repro_torch.train.train_step import TrainStepConfig
+    from repro_torch.train.trainer import Trainer, TrainerConfig, \
+        state_specs
+
+    root = ROOT / "build" / "mesh_smoke"
+    rcfg = get_config("phi4-mini-3.8b").reduced()
+    source = SyntheticLM(rcfg.vocab_size)
+    rb = build_model(rcfg, "cuda")
+    trainer = Trainer(rb, AdamW(lr=1e-3), TrainStepConfig(loss_chunk=16),
+                      TrainerConfig(total_steps=2, ckpt_every=2,
+                                    ckpt_dir=str(root / "reduced")),
+                      log_fn=lambda _m: None)
+    loader = DataLoader(source, 4, 32, device=rb.device)
+    try:
+        with mmcfg.mm_config(backend="torch"):
+            trainer.run(loader)
+    finally:
+        loader.close()
+    saved = flatten(trainer.state)
+    specs = state_specs(trainer.state, mesh)
+    restored = CheckpointManager(str(root / "reduced")).restore(
+        trainer.state, step=2, specs=specs, mesh=mesh)
+    n_dt = [0]
+
+    def on_card(x, spec):
+        if spec is not None:
+            if not isinstance(x, DTensor) or x.device.type != "cuda":
+                fail("mesh (d): a restored leaf is not a DTensor on the card")
+            n_dt[0] += 1
+        return x
+    shd.map_specs(on_card, restored, specs)
+    got = flatten(restored)
+    with np.load(root / "reduced" / "step-000000002" / "state.npz") as disk:
+        for k, v in saved.items():
+            if not (np.array_equal(got[k], v) and np.array_equal(
+                    disk[k], v)):
+                fail(f"mesh (d): restored {k} differs from the saved state")
+    say(f"mesh (d) ({card}): step 2 of the meshless reduced trainer "
+        f"restored onto the mesh: {n_dt[0]} DTensor leaves on the card, "
+        f"{len(saved)} leaves byte for byte equal to the saved state")
+    shutil.rmtree(root, ignore_errors=True)
+
+
+def _flat_tensors(state) -> dict:
+    """{path key: tensor} of a TrainState's params and moments (the
+    checkpoint's keys, per layer), left on their device."""
+    from repro_torch.checkpoint.ckpt import _walk
+    out = {}
+    for key, leaf in _walk(state._replace(rng=None, opt=state.opt._replace(
+            step=None)), ()):
+        if isinstance(leaf, list):
+            for r, t in enumerate(leaf):
+                out[f"{key}[{r}]"] = t
+        elif leaf is not None:
+            out[key] = leaf
+    return out
+
+
 # ----------------------------------------------------------------- --profile
 def profile_steps(torch, cfg, params) -> None:
     """torch.profiler over one prefill and one decode step (batch 4): device
@@ -4986,6 +5320,12 @@ def main() -> None:
     guarded("phase 5l", phase_train_parity, torch, card)
     torch.cuda.empty_cache()
 
+    # the mesh: a one-rank NCCL DeviceMesh, dbrx's MoE layers through the
+    # expert-parallel path, phi4's trainer on the mesh, the elastic restore
+    mesh_path = guarded("phases 4m / 5m", phase_mesh, torch, dcfg, cfg, card,
+                        train_path["step_ms"])
+    torch.cuda.empty_cache()
+
     say("served decode, ms per token (host clock): " + "; ".join(
         f"{g['tag']} graphed {g['graph_ms']:.2f} eager {g['eager_ms']:.2f}"
         for path in (phi4_graph, moe_path, hyb_path, ssm_path, gemma_path,
@@ -4999,7 +5339,7 @@ def main() -> None:
     # 192 / 128 widths, K5 at 256 groups) and phase 6j's rows (K7 at the
     # VLM and encoder-decoder shapes, Sq != Skv among them, and K1 at the
     # odd LM heads) with their "shape"; the other shapes are in the log
-    # above.  Launches: summed over the fifteen main paths (training runs
+    # above.  Launches: summed over the sixteen main paths (training runs
     # none); a deepseek
     # row's are those of the deepseek path, a phase 6j row's those of the
     # internvl2-1b and seamless-m4t paths.
@@ -5008,7 +5348,8 @@ def main() -> None:
         ssm_path["counts"], tune_path["counts"], fig5_path["counts"],
         gemma_path["counts"], granite_path["counts"], cr_path["counts"],
         guard_path["counts"], sched_path["counts"], mla_path["counts"],
-        vlm_path["counts"], ed_path["counts"], train_path["counts"]))
+        vlm_path["counts"], ed_path["counts"], train_path["counts"],
+        mesh_path["counts"]))
         for n in KERNELS}
     first = {}
     for r in rows:

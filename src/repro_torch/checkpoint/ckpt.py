@@ -14,8 +14,10 @@
     as the JAX package stacks a stage.  bf16 leaves are widened to fp32
     (npz has no bf16) and cast back on restore.
 
-So a checkpoint written by either package restores into the other.
-Restoring onto a device mesh waits for the distributed slice.
+So a checkpoint written by either package restores into the other.  The
+stored arrays are whole (unsharded), so `restore(specs=, mesh=)` places
+every leaf by its spec on the *current* mesh: a job restarts on another
+mesh shape (the elastic path).
 """
 
 from __future__ import annotations
@@ -108,7 +110,8 @@ def _restore(tree, path: tuple, data):
                      for i, v in enumerate(tree))
     key = _SEP.join(path)
     arr = data[key]
-    _check(key, arr.shape, tuple(np.shape(tree)))
+    _check(key, arr.shape, tuple(tree.shape) if isinstance(
+        tree, torch.Tensor) else np.shape(tree))
     return _like(arr, tree)
 
 
@@ -118,6 +121,11 @@ def _unit(unit, path: tuple, arrays: dict, r: int):
         return {k: _unit(v, path + (str(k),), arrays, r)
                 for k, v in unit.items()}
     return _like(arrays[_SEP.join(path)][r], unit)
+
+
+def _rank() -> int:
+    import torch.distributed as dist
+    return dist.get_rank() if dist.is_initialized() else 0
 
 
 class CheckpointManager:
@@ -131,9 +139,13 @@ class CheckpointManager:
     def save(self, step: int, tree: Any, *, blocking: bool = False) -> None:
         """Snapshot `tree` to host memory now (after the previous write
         has finished, so one snapshot is held at a time); serialize and
-        publish it on a background thread."""
+        publish it on a background thread.  In a process group every rank
+        takes the snapshot (a `DTensor` leaf is gathered whole) and rank 0
+        alone writes it."""
         self.wait()
         flat = flatten(tree)
+        if _rank() != 0:
+            return
         self._thread = threading.Thread(
             target=self._write, args=(step, flat), daemon=True)
         self._thread.start()
@@ -175,13 +187,20 @@ class CheckpointManager:
         steps = self.all_steps()
         return steps[-1] if steps else None
 
-    def restore(self, like: Any, *, step: int | None = None) -> Any:
+    def restore(self, like: Any, *, step: int | None = None,
+                specs: Any = None, mesh=None) -> Any:
         """Restore into the structure of `like`: each leaf takes the
-        dtype and device of `like`'s (bf16 cast back from the stored fp32);
-        a shape that differs raises ValueError."""
+        dtype and device of `like`'s (bf16 cast back from the stored fp32;
+        a `DTensor` leaf its mesh's device); a shape that differs raises
+        ValueError.  With `specs` and `mesh`, every leaf is placed as a
+        `DTensor` by its spec on `mesh` (`sharding.shard_like`)."""
         step = step if step is not None else self.latest_step()
         if step is None:
             raise FileNotFoundError(f"no checkpoints in {self.directory}")
         path = os.path.join(self.directory, f"step-{step:09d}", "state.npz")
         with np.load(path) as data:
-            return _restore(like, (), data)
+            tree = _restore(like, (), data)
+        if specs is not None and mesh is not None:
+            from repro_torch.distributed.sharding import shard_like
+            tree = shard_like(tree, specs, mesh)
+        return tree

@@ -95,9 +95,11 @@ def state_from_numpy(tree, device=None):
 
 def to_numpy(x) -> np.ndarray:
     """A tensor (or array) as a host array, bf16 widened to fp32 (numpy
-    has no bf16)."""
+    has no bf16); a `DTensor` is gathered whole first."""
     if isinstance(x, torch.Tensor):
         x = x.detach()
+        if hasattr(x, "full_tensor"):           # a DTensor
+            x = x.full_tensor()
         if x.dtype == torch.bfloat16:
             x = x.to(torch.float32)
         return x.cpu().numpy()

@@ -9,8 +9,9 @@ The loader delivers each batch as an int32 tensor on its device (the card
 unless told otherwise), with deterministic resume: the iterator state is a
 single step counter, so a restart at `start_step` replays exactly (the
 fault-tolerance contract).  A background thread keeps a bounded queue of
-ready host batches.  Sharding batches over a mesh waits for the
-distributed slice.
+ready host batches.  Given a `DeviceMesh`, the loader delivers each batch
+as a `DTensor` placed by `distributed.sharding.batch_spec`: dim 0 split
+over the data axes when they divide it.
 """
 
 from __future__ import annotations
@@ -23,6 +24,7 @@ import numpy as np
 import torch
 
 from repro_torch import resolve_device
+from repro_torch.distributed import sharding
 
 
 class SyntheticLM:
@@ -52,14 +54,17 @@ class MemmapTokens:
 
 class DataLoader:
     """Step-addressable loader with background prefetch; yields
-    ``{"tokens": int32 tensor on device}``."""
+    ``{"tokens": int32 tensor on device}`` (a `DTensor` on `mesh`'s devices
+    when a mesh is given)."""
 
     def __init__(self, source, batch_size: int, seq_len: int, device=None,
-                 prefetch: int = 2, start_step: int = 0):
+                 prefetch: int = 2, start_step: int = 0, mesh=None):
         self.source = source
         self.batch_size = batch_size
         self.seq_len = seq_len
-        self.device = resolve_device(device)
+        self.mesh = mesh
+        self.device = resolve_device(
+            device if mesh is None else mesh.device_type)
         self.step = start_step
         self._q: queue.Queue = queue.Queue(maxsize=prefetch)
         self._stop = threading.Event()
@@ -84,7 +89,12 @@ class DataLoader:
     def __next__(self):
         step, arr = self._q.get()
         self.step = step + 1
-        return {"tokens": torch.from_numpy(arr).to(self.device)}
+        tokens = torch.from_numpy(arr).to(self.device)
+        if self.mesh is not None:
+            tokens = sharding.place(
+                tokens, sharding.batch_spec(tuple(arr.shape), self.mesh),
+                self.mesh)
+        return {"tokens": tokens}
 
     def close(self):
         self._stop.set()

@@ -10,8 +10,13 @@ the whole run (`repro_torch.core.config`).  ``--mm-backend`` defaults to
 "torch", the reference rung that autograd trains through (the JAX
 launcher's "xla"); the kernels of "cuda" are forward-only and refuse a
 training step.  A run that finds a checkpoint in ``--ckpt-dir`` resumes
-from it, its data at the restored step.  Model parallelism and the
-production mesh wait for the distributed slice.
+from it, its data at the restored step.
+
+``--model-parallel N`` trains over `launch.mesh.make_host_mesh(model=N)`
+(the world of the launcher's environment, one rank when there is none),
+``--production-mesh`` over the 16 x 16 production mesh (256 ranks); the
+state and batches are then `DTensor`s placed by the sharding rules.
+Without either the run is on one device, as before.
 """
 
 from __future__ import annotations
@@ -21,6 +26,7 @@ import argparse
 from repro_torch.configs.base import get_config
 from repro_torch.core import config as mmcfg
 from repro_torch.data.pipeline import DataLoader, MemmapTokens, SyntheticLM
+from repro_torch.launch.mesh import make_host_mesh, make_production_mesh
 from repro_torch.models.model import build_model
 from repro_torch.optim.adamw import AdamW
 from repro_torch.optim.schedule import warmup_cosine
@@ -41,6 +47,9 @@ def main(argv=None) -> dict:
     ap.add_argument("--data", default=None, help="memmap token file")
     ap.add_argument("--ckpt-dir", default="build/ckpt")
     ap.add_argument("--ckpt-every", type=int, default=50)
+    ap.add_argument("--model-parallel", type=int, default=None,
+                    help="train over a (world / N, N) host mesh")
+    ap.add_argument("--production-mesh", action="store_true")
     ap.add_argument("--compress-grads", action="store_true")
     ap.add_argument("--device", default=None,
                     help="torch device (default: the CUDA card)")
@@ -52,6 +61,12 @@ def main(argv=None) -> dict:
     if args.reduced:
         cfg = cfg.reduced()
     bundle = build_model(cfg, args.device)
+    mesh = None
+    if args.production_mesh:
+        mesh = make_production_mesh(device=bundle.device)
+    elif args.model_parallel is not None:
+        mesh = make_host_mesh(model=args.model_parallel,
+                              device=bundle.device)
 
     opt = AdamW(lr=warmup_cosine(args.lr, args.warmup, args.steps))
     ts_cfg = TrainStepConfig(n_microbatches=args.microbatches,
@@ -60,11 +75,13 @@ def main(argv=None) -> dict:
     trainer = Trainer(bundle, opt, ts_cfg,
                       TrainerConfig(total_steps=args.steps,
                                     ckpt_every=args.ckpt_every,
-                                    ckpt_dir=args.ckpt_dir))
+                                    ckpt_dir=args.ckpt_dir),
+                      mesh=mesh)
     source = (MemmapTokens(args.data, cfg.vocab_size) if args.data
               else SyntheticLM(cfg.vocab_size))
     loader = DataLoader(source, args.batch, args.seq, device=bundle.device,
-                        start_step=trainer.ckpt.latest_step() or 0)
+                        start_step=trainer.ckpt.latest_step() or 0,
+                        mesh=mesh)
     try:
         with mmcfg.scope_from_args(args):
             out = trainer.run(loader)

@@ -61,17 +61,41 @@ def sequence_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     card), which indexes rows and columns from 0 — the JAX package names
     its flash kernel as the runtime path here.  The "torch" backend keeps
     `blockwise_attention` on `positions`, the reference rung."""
+    def attend(q, k, v):
+        qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+        if config.resolve().backend == "cuda":
+            ctx = ops.flash_attention(qt, kt, vt, causal=causal,
+                                      window=window, softcap=cfg.attn_softcap)
+        else:
+            ctx = layers.blockwise_attention(
+                qt, kt, vt, causal=causal, window=window,
+                softcap=cfg.attn_softcap, q_positions=positions,
+                kv_positions=positions)
+        return ctx.transpose(1, 2)
+
     b, s = q.shape[:2]
-    qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
-    if config.resolve().backend == "cuda":
-        ctx = ops.flash_attention(qt, kt, vt, causal=causal, window=window,
-                                  softcap=cfg.attn_softcap)
-    else:
-        ctx = layers.blockwise_attention(
-            qt, kt, vt, causal=causal, window=window,
-            softcap=cfg.attn_softcap, q_positions=positions,
-            kv_positions=positions)
-    return ctx.transpose(1, 2).reshape(b, s, cfg.n_heads * cfg.head_dim)
+    ctx = _per_head(attend, q, k, v)
+    return ctx.reshape(b, s, cfg.n_heads * cfg.head_dim)
+
+
+def _per_head(attend, q, k, v):
+    """`attend(q, k, v)` -> (B, S, H, hd); on `DTensor`s, run on each
+    rank's batch rows and heads (attention is independent across both, as
+    under the JAX package's shard_map): every other dim is gathered first,
+    and heads stay split over a mesh dim only where q's and k / v's head
+    counts both divide by it.  Plain tensors go straight through."""
+    if not hasattr(q, "placements"):
+        return attend(q, k, v)
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    mesh = q.device_mesh
+    place = []
+    for i, pl in enumerate(q.placements):
+        n = mesh.size(i)
+        heads_split = pl == Shard(2) and q.shape[2] % n == 0 \
+            and k.shape[2] % n == 0
+        place.append(pl if pl == Shard(0) or heads_split else Replicate())
+    local = [t.redistribute(mesh, place).to_local() for t in (q, k, v)]
+    return DTensor.from_local(attend(*local), mesh, place, run_check=False)
 
 
 def cross_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -85,13 +109,17 @@ def cross_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     K7's columns indexed from 0 are exact, so the "cuda" backend runs
     `ops.flash_attention(causal=False)`; "torch" keeps
     `blockwise_attention`, as the JAX package does."""
+    def attend(q, k, v):
+        qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+        if config.resolve().backend == "cuda":
+            ctx = ops.flash_attention(qt, kt, vt, causal=False)
+        else:
+            ctx = layers.blockwise_attention(qt, kt, vt, causal=False)
+        return ctx.transpose(1, 2)
+
     b, s = q.shape[:2]
-    qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
-    if config.resolve().backend == "cuda":
-        ctx = ops.flash_attention(qt, kt, vt, causal=False)
-    else:
-        ctx = layers.blockwise_attention(qt, kt, vt, causal=False)
-    return ctx.transpose(1, 2).reshape(b, s, cfg.n_heads * cfg.head_dim)
+    ctx = _per_head(attend, q, k, v)
+    return ctx.reshape(b, s, cfg.n_heads * cfg.head_dim)
 
 
 def gqa_attn(x: torch.Tensor, p: dict, cfg, *, window: int | None,

@@ -18,7 +18,14 @@ Where PyTorch differs from JAX, the port reproduces JAX's semantics:
 
 Capacity-slot accounting (`track_capacity_slots`) is opt-in, as in the
 JAX package, and recorded once per stage site and call
-(`core.stage_trace`).  The expert-parallel shard_map path is not ported yet.
+(`core.stage_trace`).
+
+Under an annotation mesh (`distributed.sharding.set_annotation_mesh`, a
+`DeviceMesh` with a "model" axis) `moe_mlp` takes the expert-parallel path
+`moe_mlp_shardmap`, the counterpart of the JAX package's shard_map: each
+rank routes its batch slice to its own slice of the experts, and one sum
+over "model" combines them.  `ep_counts()` counts its calls and the
+all-reduces it issues.
 """
 
 from __future__ import annotations
@@ -35,6 +42,7 @@ from repro_torch.models import layers
 from repro_torch.models.layers import linear_init
 
 _ROUTING_LOGS: list[list] = []
+_EP_COUNTS = {"shardmap_calls": 0, "all_reduce": 0}
 # Capacity-slot accounting.  Slot counts are static — (E, capacity) comes
 # from shapes, and the best-case fill is min(T*k, E*cap) — so recording
 # them reads no device value and costs nothing at runtime.  Opt-in: plain
@@ -169,11 +177,139 @@ def _dispatch_compute_combine(xf: torch.Tensor, p: dict, cfg, *,
     return y, aux
 
 
+def ep_counts() -> dict:
+    """{"shardmap_calls", "all_reduce"}: expert-parallel layer calls and
+    the all-reduces they issued, since `reset_ep_counts`."""
+    return dict(_EP_COUNTS)
+
+
+def reset_ep_counts() -> None:
+    for k in _EP_COUNTS:
+        _EP_COUNTS[k] = 0
+
+
+class _GroupSum(torch.autograd.Function):
+    """The sum over a process group of each rank's term, a value every
+    rank then holds (JAX's psum): its gradient is the output's, as is, on
+    every rank."""
+
+    @staticmethod
+    def forward(ctx, t, group):
+        import torch.distributed as dist
+        out = t.clone()
+        dist.all_reduce(out, op=dist.ReduceOp.SUM, group=group)
+        return out
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad, None
+
+
+def _all_reduce_sum(t: torch.Tensor, group) -> torch.Tensor:
+    _EP_COUNTS["all_reduce"] += 1
+    return _GroupSum.apply(t, group)
+
+
+def moe_mlp_shardmap(x: torch.Tensor, p: dict, cfg, mesh):
+    """Expert-parallel MoE over the mesh's "model" axis.
+
+    The inputs are global views: `DTensor`s, or plain tensors holding the
+    whole value on every rank (read as replicated; the output is then a
+    plain tensor too).  Token activations are replicated over "model" and
+    split over the data axes, so each (data, model) rank routes its token
+    copy to its own `max(E // model, 1)` experts with no dispatch
+    communication; capacity comes from the local token count.  The only
+    collective is one sum of the fp32 (T_local, D) output over "model" a
+    layer; aux is averaged over the data axes.  A shared expert is added
+    after the sum, with a plain `layers.mlp`."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate
+
+    from repro_torch.distributed import sharding as shd
+    b, s, d = x.shape
+    e = cfg.n_experts
+    msz = mesh.size(shd.axis_names(mesh).index("model"))
+    n_local = max(e // msz, 1)
+    dp = shd.dp_axes(mesh)
+    plain = not isinstance(x, DTensor)
+    rep = [Replicate()] * mesh.ndim
+
+    def local(t, spec, grad_over):
+        """t's local block by `spec`; its gradient there is a pending sum
+        over the mesh dims in `grad_over` (where the ranks' uses differ)
+        and keeps the block's placement elsewhere."""
+        if not isinstance(t, DTensor):
+            t = DTensor.from_local(t, mesh, rep, run_check=False)
+        place = shd.to_placements(spec, mesh)
+        grad = [Partial() if name in grad_over else pl for name, pl in
+                zip(shd.axis_names(mesh), place)]
+        return t.redistribute(mesh, place).to_local(grad_placements=grad)
+
+    _EP_COUNTS["shardmap_calls"] += 1
+    # tokens: each model rank routes the copy to its own experts; weights:
+    # each data rank routes its own tokens
+    xl = local(x, shd.P(dp, None, None), ("model",))
+    expert = shd.P("model", None, None)
+    pl = {"router": local(p["router"], shd.P(None, None),
+                          dp + ("model",)),
+          "w_gate": local(p["w_gate"], expert, dp),
+          "w_up": local(p["w_up"], expert, dp),
+          "w_down": local(p["w_down"], expert, dp)}
+    tl = xl.shape[0] * xl.shape[1]
+    m_idx = mesh.get_local_rank("model") if n_local < e else 0
+    y, aux = _dispatch_compute_combine(
+        xl.reshape(tl, d), pl, cfg, n_local_experts=n_local,
+        expert_offset=m_idx * n_local)
+    if m_idx:       # every model rank has aux; its gradient counts once
+        aux = aux.detach()
+    y = _all_reduce_sum(y, mesh.get_group("model"))
+    # aux is identical on every model rank (computed from the replicated
+    # token copy): average over the data ranks only.
+    n_dp = 1
+    for a in dp:
+        if a in shd.axis_names(mesh):
+            aux = _all_reduce_sum(aux, mesh.get_group(a))
+            n_dp *= mesh.size(shd.axis_names(mesh).index(a))
+    aux = aux / n_dp
+    y = y.reshape(xl.shape).to(x.dtype)
+    y = DTensor.from_local(y, mesh, shd.to_placements(
+        shd.P(dp, None, None), mesh), run_check=False)
+    aux = DTensor.from_local(aux, mesh, rep, run_check=False)
+    if plain:
+        y, aux = y.full_tensor(), aux.to_local()
+    if cfg.n_shared_experts:
+        y = y + layers.mlp(x.reshape(b * s, d), p["shared"], cfg).reshape(
+            b, s, d)
+    return y, aux
+
+
+def _ep_mesh(x, cfg):
+    """The annotation mesh when the expert-parallel path applies to `x`:
+    a `DeviceMesh` with a "model" axis that divides the experts, whose
+    data axes divide the batch."""
+    from repro_torch.distributed import sharding as shd
+    mesh = shd.annotation_mesh()
+    if mesh is None or isinstance(mesh, shd.MeshShape) or \
+            "model" not in shd.axis_names(mesh):
+        return None
+    sizes = shd.axis_sizes(mesh)
+    dp_sz = 1
+    for a in shd.dp_axes(mesh):
+        dp_sz *= sizes.get(a, 1)
+    if cfg.n_experts % sizes["model"] == 0 and x.shape[0] % dp_sz == 0:
+        return mesh
+    return None
+
+
 def moe_mlp(x: torch.Tensor, p: dict, cfg):
-    """x (B, S, D) -> (y (B, S, D), aux_loss fp32 scalar): the
-    single-device path over the full expert range.  A shared expert's
-    output lands on the routed sum through its down projection's fused
-    residual epilogue."""
+    """x (B, S, D) -> (y (B, S, D), aux_loss fp32 scalar).
+
+    Takes `moe_mlp_shardmap` under an annotation mesh it fits, else the
+    single-device path over the full expert range (the same math), where a
+    shared expert's output lands on the routed sum through its down
+    projection's fused residual epilogue."""
+    mesh = _ep_mesh(x, cfg)
+    if mesh is not None:
+        return moe_mlp_shardmap(x, p, cfg, mesh)
     b, s, d = x.shape
     xf = x.reshape(b * s, d)
     y, aux = _dispatch_compute_combine(

@@ -17,6 +17,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.core import config, skewmm
+from repro_torch.distributed.sharding import constrain
 from repro_torch.kernels import ops, ssd_scan
 from repro_torch.models import layers
 from repro_torch.models.layers import linear_init, rmsnorm
@@ -49,9 +50,15 @@ def ssd_chunked(x, dt, a_log, b_mat, c_mat, *, chunk: int,
     The JAX package takes a log-depth cumsum to keep XLA on the CPU from
     unrolling it; `torch.cumsum` has no such cost, so the prefix sum here
     is the plain one.  A ragged tail is a shorter last chunk, which equals
-    the JAX package's zero-dt padding."""
+    the JAX package's zero-dt padding.  The scan carry's layout is pinned
+    under an annotation mesh: heads follow "model"."""
+    bsz, _, h, p = x.shape
+    state0 = (torch.zeros((bsz, h, b_mat.shape[-1], p), dtype=torch.float32,
+                          device=x.device)
+              if init_state is None else init_state.float())
+    state0 = constrain(state0, "dp", "model", None, None)
     return ssd_scan.ssd_scan_plain(
-        x, dt, a_log, b_mat, c_mat, chunk=chunk, init_state=init_state,
+        x, dt, a_log, b_mat, c_mat, chunk=chunk, init_state=state0,
         return_state=return_state, round_dtype=x.dtype,
         cum_dtype=torch.float32)
 
@@ -119,19 +126,25 @@ def init_ssm(gen: torch.Generator, cfg, device) -> dict:
 def ssm_project(x, p, cfg, conv_state=None):
     """The projections and per-segment convs shared by prefill and decode.
     x (B, S, D) -> (z, xs, b, c, dt fp32, the new conv tails {cx, cb, cc}
-    (B, K-1, ch)); `conv_state`, when given, holds the decode tails."""
+    (B, K-1, ch)); `conv_state`, when given, holds the decode tails.
+    Under an annotation mesh the SSD head dim follows "model" and the
+    small B / C projections are replicated over it."""
     cs = conv_state or {}
-    z = skewmm.matmul(x, p["in_z"])
+    z = constrain(skewmm.matmul(x, p["in_z"]), "dp", None, "model")
     xs, conv_sx = causal_conv1d(skewmm.matmul(x, p["in_x"]), p["conv_x"],
                                 state=cs.get("cx"))
     b_mat, conv_sb = causal_conv1d(skewmm.matmul(x, p["in_b"]), p["conv_b"],
                                    state=cs.get("cb"))
     c_mat, conv_sc = causal_conv1d(skewmm.matmul(x, p["in_c"]), p["conv_c"],
                                    state=cs.get("cc"))
+    xs = constrain(F.silu(xs), "dp", None, "model")
+    b_mat = constrain(F.silu(b_mat), "dp", None, None)
+    c_mat = constrain(F.silu(c_mat), "dp", None, None)
     dt_raw = skewmm.matmul(x, p["in_dt"])
     dt = F.softplus(dt_raw.float() + p["dt_bias"])
+    dt = constrain(dt, "dp", None, "model")
     new_conv = {"cx": conv_sx, "cb": conv_sb, "cc": conv_sc}
-    return z, F.silu(xs), F.silu(b_mat), F.silu(c_mat), dt, new_conv
+    return z, xs, b_mat, c_mat, dt, new_conv
 
 
 def ssm_out(y, xs, z, p, cfg):

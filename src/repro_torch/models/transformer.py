@@ -54,8 +54,26 @@ def layer_iter(params, cfg):
                 yield kind, params[f"stage{si}"][r][f"b{i}"], si, r, i
 
 
+def _lookup(embed: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
+    """embed[tokens]; on a `DTensor` table, each rank looks up its own
+    token rows in the whole table (gathered over the vocab split) and its
+    table gradient is a pending sum over the ranks whose tokens differ."""
+    if not hasattr(embed, "placements"):
+        return embed[tokens]
+    from torch.distributed.tensor import DTensor, Partial, Replicate
+    mesh = embed.device_mesh
+    tok_place = (tokens.placements if hasattr(tokens, "placements")
+                 else (Replicate(),) * mesh.ndim)
+    table = embed.redistribute(mesh, (Replicate(),) * mesh.ndim).to_local(
+        grad_placements=[Replicate() if p.is_replicate() else Partial()
+                         for p in tok_place])
+    local = tokens.to_local() if hasattr(tokens, "placements") else tokens
+    return DTensor.from_local(table[local], mesh, tok_place,
+                              run_check=False)
+
+
 def embed_tokens(params, cfg, tokens: torch.Tensor) -> torch.Tensor:
-    x = params["embed"][tokens]
+    x = _lookup(params["embed"], tokens)
     if cfg.embed_scale:
         x = x * torch.tensor(cfg.d_model ** 0.5, dtype=x.dtype)
     return x

@@ -27,7 +27,10 @@ class AdamWState(NamedTuple):
 
 
 def f32_zeros(p: torch.Tensor) -> torch.Tensor:
-    """fp32 zeros of `p`'s shape on its device."""
+    """fp32 zeros of `p`'s shape on its device (a `DTensor` with `p`'s
+    placements for a `DTensor`)."""
+    if hasattr(p, "placements"):
+        return torch.zeros_like(p, dtype=torch.float32)
     return torch.zeros(p.shape, dtype=torch.float32, device=p.device)
 
 

@@ -23,10 +23,10 @@ import itertools
 from typing import Callable
 
 import torch
-import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.core import config, stage_trace
+from repro_torch.distributed import sharding
 
 
 def chunked_softmax_xent(hidden: torch.Tensor, targets: torch.Tensor,
@@ -42,9 +42,9 @@ def chunked_softmax_xent(hidden: torch.Tensor, targets: torch.Tensor,
         if mask is None else mask.to(torch.float32)
     targets = targets.to(torch.int64)
     if pad:
-        hidden = F.pad(hidden, (0, 0, 0, pad))
-        targets = F.pad(targets, (0, pad))
-        mask = F.pad(mask, (0, pad))
+        hidden = sharding.pad(hidden, (0, 0, 0, pad))
+        targets = sharding.pad(targets, (0, pad))
+        mask = sharding.pad(mask, (0, pad))
     cfg = config.resolve()
     calls = itertools.count()
 
@@ -54,7 +54,10 @@ def chunked_softmax_xent(hidden: torch.Tensor, targets: torch.Tensor,
                                  else stage_trace.quiet()):
             logits = logits_fn(h).to(torch.float32)          # (B, c, V)
             logz = torch.logsumexp(logits, dim=-1)
-            gold = torch.gather(logits, -1, t[..., None])[..., 0]
+            # on a mesh the gold logit is read from whole vocab rows:
+            # DTensor cannot reduce a gather over a vocab split
+            whole = sharding.constrain(logits, "dp", None, None)
+            gold = torch.gather(whole, -1, t[..., None])[..., 0]
             nll = (logz - gold) * m
             return torch.sum(nll), torch.sum(m)
 

@@ -74,12 +74,17 @@ def make_loss_fn(bundle: ModelBundle, ts_cfg: TrainStepConfig):
 def value_and_grad(loss_fn):
     """(params, batch) -> (loss, grads): grads in the param dtype, None
     where the loss does not reach a param.  The params themselves are not
-    touched (autograd runs on detached aliases)."""
+    touched (autograd runs on detached aliases).  A `DTensor` param's
+    gradient is reduced to the param's placements (the sum over the data
+    ranks that a batch split leaves pending)."""
     def run(params, batch):
         live = [p.detach().requires_grad_(True) for p in leaves(params)]
         with torch.enable_grad():
             loss = loss_fn(unflatten(params, live), batch)
         grads = torch.autograd.grad(loss, live, allow_unused=True)
+        grads = [g.redistribute(p.device_mesh, p.placements)
+                 if hasattr(g, "placements") else g
+                 for g, p in zip(grads, live)]
         return loss.detach(), unflatten(params, grads)
     return run
 

@@ -131,3 +131,14 @@ def test_tune_launcher_and_benches_default_to_the_card(no_cuda, tmp_path):
         entry = call(top=1, device="cpu")
         first = entry[0] if isinstance(entry, list) else entry
         assert first.measured_us > 0
+
+
+def test_make_host_mesh_defaults_to_the_card(no_cuda):
+    from repro_torch.launch import mesh
+    with pytest.raises(RuntimeError, match="CUDA"):
+        mesh.make_host_mesh()
+    # the production mesh needs its 256 ranks: refused before any group
+    with pytest.raises(ValueError, match="256 ranks"):
+        mesh.make_production_mesh(device="cpu")
+    with pytest.raises(ValueError, match="512 ranks"):
+        mesh.make_production_mesh(multi_pod=True, device="cpu")
