@@ -321,9 +321,33 @@ then the mesh, after the training state is freed:
      both; (d) a reduced phi4 checkpoint of the meshless trainer restored
      through `restore(specs=, mesh=)` as DTensors on the card, byte for
      byte equal to the saved state;
+then the launch tools, after the mesh's process group is destroyed:
+  4n. (the seventeenth main path) (a) `launch.dryrun` in subprocesses on
+     fake "cuda" tensors over a fake process group: phi4-mini-3.8b at
+     train_4k, prefill_32k and decode_32k on "pod" (256 ranks) and
+     deepseek-v3-671b at train_4k on "multipod" (512 ranks, FSDP: over
+     the 60B threshold), each at 1 layer of its published widths (the
+     Python loops trace every layer; `--layers 1`), trace seconds, bytes
+     per device at that depth (not a fit: the full-depth CPU traces are
+     in ROADMAP queue 3), the dominant term and its fraction on
+     gpu_h100 and the collective counts; every cell must trace and every
+     train cell count a collective; (b) `launch.costprobe` in
+     subprocesses: phi4-mini at train_4k and decode_32k and mamba2-2.7b
+     at long_500k on "pod", the three terms in ms and useful_ratio; (c)
+     one phi4-mini block's train probe at b 2 x s 4096 on a one-rank NCCL
+     mesh through the "torch" rung, traced on fake tensors and run for
+     real on the card: the FLOPs of `FlopCounterMode` and of
+     `roofline.measure` must be equal in both, the real run's device ms
+     (CUDA events) beside the probe's compute / memory terms; the same
+     block's prefill probe run through "cuda" (K1, K7; counts zeroed
+     before and read after) on plain tensors, timed beside its serve
+     terms; its block output and filled cache entry against the "torch"
+     rung's on the same inputs (phase 5's bounds), then K7 at the probe's
+     2 x 24/8 x 4096 x 128 and K1 at each plan of that run (M 8192)
+     against their plain versions (phase 3's tolerance);
   7. the served decode ms per token, graphed and eager, of every run; the
      `kernels` JSON line (K1-K9, K8's three kernels apart, launches summed
-     over the sixteen main paths; then phase 6i's five deepseek rows and
+     over the seventeen main paths; then phase 6i's five deepseek rows and
      phase 6j's rows, each with its "shape" and its paths' launches), then
      the device line.
 Every phase from 3 on runs between two `guard_disarmed` checks: no ladder
@@ -5058,6 +5082,267 @@ def mesh_restore(torch, mesh, card: str) -> None:
     shutil.rmtree(root, ignore_errors=True)
 
 
+# Phase 4n: the launch tools' cells (arch, shape, mesh, layers traced).
+DRYRUN_CELLS = (("phi4-mini-3.8b", "train_4k", "pod", 1),
+                ("phi4-mini-3.8b", "prefill_32k", "pod", 1),
+                ("phi4-mini-3.8b", "decode_32k", "pod", 1),
+                ("deepseek-v3-671b", "train_4k", "multipod", 1))
+PROBE_CELLS = (("phi4-mini-3.8b", "train_4k", "pod"),
+               ("phi4-mini-3.8b", "decode_32k", "pod"),
+               ("mamba2-2.7b", "long_500k", "pod"))
+PROBE_BLOCK = ("phi4-mini-3.8b", "attn_global", 2, 4096)
+TOOLS_TIMEOUT = 420
+
+
+def launch_tools_procs(out: Path) -> list:
+    """Phase 4n (a) / (b): one subprocess a cell, all started together."""
+    env = dict(os.environ)
+    env["PYTHONPATH"] = str(SRC) + (os.pathsep + env["PYTHONPATH"]
+                                    if env.get("PYTHONPATH") else "")
+    env["OMP_NUM_THREADS"] = "1"
+    procs = []
+    for arch, shape, mesh, layers in DRYRUN_CELLS:
+        argv = [sys.executable, "-m", "repro_torch.launch.dryrun",
+                "--arch", arch, "--shape", shape, "--mesh", mesh,
+                "--layers", str(layers), "--out", str(out / "dryrun")]
+        procs.append((("dryrun", arch, shape, mesh), subprocess.Popen(
+            argv, env=env, cwd=ROOT, stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE, text=True)))
+    for arch, shape, mesh in PROBE_CELLS:
+        argv = [sys.executable, "-m", "repro_torch.launch.costprobe",
+                "--arch", arch, "--shape", shape, "--mesh", mesh,
+                "--out", str(out / "roofline")]
+        procs.append((("costprobe", arch, shape, mesh), subprocess.Popen(
+            argv, env=env, cwd=ROOT, stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE, text=True)))
+    return procs
+
+
+def collect_launch_tools(procs, out: Path, card: str) -> None:
+    """Wait for phase 4n's subprocesses; print and gate their records."""
+    from repro_torch.configs.base import get_config
+    depth = {(a, s, m): n for a, s, m, n in DRYRUN_CELLS}
+    bad = []
+    for (tool, arch, shape, mesh), proc in procs:
+        try:
+            _, err = proc.communicate(timeout=TOOLS_TIMEOUT)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.communicate()
+            bad.append(f"{tool} {arch} {shape} {mesh}: timed out")
+            continue
+        path = out / ("dryrun" if tool == "dryrun" else "roofline") / \
+            f"{arch}__{shape}__{mesh}.json"
+        if proc.returncode != 0 or not path.exists():
+            bad.append(f"{tool} {arch} {shape} {mesh}: rc "
+                       f"{proc.returncode}: {err.strip()[-600:]}")
+            continue
+        rec = json.loads(path.read_text())
+        terms = (f"compute {rec['compute_s'] * 1e3:.3f} ms memory "
+                 f"{rec['memory_s'] * 1e3:.3f} ms collective "
+                 f"{rec['collective_s'] * 1e3:.3f} ms")
+        if tool == "dryrun":
+            layers = depth[arch, shape, mesh]
+            say(f"tools (a) ({card}): dryrun {arch} {shape} {mesh} "
+                f"({rec['chips']} ranks, {layers} of "
+                f"{get_config(arch).n_layers} layers traced): traced in "
+                f"{rec['compile_s']:.1f} s, "
+                f"{rec['bytes_per_device'] / 1e9:.2f} GB a device at that "
+                f"depth (no fit: ROADMAP queue 3 holds the full-depth CPU "
+                f"traces), {terms}, dominant {rec['dominant']} at fraction "
+                f"{rec['roofline_fraction']:.4f} on gpu_h100, collectives "
+                f"{rec['collective_counts']}")
+            if shape.startswith("train") and \
+                    sum(rec["collective_counts"].values()) < 1:
+                bad.append(f"dryrun {arch} {shape}: no collective counted")
+        else:
+            say(f"tools (b) ({card}): costprobe {arch} {shape} {mesh}: "
+                f"{terms}, useful_ratio {rec['useful_ratio']:.4f}, dominant "
+                f"{rec['dominant']}, probed in {rec['probe_s']:.1f} s")
+    if bad:
+        fail("phase 4n: " + "; ".join(bad))
+
+
+def cuda_ms(torch, fn, reps: int = 3) -> float:
+    """Median device ms of `fn()` by CUDA events, after one warm call."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end))
+    return sorted(times)[len(times) // 2]
+
+
+def check_probe_prefill(torch, got, want, log, cfg, b: int, s: int,
+                        card: str) -> None:
+    """Phase 4n (c): the "cuda" prefill probe's block output and the cache
+    entry it filled, against the "torch" rung's on the same inputs (phase
+    5's bounds); then K7 at the probe's (B, H, S, D) and K1 at each plan
+    of the run (its M x K x N, schedule and tiles, no epilogue) against
+    their plain versions (the kernel tolerance)."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import skew_matmul as mm
+    for (name, g), w in zip([("out", got[0])] + sorted(got[1].items()),
+                            [want[0]] + [want[1][k] for k in sorted(got[1])]):
+        diff = (g.float() - w.float()).abs()
+        rel_max = diff.max().item() / w.float().abs().max().item()
+        rel_mean = diff.mean().item() / w.float().abs().mean().item()
+        say(f"tools (c) ({card}): prefill probe {name} {tuple(g.shape)} "
+            f"\"cuda\" against \"torch\": rel max {rel_max:.3e}, mean "
+            f"{rel_mean:.3e} (bounds {PATH_TOL_MAX} / {PATH_TOL_MEAN})")
+        if not (rel_max <= PATH_TOL_MAX and rel_mean <= PATH_TOL_MEAN):
+            fail(f"phase 4n (c): the cuda prefill probe's {name} disagrees "
+                 f"with the torch rung's")
+    errs: dict = {}
+    check = functools.partial(check_kernel, torch, errs)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(4096)
+    bf = torch.bfloat16
+    q, k, v = _qkv(torch, gen, b, cfg.n_heads, cfg.n_kv_heads, s,
+                   cfg.head_dim, bf)
+    check("flash_attention", fa.flash_attention_cuda(q, k, v),
+          fa.flash_attention_plain(q, k, v), bf,
+          f"probe {b}x{cfg.n_heads}/{cfg.n_kv_heads}x{s}x{cfg.head_dim}")
+    del q, k, v
+    plans = {}
+    for c in log:
+        if hasattr(c, "plan") and not hasattr(c, "layout"):
+            d, pl = c.dims, c.plan
+            rows = d.m if pl.batch_grid else d.m * d.batch
+            plans[(rows, d.k, d.n, pl.schedule, pl.bm, pl.bk, pl.bn)] = c
+    for (m, kk, n, sched, bm, bk, bn) in sorted(plans):
+        tag = f"probe {m}x{kk}x{n} ({bm}, {bk}, {bn})"
+        if sched not in ("k_inner", "a_resident", "b_resident"):
+            say(f"tools (c) ({card}): plan {sched} {tag} held by the block "
+                f"check only")
+            continue
+        a = torch.randn((m, kk), generator=gen, device="cuda").to(bf)
+        w = (torch.randn((kk, n), generator=gen, device="cuda")
+             * kk ** -0.5).to(bf)
+        got_mm = mm.skew_matmul_cuda(a, w, bm=bm, bk=bk, bn=bn,
+                                     schedule=sched, out_dtype=bf)
+        torch.cuda.synchronize()
+        check(f"skew_matmul_{sched}", got_mm,
+              mm.skew_matmul_plain(a, w, bk=bk, out_dtype=bf), bf, tag)
+        del a, w, got_mm
+    if not any(n.startswith("skew_matmul") for n in errs):
+        fail("phase 4n (c): no K1 plan of the prefill probe was checked")
+
+
+def phase_launch_tools(torch, card: str) -> dict:
+    """Phase 4n (the seventeenth main path): the dryrun and costprobe
+    cells in subprocesses, and the train probe's count checked on the
+    card (see the module docstring)."""
+    import torch.distributed as dist
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from repro_torch.core import config as mmcfg
+    from repro_torch.core import roofline, skewmm
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.kernels import ops
+    from repro_torch.launch import costprobe
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import layers
+
+    t_phase = time.perf_counter()
+    out = ROOT / "build" / "smoke_tools"
+    procs = launch_tools_procs(out)
+
+    # (c) the train probe of one block, fake and real, on a one-rank mesh
+    arch, kind, b, s = PROBE_BLOCK
+    mesh = make_host_mesh(device="cuda")
+    counts = {}
+    try:
+        probes = {"fake": costprobe.CellProber(arch, "train_4k", "pod",
+                                               mesh=mesh),
+                  "real": costprobe.CellProber(arch, "train_4k", "pod",
+                                               mesh=mesh, seed=0)}
+        for tag, prober in probes.items():
+            with prober._scope(), mmcfg.mm_config(backend="torch"), \
+                    layers.chunk_override(*costprobe.SINGLE_TRIP):
+                f, args, _ = prober.block_train_step(kind, b, s)
+                run = shd.on_mesh(f, mesh)
+                fc = FlopCounterMode(display=False)
+                with fc:
+                    run(*args)
+                _, cost = roofline.measure(run, *args)
+                counts[tag] = (fc.get_total_flops(), cost.flops, cost.bytes)
+                if tag == "real":
+                    real_ms = cuda_ms(torch, lambda: run(*args))
+                del f, args, run
+        with probes["fake"]._scope(), mmcfg.mm_config(backend="torch"):
+            block = probes["fake"]._probe_block_train(kind, b, s)
+    finally:
+        dist.destroy_process_group()
+    torch.cuda.empty_cache()
+    (fc_fake, pc_fake, by_fake), (fc_real, pc_real, by_real) = \
+        counts["fake"], counts["real"]
+    h100 = "gpu_h100"
+    rep = roofline.analyze(
+        roofline.ProgramCost(block.flops, block.bytes, block.coll_bytes,
+                             block.coll_counts, 0),
+        arch=arch, shape=f"b{b} s{s}", mesh="1 rank", chips=1,
+        model_flops=0.0, chip=h100)
+    eager = roofline.analyze(
+        roofline.ProgramCost(pc_fake, by_fake, 0.0, {}, 0), arch=arch,
+        shape="", mesh="", chips=1, model_flops=0.0, chip=h100)
+    say(f"tools (c) ({card}): {arch} {kind} block train probe at b {b} x s "
+        f"{s} on a one-rank NCCL mesh (\"torch\" rung, single-trip "
+        f"attention): FlopCounterMode fake {fc_fake} real {fc_real}, "
+        f"roofline.measure fake {pc_fake:.0f} real {pc_real:.0f}; bytes "
+        f"fake {by_fake:.0f} real {by_real:.0f}; device {real_ms:.3f} ms "
+        f"(CUDA events, median of 3) beside the probe's compute "
+        f"{rep.compute_s * 1e3:.3f} ms, memory {rep.memory_s * 1e3:.3f} ms "
+        f"with K7's flash traffic, {eager.memory_s * 1e3:.3f} ms at the "
+        f"eager bytes, on gpu_h100")
+    if fc_fake != fc_real or pc_fake != pc_real or fc_real <= 0:
+        fail(f"phase 4n (c): the fake trace counts {fc_fake} / {pc_fake} "
+             f"FLOPs, the card's run {fc_real} / {pc_real}")
+
+    # the same block's prefill probe through "cuda": K1 and K7 on the card
+    fake = costprobe.CellProber(arch, "prefill_32k", "pod", mesh=None)
+    with fake._scope(), mmcfg.mm_config(backend="torch"):
+        serve = fake._probe_block_serve(kind, b, s, mode="prefill")
+    terms = roofline.analyze(
+        roofline.ProgramCost(serve.flops, serve.bytes, 0.0, {}, 0),
+        arch=arch, shape="", mesh="", chips=1, model_flops=0.0, chip=h100)
+    real = costprobe.CellProber(arch, "prefill_32k", "pod", mesh=None,
+                                seed=0)
+    with mmcfg.mm_config(backend="cuda"):
+        f, args, _ = real.block_serve_step(kind, b, s, mode="prefill")
+        ops.reset_launch_counts()
+        # ---- the main path: counts zeroed above, read right after it.
+        with skewmm.plan_capture() as log:
+            got = f(*args)
+        torch.cuda.synchronize()
+        counts = {k: v for k, v in ops.launch_counts().items() if v}
+        # ---- end of the main path.
+        prefill_ms = cuda_ms(torch, lambda: f(*args))
+    with mmcfg.mm_config(backend="torch"):
+        want = f(*args)
+    check_probe_prefill(torch, got, want, log, real.cfg, b, s, card)
+    del f, args, got, want
+    torch.cuda.empty_cache()
+    say(f"tools (c) ({card}): the block's prefill probe through \"cuda\" "
+        f"(launches {counts}): {prefill_ms:.3f} ms device beside its serve "
+        f"terms compute {terms.compute_s * 1e3:.3f} ms memory "
+        f"{terms.memory_s * 1e3:.3f} ms on gpu_h100")
+    for name in ("skew_matmul", "flash_attention"):
+        if not any(n.startswith(name) for n in counts):
+            fail(f"phase 4n (c): the cuda prefill probe launched no {name}")
+
+    collect_launch_tools(procs, out, card)
+    say(f"tools ({card}): phase 4n took "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    return {"counts": counts}
+
+
 def _flat_tensors(state) -> dict:
     """{path key: tensor} of a TrainState's params and moments (the
     checkpoint's keys, per layer), left on their device."""
@@ -5143,6 +5428,9 @@ def main() -> None:
 
     card = phase_env(torch)
     phase_build()
+    if "--tools-only" in sys.argv[1:]:       # phase 4n alone, no contract
+        guarded("phase 4n", phase_launch_tools, torch, card)
+        return
 
     from repro_torch.configs.base import get_config
     cfg = get_config("phi4-mini-3.8b")
@@ -5326,6 +5614,11 @@ def main() -> None:
                         train_path["step_ms"])
     torch.cuda.empty_cache()
 
+    # the launch tools: dryrun and costprobe on fake process groups, the
+    # probe's count checked on the card
+    tools_path = guarded("phase 4n", phase_launch_tools, torch, card)
+    torch.cuda.empty_cache()
+
     say("served decode, ms per token (host clock): " + "; ".join(
         f"{g['tag']} graphed {g['graph_ms']:.2f} eager {g['eager_ms']:.2f}"
         for path in (phi4_graph, moe_path, hyb_path, ssm_path, gemma_path,
@@ -5339,8 +5632,8 @@ def main() -> None:
     # 192 / 128 widths, K5 at 256 groups) and phase 6j's rows (K7 at the
     # VLM and encoder-decoder shapes, Sq != Skv among them, and K1 at the
     # odd LM heads) with their "shape"; the other shapes are in the log
-    # above.  Launches: summed over the sixteen main paths (training runs
-    # none); a deepseek
+    # above.  Launches: summed over the seventeen main paths (training runs
+    # none; phase 4n's prefill probe runs K1 and K7); a deepseek
     # row's are those of the deepseek path, a phase 6j row's those of the
     # internvl2-1b and seamless-m4t paths.
     launches = {n: sum(c.get(n, 0) for c in (
@@ -5349,7 +5642,7 @@ def main() -> None:
         gemma_path["counts"], granite_path["counts"], cr_path["counts"],
         guard_path["counts"], sched_path["counts"], mla_path["counts"],
         vlm_path["counts"], ed_path["counts"], train_path["counts"],
-        mesh_path["counts"]))
+        mesh_path["counts"], tools_path["counts"]))
         for n in KERNELS}
     first = {}
     for r in rows:

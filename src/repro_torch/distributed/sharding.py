@@ -100,6 +100,22 @@ def annotation_mesh():
     return _ANNOTATE_MESH
 
 
+def on_mesh(fn, mesh):
+    """`fn` run with `mesh` as the annotation mesh and plain tensors
+    (positions, masks, scalars) taken as replicated, as a step runs on a
+    mesh's global-view `DTensor`s."""
+    def run(*args):
+        from torch.distributed.tensor.experimental import implicit_replication
+        prev = annotation_mesh()
+        set_annotation_mesh(mesh)
+        try:
+            with implicit_replication():
+                return fn(*args)
+        finally:
+            set_annotation_mesh(prev)
+    return run
+
+
 def constrain(x, *spec_entries):
     """The guarded layout of `x` under the annotation mesh.
 
@@ -135,6 +151,135 @@ def pad(x, widths: tuple, value: float = 0.0):
     local = x.redistribute(x.device_mesh, place).to_local()
     return DTensor.from_local(F.pad(local, widths, value=value),
                               x.device_mesh, place, run_check=False)
+
+
+def on_local_blocks(fn, args, in_specs, out_specs):
+    """``fn(*args)``.  Where an arg is a `DTensor`, `fn` runs instead on
+    each rank's block, as torch's `local_map` does: the one place an op
+    that DTensor's own rules cannot split (attention by heads, the SSD
+    scan) is run rank by rank.
+
+    `in_specs` has one spec a arg and `out_specs` one a output of `fn`
+    (a single tensor, or a tuple of them): tuples of entries as
+    `constrain` takes them ("dp" for the data axes, "model", None).  An
+    entry whose axes do not divide its dim in every arg that names it is
+    dropped from every spec, inputs and outputs alike, so the blocks line
+    up (heads split only where q's and k / v's head counts both divide).
+    Each arg (a plain tensor taken as replicated) is laid out by its spec
+    and handed to `fn` as this rank's block; each output comes back as a
+    `DTensor` laid out by its own."""
+    mesh = next((a.device_mesh for a in args if hasattr(a, "placements")),
+                None)
+    if mesh is None:
+        return fn(*args)
+    from torch.distributed.tensor import DTensor, Replicate
+    dp = dp_axes(mesh)
+
+    def entries(spec):
+        return tuple(dp if e == "dp" else e for e in spec)
+
+    dropped = {e for a, spec in zip(args, in_specs)
+               for dim, e in zip(a.shape, entries(spec))
+               if e is not None and dim % _axis_size(mesh, e)}
+
+    def placements(spec):
+        return to_placements(P(*(None if e in dropped else e
+                                 for e in entries(spec))), mesh)
+
+    local = []
+    for a, spec in zip(args, in_specs):
+        if not hasattr(a, "placements"):
+            a = DTensor.from_local(a, mesh, [Replicate()] * mesh.ndim,
+                                   run_check=False)
+        local.append(a.redistribute(mesh, placements(spec)).to_local())
+    out = fn(*local)
+    outs = out if isinstance(out, tuple) else (out,)
+    placed = tuple(DTensor.from_local(o, mesh, placements(spec),
+                                      run_check=False)
+                   for o, spec in zip(outs, out_specs))
+    return placed if isinstance(out, tuple) else placed[0]
+
+
+def block_start(mesh, placements, dim: int, block: int) -> int:
+    """The global index of this rank's first entry along `dim` of a
+    tensor laid out by `placements`, split evenly into blocks of `block`
+    (nested splits in mesh-dim order, as DTensor lays them out)."""
+    from torch.distributed.tensor import Shard
+    start = 0
+    for i, p in enumerate(placements):
+        if p == Shard(dim):
+            start = start * mesh.size(i) + mesh.get_local_rank(i)
+    return start * block
+
+
+def write_slot(dst: torch.Tensor, dim: int, slot: torch.Tensor,
+               src: torch.Tensor) -> None:
+    """``dst.index_copy_(dim, slot, src)`` for one slot (a (1,) index
+    tensor).  A `DTensor` (a cache) is written rank by rank: each rank
+    writes its own block where `dim` is split over the mesh and the slot
+    falls in it (tensor ops, no host read); DTensor's own in-place rule
+    can re-place `dst` without moving its data."""
+    if not hasattr(dst, "placements"):
+        dst.index_copy_(dim, slot, src)
+        return
+    from torch.distributed.tensor import Replicate, Shard
+    mesh, place = dst.device_mesh, dst.placements
+    local = dst.to_local()
+    block = local.shape[dim]
+    offset = block_start(mesh, place, dim, block)
+    src_place = [Replicate() if p == Shard(dim) else p for p in place]
+    new = src.redistribute(mesh, src_place).to_local()
+    at = (slot - offset).clamp(0, block - 1)
+    inside = (slot >= offset) & (slot < offset + block)
+    old = local.index_select(dim, at)
+    local.index_copy_(dim, at, torch.where(inside, new, old))
+
+
+def microbatch(v: torch.Tensor, n: int, i: int) -> torch.Tensor:
+    """Rows [i B/n, (i+1) B/n) of a batch leaf.  A `DTensor` is gathered
+    over the mesh dims that split its rows, sliced, and split again by the
+    batch rule (as XLA reshards the JAX step's reshape): DTensor's view
+    rule cannot split rows that 16 data ranks hold into 8 microbatches."""
+    if not hasattr(v, "placements"):
+        return v.reshape(n, v.shape[0] // n, *v.shape[1:])[i]
+    from torch.distributed.tensor import Replicate, Shard
+    mesh = v.device_mesh
+    whole = v.redistribute(mesh, [Replicate() if p == Shard(0) else p
+                                  for p in v.placements])
+    rows = v.shape[0] // n
+    part = whole[i * rows:(i + 1) * rows]
+    return part.redistribute(
+        mesh, to_placements(batch_spec(tuple(part.shape), mesh), mesh))
+
+
+def split_last(x, *sizes):
+    """`x.reshape(*x.shape[:-1], *sizes)`.  A `DTensor` whose last dim is
+    split over a mesh dim that does not divide ``sizes[0]`` (24 heads over
+    16 ranks) is first gathered over that mesh dim, as XLA's partitioner
+    reshards such a reshape; DTensor's view rule refuses it."""
+    shape = (*x.shape[:-1], *sizes)
+    if not hasattr(x, "placements"):
+        return x.reshape(shape)
+    from torch.distributed.tensor import Replicate, Shard
+    last = x.ndim - 1
+    place = [Replicate() if isinstance(p, Shard) and p.dim == last
+             and sizes[0] % x.device_mesh.size(i) else p
+             for i, p in enumerate(x.placements)]
+    if list(place) != list(x.placements):
+        x = x.redistribute(x.device_mesh, place)
+    return x.reshape(shape)
+
+
+def merge_last(x, n: int):
+    """`x` with its last two dims merged into one of `n`.  A `DTensor`'s
+    gradient is handed back to the merge in the merged tensor's own
+    placements (a redistribute to them, the identity forward): torch
+    2.11's view rule refuses to split a gradient whose merged dim is
+    sharded over a mesh dim that does not divide the heads."""
+    out = x.reshape(*x.shape[:-2], n)
+    if not hasattr(out, "placements"):
+        return out
+    return out.redistribute(out.device_mesh, out.placements)
 
 
 def _axis_size(mesh, axes) -> int:

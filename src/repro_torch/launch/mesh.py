@@ -9,6 +9,9 @@ only: the environment's ``MASTER_ADDR`` / ``MASTER_PORT`` / ``RANK`` /
 in-process store.  `make_production_mesh` needs a world of 256 (512)
 ranks; a `distributed.sharding.MeshShape` of the same names and sizes is
 what the sharding rules and the cost model price on one host.
+`make_fake_mesh` is the production mesh on one host for tracing: a
+`DeviceMesh` over a fake process group (this process is rank 0), whose
+collectives send nothing; the launch tools trace fake tensors on it.
 """
 
 from __future__ import annotations
@@ -61,6 +64,37 @@ def make_host_mesh(model: int = 1, device=None, init_method: str | None = None):
                             mesh_dim_names=("data", "model"))
 
 
+def production_dims(multi_pod: bool = False):
+    """(sizes, names) of the production mesh: 16x16 = 256 chips per pod,
+    (2, 16, 16) = 512 multi-pod."""
+    return (((2, 16, 16), ("pod", "data", "model")) if multi_pod
+            else ((16, 16), ("data", "model")))
+
+
+def make_fake_mesh(dims: tuple[int, ...], names: tuple[str, ...],
+                   device=None):
+    """A `DeviceMesh` of `dims` over a fake process group of prod(dims)
+    ranks, formed here as rank 0 (an earlier fake group of another size is
+    replaced; a real group raises).  Meant for fake tensors
+    (`FakeTensorMode`): its collectives move nothing."""
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+    need = 1
+    for d in dims:
+        need *= d
+    dev = resolve_device(device)
+    if dist.is_initialized():
+        if dist.get_backend() != "fake":
+            raise RuntimeError(f"a {dist.get_backend()!r} process group is "
+                               f"formed; a fake mesh needs its own process")
+        if dist.get_world_size() != need:
+            dist.destroy_process_group()
+    if not dist.is_initialized():
+        dist.init_process_group("fake", store=FakeStore(), rank=0,
+                                world_size=need)
+    return init_device_mesh(dev.type, tuple(dims), mesh_dim_names=names)
+
+
 def make_production_mesh(*, multi_pod: bool = False, device=None,
                          init_method: str | None = None):
     """The production `DeviceMesh`, 16x16 = 256 chips per pod, (2, 16,
@@ -68,8 +102,7 @@ def make_production_mesh(*, multi_pod: bool = False, device=None,
     ranks.  ``sharding.MeshShape(dims, names)`` is the same mesh as names
     and sizes, for pricing it on one host."""
     from torch.distributed.device_mesh import init_device_mesh
-    dims, names = ((2, 16, 16), ("pod", "data", "model")) if multi_pod \
-        else ((16, 16), ("data", "model"))
+    dims, names = production_dims(multi_pod)
     need = 1
     for d in dims:
         need *= d

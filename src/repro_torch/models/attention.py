@@ -10,6 +10,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.core import config, skewmm
+from repro_torch.distributed import sharding
 from repro_torch.kernels import ops
 from repro_torch.models import layers
 from repro_torch.models.layers import (apply_rope, linear_init, rmsnorm,
@@ -41,9 +42,9 @@ def gqa_project(x: torch.Tensor, p: dict, cfg, positions: torch.Tensor):
     v = skewmm.matmul(x, p["wv"])
     if cfg.attn_qkv_bias:
         q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
-    q = q.reshape(b, s, h, hd)
-    k = k.reshape(b, s, kv, hd)
-    v = v.reshape(b, s, kv, hd)
+    q = sharding.split_last(q, h, hd)
+    k = sharding.split_last(k, kv, hd)
+    v = sharding.split_last(v, kv, hd)
     if cfg.pos_embedding == "rope":
         cos, sin = rope_freqs(positions, hd, cfg.rope_theta)
         q = apply_rope(q, cos, sin)
@@ -73,29 +74,19 @@ def sequence_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                 kv_positions=positions)
         return ctx.transpose(1, 2)
 
-    b, s = q.shape[:2]
-    ctx = _per_head(attend, q, k, v)
-    return ctx.reshape(b, s, cfg.n_heads * cfg.head_dim)
+    ctx = per_head(attend, q, k, v)
+    return sharding.merge_last(ctx, cfg.n_heads * cfg.head_dim)
 
 
-def _per_head(attend, q, k, v):
+def per_head(attend, q, k, v):
     """`attend(q, k, v)` -> (B, S, H, hd); on `DTensor`s, run on each
     rank's batch rows and heads (attention is independent across both, as
-    under the JAX package's shard_map): every other dim is gathered first,
-    and heads stay split over a mesh dim only where q's and k / v's head
-    counts both divide by it.  Plain tensors go straight through."""
-    if not hasattr(q, "placements"):
-        return attend(q, k, v)
-    from torch.distributed.tensor import DTensor, Replicate, Shard
-    mesh = q.device_mesh
-    place = []
-    for i, pl in enumerate(q.placements):
-        n = mesh.size(i)
-        heads_split = pl == Shard(2) and q.shape[2] % n == 0 \
-            and k.shape[2] % n == 0
-        place.append(pl if pl == Shard(0) or heads_split else Replicate())
-    local = [t.redistribute(mesh, place).to_local() for t in (q, k, v)]
-    return DTensor.from_local(attend(*local), mesh, place, run_check=False)
+    under the JAX package's shard_map; `sharding.on_local_blocks`): every
+    other dim (a decode cache's positions too) is gathered first, and
+    heads stay split over "model" only where q's and k / v's head counts
+    both divide by it.  Plain tensors go straight through."""
+    spec = ("dp", None, "model", None)
+    return sharding.on_local_blocks(attend, (q, k, v), (spec,) * 3, (spec,))
 
 
 def cross_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -117,9 +108,8 @@ def cross_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             ctx = layers.blockwise_attention(qt, kt, vt, causal=False)
         return ctx.transpose(1, 2)
 
-    b, s = q.shape[:2]
-    ctx = _per_head(attend, q, k, v)
-    return ctx.reshape(b, s, cfg.n_heads * cfg.head_dim)
+    ctx = per_head(attend, q, k, v)
+    return sharding.merge_last(ctx, cfg.n_heads * cfg.head_dim)
 
 
 def gqa_attn(x: torch.Tensor, p: dict, cfg, *, window: int | None,
@@ -162,7 +152,10 @@ def mla_queries(x: torch.Tensor, p: dict, cfg, positions: torch.Tensor):
     """q_nope (B, S, H, nope), q_rope (B, S, H, rd)."""
     b, s, _ = x.shape
     h, nope, rd = cfg.n_heads, cfg.qk_nope_dim, cfg.qk_rope_dim
-    q = rmsnorm(skewmm.matmul(x, p["wq_a"]), p["q_norm"], cfg.norm_eps)
+    # constrained so that rmsnorm's backward hands wq_a's gradient back in
+    # this layout (DTensor's mm rule refuses the strided one it can pick)
+    q_a = sharding.constrain(skewmm.matmul(x, p["wq_a"]), "dp", None, "model")
+    q = rmsnorm(q_a, p["q_norm"], cfg.norm_eps)
     q = skewmm.matmul(q, p["wq_b"]).reshape(b, s, h, nope + rd)
     cos, sin = rope_freqs(positions, rd, cfg.rope_theta)
     return q[..., :nope], apply_rope(q[..., nope:], cos, sin)
@@ -183,19 +176,25 @@ def mla_attn(x: torch.Tensor, p: dict, cfg, *, positions: torch.Tensor,
     kv = skewmm.matmul(latent, p["wkv_b"]).reshape(b, s, h, nope + vd)
     k_nope, v = kv[..., :nope], kv[..., nope:]
     # queries / keys concat [nope, rope]; the rope key is shared by heads
-    q = torch.cat([q_nope, q_rope], dim=-1).transpose(1, 2)
+    q = torch.cat([q_nope, q_rope], dim=-1)
     k = torch.cat([k_nope, k_rope[:, :, None, :].expand(b, s, h, rd)],
-                  dim=-1).transpose(1, 2)
-    v = v.transpose(1, 2)
+                  dim=-1)
     scale = (nope + rd) ** -0.5
-    if config.resolve().backend == "cuda":
-        ctx = ops.flash_attention(q, k, v, causal=causal, window=window,
-                                  softcap=cfg.attn_softcap, scale=scale)
-    else:
-        ctx = layers.blockwise_attention(
-            q, k, v, causal=causal, window=window, softcap=cfg.attn_softcap,
-            scale=scale, q_positions=positions, kv_positions=positions)
-    ctx = ctx.transpose(1, 2).reshape(b, s, h * vd)
+
+    def attend(q, k, v):
+        qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+        if config.resolve().backend == "cuda":
+            ctx = ops.flash_attention(qt, kt, vt, causal=causal,
+                                      window=window,
+                                      softcap=cfg.attn_softcap, scale=scale)
+        else:
+            ctx = layers.blockwise_attention(
+                qt, kt, vt, causal=causal, window=window,
+                softcap=cfg.attn_softcap, scale=scale,
+                q_positions=positions, kv_positions=positions)
+        return ctx.transpose(1, 2)
+
+    ctx = sharding.merge_last(per_head(attend, q, k, v), h * vd)
     return skewmm.matmul(ctx, p["wo"])
 
 

@@ -10,6 +10,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.distributed.sharding import constrain
 from repro_torch.models import attention, layers, moe, rglru, ssm
 from repro_torch.models.layers import rmsnorm
 
@@ -62,6 +63,7 @@ def block_fwd(x: torch.Tensor, p: dict, cfg, kind: str,
     aux_loss): the MoE router's aux loss, 0 for a dense FFN or none."""
     _check_kind(kind)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    x = constrain(x, "dp", None, None)
     h = rmsnorm(x, p["ln1"], cfg.norm_eps)
     if kind == "rec":
         h = rglru.rec_mixer(h, p["mixer"], cfg)
@@ -72,17 +74,23 @@ def block_fwd(x: torch.Tensor, p: dict, cfg, kind: str,
         h = attention.attn(h, p["attn"], cfg, window=window,
                            positions=positions)
     if cfg.use_post_norm:
-        h = rmsnorm(h, p["post_ln1"], cfg.norm_eps)
-    x = x + h
+        # constrained first so that the norm's backward hands the
+        # projection a gradient in this layout (DTensor's mm rule refuses
+        # the strided one it can pick); the identity without a mesh
+        h = rmsnorm(constrain(h, "dp", None, None), p["post_ln1"],
+                    cfg.norm_eps)
+    x = constrain(x + h, "dp", None, None)
     if not has_ffn(kind):
         return x, aux
     h = rmsnorm(x, p["ln2"], cfg.norm_eps)
     if ffn_is_moe(kind):
         h, aux = moe.moe_mlp(h, p["moe"], cfg)
     elif not cfg.use_post_norm:
-        return layers.mlp(h, p["mlp"], cfg, residual=x), aux
+        return constrain(layers.mlp(h, p["mlp"], cfg, residual=x),
+                         "dp", None, None), aux
     else:
         h = layers.mlp(h, p["mlp"], cfg)
     if cfg.use_post_norm:
-        h = rmsnorm(h, p["post_ln2"], cfg.norm_eps)
-    return x + h, aux
+        h = rmsnorm(constrain(h, "dp", None, None), p["post_ln2"],
+                    cfg.norm_eps)
+    return constrain(x + h, "dp", None, None), aux

@@ -22,7 +22,8 @@ from __future__ import annotations
 import torch
 
 from repro_torch.core import skewmm, stage_trace
-from repro_torch.models import attention, layers
+from repro_torch.distributed.sharding import constrain
+from repro_torch.models import attention, layers, transformer
 from repro_torch.models.layers import (add_pos, embed_init, linear_init,
                                       rmsnorm)
 
@@ -49,9 +50,11 @@ def cross_attn(x: torch.Tensor, enc_kv, p: dict, cfg, *,
     q = skewmm.matmul(x, p["wq"]).reshape(b, s, h, hd)
     k, v = enc_kv
     if decode:
-        ctx = layers.blockwise_attention(
-            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
-            causal=False).transpose(1, 2).reshape(b, s, h * hd)
+        ctx = attention.per_head(
+            lambda q, k, v: layers.blockwise_attention(
+                q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                causal=False).transpose(1, 2),
+            q, k, v).reshape(b, s, h * hd)
     else:
         ctx = attention.cross_attention(q, k, v, cfg)
     return skewmm.matmul(ctx, p["wo"])
@@ -109,13 +112,16 @@ def encode(params, cfg, frames: torch.Tensor) -> torch.Tensor:
     x = add_pos(frames.to(layers.dtype_of(cfg)), cfg, pos)
     for r, p in enumerate(params["enc"]):
         with stage_trace.repeat(r):
+            x = constrain(x, "dp", None, None)
             h = rmsnorm(x, p["ln1"], cfg.norm_eps)
-            x = x + attention.gqa_attn(h, p["attn"], cfg, window=None,
-                                       positions=pos, causal=False)
+            x = constrain(x + attention.gqa_attn(
+                h, p["attn"], cfg, window=None, positions=pos,
+                causal=False), "dp", None, None)
             h = rmsnorm(x, p["ln2"], cfg.norm_eps)
             # residual add fused into the down projection's epilogue
             x = layers.mlp(h, p["mlp"], cfg, residual=x)
-    return rmsnorm(x, params["enc_norm"], cfg.norm_eps)
+    return rmsnorm(constrain(x, "dp", None, None), params["enc_norm"],
+                   cfg.norm_eps)
 
 
 def embed_decoder(params, cfg, tokens: torch.Tensor):
@@ -123,7 +129,8 @@ def embed_decoder(params, cfg, tokens: torch.Tensor):
     0..S-1)."""
     pos = torch.arange(tokens.shape[1], dtype=torch.int32,
                        device=tokens.device)
-    return add_pos(params["embed"][tokens], cfg, pos), pos
+    return add_pos(transformer.lookup(params["embed"], tokens), cfg,
+                   pos), pos
 
 
 def decode_hidden(params, cfg, tokens: torch.Tensor,
@@ -133,16 +140,20 @@ def decode_hidden(params, cfg, tokens: torch.Tensor,
     x, pos = embed_decoder(params, cfg, tokens)
     for r, p in enumerate(params["dec"]):
         with stage_trace.repeat(r):
+            x = constrain(x, "dp", None, None)
             h = rmsnorm(x, p["ln1"], cfg.norm_eps)
-            x = x + attention.gqa_attn(h, p["attn"], cfg, window=None,
-                                       positions=pos, causal=True)
+            x = constrain(x + attention.gqa_attn(
+                h, p["attn"], cfg, window=None, positions=pos,
+                causal=True), "dp", None, None)
             h = rmsnorm(x, p["ln_x"], cfg.norm_eps)
-            x = x + cross_attn(h, cross_kv(enc_out, p["xattn"], cfg),
-                               p["xattn"], cfg)
+            x = constrain(x + cross_attn(
+                h, cross_kv(enc_out, p["xattn"], cfg), p["xattn"], cfg),
+                "dp", None, None)
             h = rmsnorm(x, p["ln2"], cfg.norm_eps)
             # residual add fused into the down projection's epilogue
             x = layers.mlp(h, p["mlp"], cfg, residual=x)
-    return rmsnorm(x, params["final_norm"], cfg.norm_eps)
+    return rmsnorm(constrain(x, "dp", None, None), params["final_norm"],
+                   cfg.norm_eps)
 
 
 def forward_hidden(params, cfg, tokens: torch.Tensor, frames: torch.Tensor

@@ -3,6 +3,9 @@ repro_torch.core.skewmm so the planner sees the full workload."""
 
 from __future__ import annotations
 
+import contextlib
+import threading
+
 import torch
 
 from repro_torch.core import skewmm
@@ -117,6 +120,23 @@ def mlp(x: torch.Tensor, p: dict, cfg, residual: torch.Tensor | None = None
 
 
 # ------------------------------------------------- blockwise attention
+_CHUNKS = threading.local()
+
+
+@contextlib.contextmanager
+def chunk_override(q_chunk: int, kv_chunk: int):
+    """Within the block every `blockwise_attention` of this thread walks
+    (q_chunk, kv_chunk) chunks, whatever its caller asks: the cost probes'
+    single-trip attention, ``chunk_override(1 << 30, 1 << 30)``.  The JAX
+    package sets a module global for the rest of the process instead."""
+    prev = getattr(_CHUNKS, "override", None)
+    _CHUNKS.override = (q_chunk, kv_chunk)
+    try:
+        yield
+    finally:
+        _CHUNKS.override = prev
+
+
 def blockwise_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                         causal: bool = True, window: int | None = None,
                         softcap: float = 0.0, scale: float | None = None,
@@ -132,6 +152,9 @@ def blockwise_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     sit at position 2**30, and the result is acc / max(l, 1e-30) — the
     JAX package's blockwise_attention, with its scans as Python loops.
     """
+    override = getattr(_CHUNKS, "override", None)
+    if override is not None:
+        q_chunk, kv_chunk = override
     b, hq, sq, d = q.shape
     _, hkv, skv, _ = k.shape
     dv = v.shape[-1]

@@ -17,6 +17,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.core import config, skewmm
+from repro_torch.distributed import sharding
 from repro_torch.distributed.sharding import constrain
 from repro_torch.kernels import ops, ssd_scan
 from repro_torch.models import layers
@@ -63,21 +64,47 @@ def ssd_chunked(x, dt, a_log, b_mat, c_mat, *, chunk: int,
         cum_dtype=torch.float32)
 
 
+def _block_specs(lead: int, with_state: bool):
+    """`sharding.on_local_blocks` specs of the scan's args (x (B, ..., H,
+    P), dt (B, ..., H), a_log (H,), B / C (B, ..., G, S)[, the state (B,
+    H, S, P)]) and of its outputs (y placed as x, the state): batch rows
+    over the data axes, heads over "model", B / C whole but for the
+    batch.  DTensor's own rules refuse the scan's batched einsums on such
+    splits."""
+    none = (None,) * lead
+    x = ("dp", *none, "model", None)
+    st = ("dp", "model", None, None)
+    bc = ("dp", *none, None, None)
+    ins = (x, ("dp", *none, "model"), ("model",), bc, bc)
+    return ins + ((st,) if with_state else ()), (x, st)
+
+
 def ssd(x, dt, a_log, b_mat, c_mat, *, chunk: int,
         return_state: bool = False):
     """The full-sequence SSD of the configured backend: K8 through `ops`
-    under "cuda", `ssd_chunked` under "torch"."""
+    under "cuda", `ssd_chunked` under "torch" (on `DTensor`s, each rank's
+    batch rows and heads)."""
     if config.resolve().backend == "cuda":
         return ops.ssd_scan(x, dt, a_log, b_mat, c_mat, chunk=chunk,
                             return_state=return_state)
-    return ssd_chunked(x, dt, a_log, b_mat, c_mat, chunk=chunk,
-                       return_state=return_state)
+    ins, outs = _block_specs(x.ndim - 3, False)
+    return sharding.on_local_blocks(
+        lambda *a: ssd_chunked(*a, chunk=chunk, return_state=return_state),
+        (x, dt, a_log, b_mat, c_mat), ins,
+        outs if return_state else outs[:1])
 
 
 def ssd_decode_step(state, xt, dtt, a_log, bt, ct):
-    """One-token SSD update.  state (B, H, S, P) fp32; xt (B, H, P); dtt
-    (B, H); bt / ct (B, G, S).  Returns (y (B, H, P) in xt's dtype, the
-    fp32 state)."""
+    """One-token SSD update (on `DTensor`s, each rank's batch rows and
+    heads).  state (B, H, S, P) fp32; xt (B, H, P); dtt (B, H); bt / ct
+    (B, G, S).  Returns (y (B, H, P) in xt's dtype, the fp32 state)."""
+    ins, outs = _block_specs(0, True)
+    return sharding.on_local_blocks(
+        lambda x, dt, a, b, c, st: _ssd_decode_local(st, x, dt, a, b, c),
+        (xt, dtt, a_log, bt, ct, state), ins, outs)
+
+
+def _ssd_decode_local(state, xt, dtt, a_log, bt, ct):
     rep = xt.shape[1] // bt.shape[1]
     neg_a = -torch.exp(a_log.float())
     bt = bt.repeat_interleave(rep, dim=1).float()          # (B,H,S)

@@ -54,26 +54,46 @@ def layer_iter(params, cfg):
                 yield kind, params[f"stage{si}"][r][f"b{i}"], si, r, i
 
 
-def _lookup(embed: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
-    """embed[tokens]; on a `DTensor` table, each rank looks up its own
-    token rows in the whole table (gathered over the vocab split) and its
-    table gradient is a pending sum over the ranks whose tokens differ."""
+def lookup(embed: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
+    """embed[tokens].  On a `DTensor` table split by vocab rows, as XLA's
+    partitioner does it: each rank looks its tokens up in its own rows
+    (zeros for a token outside them) and the rows' sums are all-reduced
+    over the vocab split; any other split of the table (FSDP's) is
+    gathered first.  Over a mesh dim that splits the tokens the table is
+    whole and its gradient a pending sum over the ranks whose tokens
+    differ."""
     if not hasattr(embed, "placements"):
         return embed[tokens]
-    from torch.distributed.tensor import DTensor, Partial, Replicate
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+
+    from repro_torch.distributed.sharding import block_start
     mesh = embed.device_mesh
     tok_place = (tokens.placements if hasattr(tokens, "placements")
                  else (Replicate(),) * mesh.ndim)
-    table = embed.redistribute(mesh, (Replicate(),) * mesh.ndim).to_local(
-        grad_placements=[Replicate() if p.is_replicate() else Partial()
-                         for p in tok_place])
+    place, grad, out_place = [], [], []
+    for tp, ep in zip(tok_place, embed.placements):
+        if ep == Shard(0) and tp.is_replicate():
+            place.append(Shard(0))
+            grad.append(Shard(0))
+            out_place.append(Partial())
+        else:
+            place.append(Replicate())
+            grad.append(Replicate() if tp.is_replicate() else Partial())
+            out_place.append(tp)
+    table = embed.redistribute(mesh, place).to_local(grad_placements=grad)
+    lo = block_start(mesh, place, 0, table.shape[0])
     local = tokens.to_local() if hasattr(tokens, "placements") else tokens
-    return DTensor.from_local(table[local], mesh, tok_place,
-                              run_check=False)
+    idx = local - lo
+    inside = (idx >= 0) & (idx < table.shape[0])
+    rows = table[idx.clamp(0, table.shape[0] - 1)]
+    rows = torch.where(inside[..., None], rows, torch.zeros_like(rows))
+    x = DTensor.from_local(rows, mesh, out_place, run_check=False)
+    return x.redistribute(mesh, [Replicate() if p.is_partial() else p
+                                 for p in out_place])
 
 
 def embed_tokens(params, cfg, tokens: torch.Tensor) -> torch.Tensor:
-    x = _lookup(params["embed"], tokens)
+    x = lookup(params["embed"], tokens)
     if cfg.embed_scale:
         x = x * torch.tensor(cfg.d_model ** 0.5, dtype=x.dtype)
     return x

@@ -26,14 +26,19 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import config as mmcfg
 from repro_torch.core import stage_trace
+from repro_torch.distributed.sharding import constrain
 from repro_torch.models import encdec, layers, transformer
 from repro_torch.models.layers import rmsnorm
-from repro_torch.serve import engine
+from repro_torch.serve import engine, kvcache
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, enc_len: int,
-               device) -> dict:
-    """Zeroed self- and cross-attention caches for every decoder layer."""
+               device, mesh=None) -> dict:
+    """Zeroed self- and cross-attention caches for every decoder layer;
+    with a `DeviceMesh`, `DTensor`s placed by the cache specs."""
+    if mesh is not None:
+        return kvcache.zeros_on(
+            init_cache(cfg, batch, max_len, enc_len, "meta"), mesh)
     dt = layers.dtype_of(cfg)
     h, kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
 
@@ -46,7 +51,9 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, enc_len: int,
 
 
 def _mlp(x, p, cfg):
-    return x + layers.mlp(rmsnorm(x, p["ln2"], cfg.norm_eps), p["mlp"], cfg)
+    x = constrain(x, "dp", None, None)
+    return constrain(x + layers.mlp(rmsnorm(x, p["ln2"], cfg.norm_eps),
+                                    p["mlp"], cfg), "dp", None, None)
 
 
 @torch.no_grad()
@@ -59,13 +66,13 @@ def prefill(params, cfg: ModelConfig, frames: torch.Tensor,
         enc_out = encdec.encode(params, cfg, frames)
         x, pos = encdec.embed_decoder(params, cfg, tokens)
         cache = init_cache(cfg, tokens.shape[0], max_len, frames.shape[1],
-                           x.device)
+                           x.device, mesh=getattr(x, "device_mesh", None))
         for r, p in enumerate(params["dec"]):
             with stage_trace.repeat(r):
                 h = rmsnorm(x, p["ln1"], cfg.norm_eps)
-                x = x + engine._attn_prefill(
+                x = constrain(x + engine._attn_prefill(
                     h, p["attn"], cfg, "attn_global", pos,
-                    cache["self_k"][r], cache["self_v"][r])
+                    cache["self_k"][r], cache["self_v"][r]), "dp", None, None)
                 h = rmsnorm(x, p["ln_x"], cfg.norm_eps)
                 ck, cv = encdec.cross_kv(enc_out, p["xattn"], cfg)
                 cache["cross_k"][r].copy_(ck)

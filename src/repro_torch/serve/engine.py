@@ -44,6 +44,8 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import config as mmcfg
 from repro_torch.core import skewmm, stage_trace
+from repro_torch.distributed import sharding
+from repro_torch.distributed.sharding import constrain
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import blocks, layers, moe, rglru, ssm, transformer
 from repro_torch.models.layers import rmsnorm
@@ -94,6 +96,7 @@ def _ssm_prefill(h, p, cfg, dst):
 
 
 def _ffn(x, p, cfg, kind):
+    x = constrain(x, "dp", None, None)
     if not blocks.has_ffn(kind):
         return x
     h = rmsnorm(x, p["ln2"], cfg.norm_eps)
@@ -103,7 +106,28 @@ def _ffn(x, p, cfg, kind):
         h = layers.mlp(h, p["mlp"], cfg)
     if cfg.use_post_norm:
         h = rmsnorm(h, p["post_ln2"], cfg.norm_eps)
-    return x + h
+    return constrain(x + h, "dp", None, None)
+
+
+def _block_prefill(x, p, cfg: ModelConfig, kind: str, positions, entry,
+                   r: int):
+    """One layer of `prefill`: the block's forward over x (B, S, D),
+    writing row r of its cache entry in place.  Returns the new x."""
+    h = rmsnorm(x, p["ln1"], cfg.norm_eps)
+    if kind == "rec":
+        h = _rec_prefill(h, p["mixer"], cfg, entry["lru"][r],
+                         entry["conv"][r])
+    elif kind == "ssm":
+        h = _ssm_prefill(h, p["mixer"], cfg, _ssm_entry(entry, r))
+    elif cfg.use_mla:
+        h = _mla_prefill(h, p["attn"], cfg, kind, positions,
+                         entry["latent"][r], entry["k_rope"][r])
+    else:
+        h = _attn_prefill(h, p["attn"], cfg, kind, positions,
+                          entry["k"][r], entry["v"][r])
+    if cfg.use_post_norm:
+        h = rmsnorm(h, p["post_ln1"], cfg.norm_eps)
+    return _ffn(x + h, p, cfg, kind)
 
 
 @torch.no_grad()
@@ -114,7 +138,8 @@ def prefill(params, cfg: ModelConfig, tokens: torch.Tensor, *, max_len: int,
     """tokens (B, S) [+ prefix_embeds (B, F, D)] -> (cache, last-position
     logits (B, V) fp32).
 
-    The cache is sized for max_len with positions [0, F + S) filled.
+    The cache is sized for max_len with positions [0, F + S) filled (on
+    `DTensor` inputs, `DTensor`s placed by the cache specs).
     `last_index` (B,) selects a per-row logit position (right-padded
     prompts).  `mm` scopes a matmul configuration over the prefill.
     """
@@ -123,26 +148,12 @@ def prefill(params, cfg: ModelConfig, tokens: torch.Tensor, *, max_len: int,
         b = tokens.shape[0]
         x, positions = transformer.embed_inputs(params, cfg, tokens,
                                                 prefix_embeds)
-        cache = kvcache.init_cache(cfg, b, max_len, x.device)
+        cache = kvcache.init_cache(cfg, b, max_len, x.device,
+                                   mesh=getattr(x, "device_mesh", None))
         for kind, p, si, r, i in transformer.layer_iter(params, cfg):
             entry = cache[f"stage{si}"][f"b{i}"]
             with stage_trace.repeat(r):
-                h = rmsnorm(x, p["ln1"], cfg.norm_eps)
-                if kind == "rec":
-                    h = _rec_prefill(h, p["mixer"], cfg, entry["lru"][r],
-                                     entry["conv"][r])
-                elif kind == "ssm":
-                    h = _ssm_prefill(h, p["mixer"], cfg,
-                                     _ssm_entry(entry, r))
-                elif cfg.use_mla:
-                    h = _mla_prefill(h, p["attn"], cfg, kind, positions,
-                                     entry["latent"][r], entry["k_rope"][r])
-                else:
-                    h = _attn_prefill(h, p["attn"], cfg, kind, positions,
-                                      entry["k"][r], entry["v"][r])
-                if cfg.use_post_norm:
-                    h = rmsnorm(h, p["post_ln1"], cfg.norm_eps)
-                x = _ffn(x + h, p, cfg, kind)
+                x = _block_prefill(x, p, cfg, kind, positions, entry, r)
         h = rmsnorm(x, params["final_norm"], cfg.norm_eps)
         if last_index is None:
             last = h[:, -1]
@@ -161,8 +172,8 @@ def _decode_gqa(h, p, cfg: ModelConfig, k_cache, v_cache, pos, window):
         q_pos = pos.reshape(1)
         q, k_new, v_new = attn_mod.gqa_project(h, p, cfg, q_pos)
         slot = (torch.remainder(pos, clen) if is_ring else pos).reshape(1)
-        k_cache.index_copy_(1, slot.long(), k_new)
-        v_cache.index_copy_(1, slot.long(), v_new)
+        sharding.write_slot(k_cache, 1, slot.long(), k_new)
+        sharding.write_slot(v_cache, 1, slot.long(), v_new)
     else:
         q_pos = pos[:, None]
         q, k_new, v_new = attn_mod.gqa_project(h, p, cfg, q_pos)
@@ -171,11 +182,15 @@ def _decode_gqa(h, p, cfg: ModelConfig, k_cache, v_cache, pos, window):
         k_cache[rows, slot.long()] = k_new[:, 0]
         v_cache[rows, slot.long()] = v_new[:, 0]
     kv_pos = kvcache.kv_slot_positions(pos, clen, is_ring)
-    ctx = layers.blockwise_attention(
-        q.transpose(1, 2), k_cache.transpose(1, 2), v_cache.transpose(1, 2),
-        causal=True, window=window, softcap=cfg.attn_softcap,
-        q_positions=q_pos, kv_positions=kv_pos)
-    ctx = ctx.transpose(1, 2).reshape(b, 1, cfg.n_heads * cfg.head_dim)
+
+    def attend(q, k, v):
+        return layers.blockwise_attention(
+            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+            causal=True, window=window, softcap=cfg.attn_softcap,
+            q_positions=q_pos, kv_positions=kv_pos).transpose(1, 2)
+
+    ctx = attn_mod.per_head(attend, q, k_cache, v_cache)
+    ctx = ctx.reshape(b, 1, cfg.n_heads * cfg.head_dim)
     return skewmm.matmul(ctx, p["wo"])
 
 
@@ -192,8 +207,8 @@ def _decode_mla(h, p, cfg: ModelConfig, latent, k_rope, pos):
     if pos.dim() == 0:
         pos1 = pos.reshape(1)
         latent_new, k_rope_new = attn_mod.mla_latent(h, p, cfg, pos1)
-        latent.index_copy_(1, pos1.long(), latent_new)
-        k_rope.index_copy_(1, pos1.long(), k_rope_new)
+        sharding.write_slot(latent, 1, pos1.long(), latent_new)
+        sharding.write_slot(k_rope, 1, pos1.long(), k_rope_new)
         valid = (idx <= pos)[None]                         # (1, L)
     else:
         pos1 = pos[:, None]
@@ -249,6 +264,27 @@ def _decode_ssm(h, p, cfg: ModelConfig, entry):
     return ssm.ssm_out(y[:, None], xs, z, p, cfg)
 
 
+def _block_decode(x, p, cfg: ModelConfig, kind: str, entry, r: int, pos):
+    """One layer of `decode_step`: x (B, 1, D) at `pos` against row r of
+    its cache entry, written in place.  Returns the new x."""
+    h = rmsnorm(x, p["ln1"], cfg.norm_eps)
+    if kind == "rec":
+        h = _decode_rec(h, p["mixer"], cfg, entry["lru"][r],
+                        entry["conv"][r])
+    elif kind == "ssm":
+        h = _decode_ssm(h, p["mixer"], cfg, _ssm_entry(entry, r))
+    elif cfg.use_mla:
+        h = _decode_mla(h, p["attn"], cfg, entry["latent"][r],
+                        entry["k_rope"][r], pos)
+    else:
+        window = cfg.local_window if kind == "attn_local" else None
+        h = _decode_gqa(h, p["attn"], cfg, entry["k"][r], entry["v"][r],
+                        pos, window)
+    if cfg.use_post_norm:
+        h = rmsnorm(h, p["post_ln1"], cfg.norm_eps)
+    return _ffn(x + h, p, cfg, kind)
+
+
 @torch.no_grad()
 def decode_step(params, cfg: ModelConfig, cache, tokens: torch.Tensor, pos,
                 mm: mmcfg.MatmulConfig | None = None):
@@ -268,24 +304,7 @@ def decode_step(params, cfg: ModelConfig, cache, tokens: torch.Tensor, pos,
         for kind, p, si, r, i in transformer.layer_iter(params, cfg):
             entry = cache[f"stage{si}"][f"b{i}"]
             with stage_trace.repeat(r):
-                h = rmsnorm(x, p["ln1"], cfg.norm_eps)
-                if kind == "rec":
-                    h = _decode_rec(h, p["mixer"], cfg, entry["lru"][r],
-                                    entry["conv"][r])
-                elif kind == "ssm":
-                    h = _decode_ssm(h, p["mixer"], cfg,
-                                    _ssm_entry(entry, r))
-                elif cfg.use_mla:
-                    h = _decode_mla(h, p["attn"], cfg, entry["latent"][r],
-                                    entry["k_rope"][r], pos)
-                else:
-                    window = (cfg.local_window if kind == "attn_local"
-                              else None)
-                    h = _decode_gqa(h, p["attn"], cfg, entry["k"][r],
-                                    entry["v"][r], pos, window)
-                if cfg.use_post_norm:
-                    h = rmsnorm(h, p["post_ln1"], cfg.norm_eps)
-                x = _ffn(x + h, p, cfg, kind)
+                x = _block_decode(x, p, cfg, kind, entry, r, pos)
         h = rmsnorm(x, params["final_norm"], cfg.norm_eps)
         return transformer.unembed(params, cfg, h[:, 0]), cache
 

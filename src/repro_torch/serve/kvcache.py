@@ -50,9 +50,11 @@ def place_kv(dst: torch.Tensor, t: torch.Tensor) -> None:
     if s <= cache_len:
         dst[:, :s] = t
         return
-    slots = torch.remainder(torch.arange(s - cache_len, s, device=t.device),
-                            cache_len)
-    dst[:, slots] = t[:, s - cache_len:]
+    # the last L tokens fill every slot once: a rotation (which a
+    # `DTensor` cache also takes; DTensor cannot scatter into a split dim
+    # in place)
+    dst.copy_(torch.roll(t[:, s - cache_len:], (s - cache_len) % cache_len,
+                         dims=1))
 
 
 def pad_axis(t: torch.Tensor, axis: int, length: int) -> torch.Tensor:
@@ -130,12 +132,30 @@ def init_block_cache(cfg: ModelConfig, kind: str, batch: int, max_len: int,
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,
-               device) -> dict:
-    """Zeroed caches for every layer."""
+               device, mesh=None) -> dict:
+    """Zeroed caches for every layer; with a `DeviceMesh`, `DTensor`s
+    placed by `sharding.tree_cache_specs` (each rank allocates its
+    shard)."""
+    if mesh is not None:
+        return zeros_on(init_cache(cfg, batch, max_len, "meta"), mesh)
     return {f"stage{si}": {f"b{i}": init_block_cache(cfg, kind, batch,
                                                      max_len, n, device)
                            for i, kind in enumerate(unit)}
             for si, (unit, n) in enumerate(cfg.stage_list())}
+
+
+def zeros_on(shapes: dict, mesh) -> dict:
+    """A cache tree of zeros shaped as `shapes` (meta tensors will do),
+    each leaf a `DTensor` on `mesh` (its device) placed by its cache
+    spec."""
+    from torch.distributed.tensor import zeros
+
+    from repro_torch.distributed import sharding
+    specs = sharding.tree_cache_specs(shapes, mesh)
+    return sharding.map_specs(
+        lambda t, sp: zeros(tuple(t.shape), dtype=t.dtype, device_mesh=mesh,
+                            placements=sharding.to_placements(sp, mesh)),
+        shapes, specs)
 
 
 def cache_bytes(cache) -> int:

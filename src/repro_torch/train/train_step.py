@@ -22,6 +22,7 @@ import torch
 
 from repro_torch.core import stage_trace
 from repro_torch.core.tree import leaves, tree_map, unflatten
+from repro_torch.distributed import sharding
 from repro_torch.models import transformer
 from repro_torch.models.model import ModelBundle
 from repro_torch.optim import compression
@@ -100,7 +101,7 @@ def make_train_step(bundle: ModelBundle, opt: AdamW,
             lsum = torch.zeros((), dtype=torch.float32,
                                device=bundle.device)
             for i in range(n):
-                mb = {k: v.reshape(n, v.shape[0] // n, *v.shape[1:])[i]
+                mb = {k: sharding.microbatch(v, n, i)
                       for k, v in batch.items()}
                 with stage_trace.repeat(i):
                     loss, g = grad_fn(state.params, mb)

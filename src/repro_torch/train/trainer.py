@@ -46,23 +46,18 @@ def state_specs(state: TrainState, mesh) -> TrainState:
 
 def mesh_step(step_fn, specs: TrainState, mesh):
     """`step_fn` on the global-view state: run under implicit replication
-    and the annotation mesh, the new state redistributed to `specs` and
-    the metrics made whole."""
+    and the annotation mesh (`sharding.on_mesh`), the new state
+    redistributed to `specs` and the metrics made whole."""
     from torch.distributed.tensor import DTensor
-    from torch.distributed.tensor.experimental import implicit_replication
 
     def redistribute(x, spec):
         return x if spec is None else \
             x.redistribute(mesh, shd.to_placements(spec, mesh))
 
+    run = shd.on_mesh(step_fn, mesh)
+
     def step(state, batch):
-        prev = shd.annotation_mesh()
-        shd.set_annotation_mesh(mesh)
-        try:
-            with implicit_replication():
-                new_state, metrics = step_fn(state, batch)
-        finally:
-            shd.set_annotation_mesh(prev)
+        new_state, metrics = run(state, batch)
         new_state = shd.map_specs(redistribute, new_state, specs)
         metrics = {k: v.full_tensor() if isinstance(v, DTensor) else v
                    for k, v in metrics.items()}
