@@ -299,6 +299,16 @@ then training, after seamless-m4t's weights are freed:
      step and key equal; then a `Trainer` resumed from its step-3
      checkpoint runs steps 4-6 bitwise equal to an unbroken run (losses
      and every state leaf), both under deterministic algorithms;
+  4o. phi4-mini at 4l's width and depth trained at the train_4k cell's
+     microbatch a device, 2 x 4096 tokens (the eighteenth main path):
+     three steps of `make_train_step` on the "torch" rung, loss_chunk
+     128, each unit's activations recomputed in the backward
+     (`models.remat`); the bytes the backward keeps a unit, read through
+     `saved_tensors_hooks`, within 10% of one hidden state (2 x 4096 x
+     3072 bf16), step ms, tokens/s, peak memory and `train_bounds`; (b)
+     step 1's loss within 1% of the "cuda" no-grad forward (K1, K7 once a
+     layer, counted apart); counts zeroed before the steps and read after
+     (no kernel may launch);
 then the mesh, after the training state is freed:
   4m. (the sixteenth main path) (a) `launch.mesh.make_host_mesh()` on the
      card: a one-rank NCCL process group and its (1, 1) ("data", "model")
@@ -327,9 +337,11 @@ then the launch tools, after the mesh's process group is destroyed:
      train_4k, prefill_32k and decode_32k on "pod" (256 ranks) and
      deepseek-v3-671b at train_4k on "multipod" (512 ranks, FSDP: over
      the 60B threshold), each at 1 layer of its published widths (the
-     Python loops trace every layer; `--layers 1`), trace seconds, bytes
-     per device at that depth (not a fit: the full-depth CPU traces are
-     in ROADMAP queue 3), the dominant term and its fraction on
+     Python loops trace every layer; `--layers 1`), and phi4's train_4k
+     at 2 layers too (the bytes a device the second layer adds: a unit's
+     input and its share of the state, the activations recomputed),
+     trace seconds, bytes per device at that depth (the full-depth CPU
+     traces are in PERF.md), the dominant term and its fraction on
      gpu_h100 and the collective counts; every cell must trace and every
      train cell count a collective; (b) `launch.costprobe` in
      subprocesses: phi4-mini at train_4k and decode_32k and mamba2-2.7b
@@ -347,7 +359,7 @@ then the launch tools, after the mesh's process group is destroyed:
      against their plain versions (phase 3's tolerance);
   7. the served decode ms per token, graphed and eager, of every run; the
      `kernels` JSON line (K1-K9, K8's three kernels apart, launches summed
-     over the seventeen main paths; then phase 6i's five deepseek rows and
+     over the eighteen main paths; then phase 6i's five deepseek rows and
      phase 6j's rows, each with its "shape" and its paths' launches), then
      the device line.
 Every phase from 3 on runs between two `guard_disarmed` checks: no ladder
@@ -504,6 +516,18 @@ ENCDEC_PARITY_LAYERS = 2
 # loss chunks of 128 (511 positions pad to four), six steps.
 TRAIN_LAYERS, TRAIN_BATCH, TRAIN_SEQ = 16, 2, 512
 TRAIN_CHUNK, TRAIN_STEPS = 128, 6
+# Phase 4o: the same model trained at the train_4k cell's microbatch a
+# device (128k tokens over 16 data ranks: 2 x 4096), three steps, with
+# the activations recomputed a unit in the backward (`models.remat`);
+# without the recompute 16 layers of 4096^2 fp32 scores would not fit.
+TRAIN_LONG_SEQ, TRAIN_LONG_STEPS = 4096, 3
+# What the backward may keep in all, parameters aside, in hidden states
+# beyond one a unit: outside the units it keeps the final norm's input
+# and its fp32 working copies and the loss's normed input (five hidden
+# states on the card), where one loss chunk's fp32 logits kept (2 x 128 x
+# 200064) would add four, and a unit run without its checkpoint keeps
+# its blocks' activations, scores included, many times more.
+TRAIN_LONG_OUTSIDE = 8
 # Phase 4l (c)'s constant lr on one repeated batch.  At this width the
 # loss rises at 3e-4 before it falls (Adam's first steps are sign-like, so
 # a 3072 x 3072 matrix moves by lr * 3072 in its top direction); the fall
@@ -4400,6 +4424,62 @@ def step_split_ms(torch, bundle, opt, ts_cfg, state, batch):
     return (t1 - t0) * 1e3, (t2 - t1) * 1e3
 
 
+def served_loss(torch, bundle, ts_cfg, params, batch, cfg,
+                label: str) -> tuple:
+    """(b)'s reference: (the mean NLL of `batch` under the "cuda" backend,
+    no grad (K1 at the LM head and every projection, K7 a layer), the
+    launch counts of that forward), counted apart from the main path;
+    fails unless K1 and K7 ran, K7 once a layer."""
+    from repro_torch.core import config as mmcfg
+    from repro_torch.kernels import ops
+    from repro_torch.train.train_step import make_loss_fn
+    ops.reset_launch_counts()
+    with mmcfg.mm_config(backend="cuda"), torch.no_grad():
+        loss = float(make_loss_fn(bundle, ts_cfg)(params, batch))
+    counts = ops.launch_counts()
+    if counts["flash_attention"] != cfg.n_layers \
+            or not counts["skew_matmul_k_inner"]:
+        fail(f"{label} (b): the 'cuda' forward did not run K1 and K7 once "
+             "a layer")
+    return loss, counts
+
+
+def check_served(label: str, card: str, trained: float, served: float,
+                 counts: dict) -> None:
+    """(b): step 1's trained loss against the served kernels' forward of
+    the same batch, within rel 1e-2."""
+    rel = abs(trained - served) / abs(served)
+    say(f"{label} (b) ({card}): step 1 loss {trained:.6f} vs 'cuda' forward "
+        f"{served:.6f} (launches K1 k_inner {counts['skew_matmul_k_inner']}, "
+        f"K7 {counts['flash_attention']}): rel {rel:.2e} (limit 1e-2)")
+    if rel > 1e-2:
+        fail(f"{label} (b): the trained forward's loss disagrees with the "
+             "served kernels'")
+
+
+def timed_steps(torch, step_fn, times: list, seen: list):
+    """`step_fn` (state, batch) -> (state, metrics), each call timed on the
+    host clock with a synchronise on each side; its time and its metrics
+    (as floats) appended to `times` and `seen`."""
+    def run(state, batch):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = step_fn(state, batch)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t)
+        seen.append({k: float(v) for k, v in out[1].items()})
+        return out
+    return run
+
+
+def say_steps(label: str, card: str, times: list, seen: list) -> None:
+    _finite_metrics(seen, f"{label} (a)")
+    for i, (dt, m) in enumerate(zip(times, seen)):
+        say(f"{label} step {i + 1} ({card}): {dt * 1e3:.2f} ms loss "
+            f"{m['loss']:.6f} grad_norm {m['grad_norm']:.4f} "
+            f"lr {m['lr']:.3e}")
+
+
 def phase_train(torch, cfg, card: str) -> dict:
     """phi4-mini at full width and TRAIN_LAYERS of 32, bf16: the trainer of
     `launch.train.main` at the cut config (the seventeenth main path),
@@ -4416,7 +4496,7 @@ def phase_train(torch, cfg, card: str) -> dict:
     from repro_torch.optim.schedule import warmup_cosine
     from repro_torch.train.train_step import (TrainStepConfig,
                                               init_train_state,
-                                              make_loss_fn, make_train_step)
+                                              make_train_step)
     from repro_torch.train.trainer import Trainer, TrainerConfig
 
     say(model_line(cfg, 32) + f" batch {TRAIN_BATCH} x {TRAIN_SEQ}, "
@@ -4441,43 +4521,24 @@ def phase_train(torch, cfg, card: str) -> dict:
         f"{time.perf_counter() - t0:.1f} s")
     shapes = param_shapes(cfg)
 
-    # (b) the trained forward against the served kernels: the mean NLL of
-    # step 1's batch under the "cuda" backend, no grad (K1 at the LM head
-    # and every projection, K7 a layer), counted apart from the main path
+    # (b) the trained forward against the served kernels
     source = SyntheticLM(cfg.vocab_size)
     first = {"tokens": torch.from_numpy(source.batch(
         0, TRAIN_BATCH, TRAIN_SEQ)).cuda()}
-    ops.reset_launch_counts()
-    with mmcfg.mm_config(backend="cuda"), torch.no_grad():
-        served_loss = float(make_loss_fn(bundle, ts_cfg)(
-            trainer.state.params, first))
-    fwd_counts = ops.launch_counts()
-    say(f"train (b) ({card}): no-grad 'cuda' forward loss {served_loss:.6f}, "
-        f"launches K1 k_inner {fwd_counts['skew_matmul_k_inner']}, "
-        f"K7 {fwd_counts['flash_attention']}")
-    if fwd_counts["flash_attention"] != cfg.n_layers \
-            or not fwd_counts["skew_matmul_k_inner"]:
-        fail("train (b): the 'cuda' forward did not run K1 and K7 "
-             "once a layer")
+    served, fwd_counts = served_loss(torch, bundle, ts_cfg,
+                                     trainer.state.params, first, cfg,
+                                     "train")
 
     times, seen, saves = [], [], []
-    step_fn, save = trainer.step_fn, trainer.ckpt.save
-
-    def timed_step(state, batch):
-        torch.cuda.synchronize()
-        t = time.perf_counter()
-        out = step_fn(state, batch)
-        torch.cuda.synchronize()
-        times.append(time.perf_counter() - t)
-        seen.append({k: float(v) for k, v in out[1].items()})
-        return out
+    save = trainer.ckpt.save
 
     def timed_save(step, tree, *, blocking=False):
         t = time.perf_counter()
         save(step, tree, blocking=blocking)
         saves.append((step, blocking, time.perf_counter() - t))
 
-    trainer.step_fn, trainer.ckpt.save = timed_step, timed_save
+    trainer.step_fn = timed_steps(torch, trainer.step_fn, times, seen)
+    trainer.ckpt.save = timed_save
     loader = DataLoader(source, TRAIN_BATCH, TRAIN_SEQ, device=bundle.device,
                         start_step=trainer.ckpt.latest_step() or 0)
     torch.cuda.reset_peak_memory_stats()
@@ -4493,7 +4554,7 @@ def phase_train(torch, cfg, card: str) -> dict:
     peak = torch.cuda.max_memory_allocated()
     if any(counts.values()):
         fail(f"train: the torch rung launched kernels {counts}")
-    _finite_metrics(seen, "train (a)")
+    say_steps("train", card, times, seen)
     ckpt = ckpt_dir / f"step-{TRAIN_STEPS:09d}" / "state.npz"
     save_bytes = ckpt.stat().st_size
     final_ms = saves[-1][2] * 1e3
@@ -4504,10 +4565,6 @@ def phase_train(torch, cfg, card: str) -> dict:
                                          TRAIN_SEQ, shapes)
     mfu = model_flops(cfg, tokens=tokens, mode="train", shapes=shapes) / (
         step_ms / 1e3) / PEAK_BF16
-    for i, (ms, m) in enumerate(zip(times, seen)):
-        say(f"train step {i + 1} ({card}): {ms * 1e3:.2f} ms loss "
-            f"{m['loss']:.6f} grad_norm {m['grad_norm']:.4f} "
-            f"lr {m['lr']:.3e}")
     say(f"train ({card}): step {step_ms:.2f} ms (median of steps 2-"
         f"{TRAIN_STEPS}, host clock, a synchronise on each side), "
         f"{tokens / (step_ms / 1e3):.1f} tokens/s, train_mfu "
@@ -4522,12 +4579,7 @@ def phase_train(torch, cfg, card: str) -> dict:
         + ", ".join(f"step {s} {'blocking' if b else 'async'} "
                     f"{dt * 1e3:.0f} ms" for s, b, dt in saves)
         + f"; the final save {save_bytes / 1e9:.2f} GB in {final_ms:.0f} ms")
-    rel = abs(seen[0]["loss"] - served_loss) / abs(served_loss)
-    say(f"train (b) ({card}): step 1 loss {seen[0]['loss']:.6f} vs 'cuda' "
-        f"forward {served_loss:.6f}: rel {rel:.2e} (limit 1e-2)")
-    if rel > 1e-2:
-        fail("train (b): the trained forward's loss disagrees with the "
-             "served kernels'")
+    check_served("train", card, seen[0]["loss"], served, fwd_counts)
     if out["final_loss"] is None or not math.isfinite(out["final_loss"]):
         fail(f"train: final loss {out['final_loss']}")
     del trainer, out
@@ -4589,6 +4641,140 @@ def phase_train(torch, cfg, card: str) -> dict:
     torch.cuda.empty_cache()
     return {"counts": counts, "step_ms": step_ms, "mfu": mfu,
             "bound_ms": bound, "peak": peak}
+
+
+def unit_saved_bytes(torch, bundle, ts_cfg, params, batch) -> tuple:
+    """(bytes the backward keeps a repeating unit, bytes it keeps in all,
+    parameters aside) of one grad-enabled forward of the loss, read
+    through `torch.autograd.graph.saved_tensors_hooks`: a unit's are those
+    packed while its checkpoint saves its inputs (the ops inside a
+    checkpoint pack through the checkpoint's own hooks, not these)."""
+    from repro_torch.core import config as mmcfg
+    from repro_torch.core.tree import leaves, unflatten
+    from repro_torch.models import remat, transformer
+    from repro_torch.train.train_step import make_loss_fn
+    live = [p.detach().requires_grad_(True) for p in leaves(params)]
+    skip = {p.untyped_storage().data_ptr() for p in live}
+    kept, in_unit, units = {}, [False], []
+    checkpointed = remat.checkpointed
+
+    def watched(fn, *args, **kw):
+        unit = getattr(fn, "func", None) is transformer._unit_fwd
+        in_unit[0] = unit
+        units.append(unit)
+        try:
+            return checkpointed(fn, *args, **kw)
+        finally:
+            in_unit[0] = False
+
+    def pack(t):
+        st = t.untyped_storage()
+        if st.data_ptr() not in skip:
+            kept[st.data_ptr()] = (st.nbytes(), in_unit[0])
+        return t
+
+    remat.checkpointed = watched
+    try:
+        with mmcfg.mm_config(backend="torch"), torch.enable_grad(), \
+                torch.autograd.graph.saved_tensors_hooks(pack, lambda t: t):
+            loss = make_loss_fn(bundle, ts_cfg)(unflatten(params, live),
+                                                batch)
+    finally:
+        remat.checkpointed = checkpointed
+    del loss, live
+    n_units = sum(units)
+    unit_bytes = sum(n for n, u in kept.values() if u)
+    return unit_bytes / max(n_units, 1), sum(n for n, _ in kept.values()), \
+        n_units
+
+
+def phase_train_long(torch, cfg, card: str) -> dict:
+    """Phase 4o: phi4-mini at full width and TRAIN_LAYERS of 32, bf16, on
+    the "torch" rung at 2 x TRAIN_LONG_SEQ tokens (the train_4k cell's
+    microbatch a device), TRAIN_LONG_STEPS steps of `make_train_step`:
+    step ms, tokens/s, peak memory, the bytes the backward keeps a unit
+    against one hidden state; (b) step 1's loss against the "cuda" no-grad
+    forward (K1, K7) at the same shape."""
+    import statistics
+
+    from repro_torch.core import config as mmcfg
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.kernels import ops
+    from repro_torch.models.model import build_model, count_params, \
+        param_bytes, param_shapes
+    from repro_torch.optim.adamw import AdamW
+    from repro_torch.optim.schedule import warmup_cosine
+    from repro_torch.train.train_step import (TrainStepConfig,
+                                              init_train_state,
+                                              make_train_step)
+
+    b, s = TRAIN_BATCH, TRAIN_LONG_SEQ
+    say(model_line(cfg, 32) + f" batch {b} x {s}, loss_chunk {TRAIN_CHUNK}, "
+        f"{TRAIN_LONG_STEPS} steps, a unit recomputed in the backward")
+    bundle = build_model(cfg, "cuda")
+    opt = AdamW(lr=warmup_cosine(3e-4, 2, TRAIN_LONG_STEPS))
+    ts_cfg = TrainStepConfig(loss_chunk=TRAIN_CHUNK)
+    state = init_train_state(bundle, opt, 0, ts_cfg)
+    step = make_train_step(bundle, opt, ts_cfg)
+    n_params = count_params(state.params)
+    pbytes = param_bytes(state.params)
+    source = SyntheticLM(cfg.vocab_size)
+    batches = [{"tokens": torch.from_numpy(source.batch(i, b, s)).cuda()}
+               for i in range(TRAIN_LONG_STEPS)]
+
+    # (b) the served kernels' forward of step 1's batch, counted apart
+    served, fwd_counts = served_loss(torch, bundle, ts_cfg, state.params,
+                                     batches[0], cfg, "train 4k")
+    hidden = b * s * cfg.d_model * 2
+    per_unit, kept, n_units = unit_saved_bytes(torch, bundle, ts_cfg,
+                                               state.params, batches[0])
+    torch.cuda.empty_cache()
+    say(f"train 4k ({card}): the backward keeps {per_unit / 1e6:.2f} MB a "
+        f"unit ({n_units} units) against one hidden state {b} x {s} x "
+        f"{cfg.d_model} bf16 = {hidden / 1e6:.2f} MB "
+        f"({per_unit / hidden:.4f}x); {kept / 1e9:.3f} GB kept in all, "
+        f"parameters aside (saved_tensors_hooks)")
+    if n_units != cfg.n_layers or not 0.9 <= per_unit / hidden <= 1.1:
+        fail(f"train 4k: {per_unit:.0f} bytes kept a unit over {n_units} "
+             f"units, not one hidden state ({hidden})")
+    limit = (n_units + TRAIN_LONG_OUTSIDE) * hidden
+    say(f"train 4k ({card}): kept in all {kept / hidden:.2f} hidden states,"
+        f" limit {n_units} units + {TRAIN_LONG_OUTSIDE} = "
+        f"{limit / 1e9:.3f} GB")
+    if kept > limit:
+        fail(f"train 4k: the backward keeps {kept:.0f} bytes, over "
+             f"{limit} (a hidden state a unit + {TRAIN_LONG_OUTSIDE})")
+
+    times, seen = [], []
+    timed = timed_steps(torch, step, times, seen)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    # ---- the main path: counts zeroed above, read right after it.
+    with mmcfg.mm_config(backend="torch"):
+        for batch in batches:
+            state, _ = timed(state, batch)
+    counts = ops.launch_counts()
+    # ---- end of the main path.
+    peak = torch.cuda.max_memory_allocated()
+    if any(counts.values()):
+        fail(f"train 4k: the torch rung launched kernels {counts}")
+    say_steps("train 4k", card, times, seen)
+    step_ms = statistics.median(times[1:]) * 1e3
+    bound, ops_ms, upd_ms = train_bounds(cfg, n_params, b, s,
+                                         param_shapes(cfg))
+    say(f"train 4k ({card}): step {step_ms:.2f} ms (median of steps 2-"
+        f"{TRAIN_LONG_STEPS}, host clock, a synchronise on each side), "
+        f"{b * s / (step_ms / 1e3):.1f} tokens/s, bound {bound:.2f} ms "
+        f"(operations {ops_ms:.2f} + update bytes {upd_ms:.2f}; "
+        f"{step_ms / bound:.1f}x); peak {peak / 1e9:.2f} GB allocated "
+        f"(max_memory_allocated) beside {(pbytes + 8 * n_params) / 1e9:.2f}"
+        f" GB of params and moments")
+    check_served("train 4k", card, seen[0]["loss"], served, fwd_counts)
+    del state, step, bundle, batches
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"counts": counts, "step_ms": step_ms, "peak": peak}
 
 
 def _to_device(tree, device):
@@ -5084,6 +5270,7 @@ def mesh_restore(torch, mesh, card: str) -> None:
 
 # Phase 4n: the launch tools' cells (arch, shape, mesh, layers traced).
 DRYRUN_CELLS = (("phi4-mini-3.8b", "train_4k", "pod", 1),
+                ("phi4-mini-3.8b", "train_4k", "pod", 2),
                 ("phi4-mini-3.8b", "prefill_32k", "pod", 1),
                 ("phi4-mini-3.8b", "decode_32k", "pod", 1),
                 ("deepseek-v3-671b", "train_4k", "multipod", 1))
@@ -5104,15 +5291,18 @@ def launch_tools_procs(out: Path) -> list:
     for arch, shape, mesh, layers in DRYRUN_CELLS:
         argv = [sys.executable, "-m", "repro_torch.launch.dryrun",
                 "--arch", arch, "--shape", shape, "--mesh", mesh,
-                "--layers", str(layers), "--out", str(out / "dryrun")]
-        procs.append((("dryrun", arch, shape, mesh), subprocess.Popen(
+                "--layers", str(layers), "--out",
+                str(out / "dryrun" / f"L{layers}")]
+        key = ("dryrun", arch, shape, mesh, layers)
+        procs.append((key, subprocess.Popen(
             argv, env=env, cwd=ROOT, stdout=subprocess.PIPE,
             stderr=subprocess.PIPE, text=True)))
     for arch, shape, mesh in PROBE_CELLS:
         argv = [sys.executable, "-m", "repro_torch.launch.costprobe",
                 "--arch", arch, "--shape", shape, "--mesh", mesh,
                 "--out", str(out / "roofline")]
-        procs.append((("costprobe", arch, shape, mesh), subprocess.Popen(
+        key = ("costprobe", arch, shape, mesh, None)
+        procs.append((key, subprocess.Popen(
             argv, env=env, cwd=ROOT, stdout=subprocess.PIPE,
             stderr=subprocess.PIPE, text=True)))
     return procs
@@ -5121,9 +5311,8 @@ def launch_tools_procs(out: Path) -> list:
 def collect_launch_tools(procs, out: Path, card: str) -> None:
     """Wait for phase 4n's subprocesses; print and gate their records."""
     from repro_torch.configs.base import get_config
-    depth = {(a, s, m): n for a, s, m, n in DRYRUN_CELLS}
-    bad = []
-    for (tool, arch, shape, mesh), proc in procs:
+    bad, per_device = [], {}
+    for (tool, arch, shape, mesh, layers), proc in procs:
         try:
             _, err = proc.communicate(timeout=TOOLS_TIMEOUT)
         except subprocess.TimeoutExpired:
@@ -5131,8 +5320,8 @@ def collect_launch_tools(procs, out: Path, card: str) -> None:
             proc.communicate()
             bad.append(f"{tool} {arch} {shape} {mesh}: timed out")
             continue
-        path = out / ("dryrun" if tool == "dryrun" else "roofline") / \
-            f"{arch}__{shape}__{mesh}.json"
+        path = (out / "dryrun" / f"L{layers}" if tool == "dryrun"
+                else out / "roofline") / f"{arch}__{shape}__{mesh}.json"
         if proc.returncode != 0 or not path.exists():
             bad.append(f"{tool} {arch} {shape} {mesh}: rc "
                        f"{proc.returncode}: {err.strip()[-600:]}")
@@ -5142,14 +5331,14 @@ def collect_launch_tools(procs, out: Path, card: str) -> None:
                  f"{rec['memory_s'] * 1e3:.3f} ms collective "
                  f"{rec['collective_s'] * 1e3:.3f} ms")
         if tool == "dryrun":
-            layers = depth[arch, shape, mesh]
+            per_device[arch, shape, mesh, layers] = rec["bytes_per_device"]
             say(f"tools (a) ({card}): dryrun {arch} {shape} {mesh} "
                 f"({rec['chips']} ranks, {layers} of "
                 f"{get_config(arch).n_layers} layers traced): traced in "
                 f"{rec['compile_s']:.1f} s, "
                 f"{rec['bytes_per_device'] / 1e9:.2f} GB a device at that "
-                f"depth (no fit: ROADMAP queue 3 holds the full-depth CPU "
-                f"traces), {terms}, dominant {rec['dominant']} at fraction "
+                f"depth (PERF.md holds the full-depth CPU traces), "
+                f"{terms}, dominant {rec['dominant']} at fraction "
                 f"{rec['roofline_fraction']:.4f} on gpu_h100, collectives "
                 f"{rec['collective_counts']}")
             if shape.startswith("train") and \
@@ -5159,6 +5348,13 @@ def collect_launch_tools(procs, out: Path, card: str) -> None:
             say(f"tools (b) ({card}): costprobe {arch} {shape} {mesh}: "
                 f"{terms}, useful_ratio {rec['useful_ratio']:.4f}, dominant "
                 f"{rec['dominant']}, probed in {rec['probe_s']:.1f} s")
+    cell = ("phi4-mini-3.8b", "train_4k", "pod")
+    if (*cell, 1) in per_device and (*cell, 2) in per_device:
+        grow = per_device[(*cell, 2)] - per_device[(*cell, 1)]
+        say(f"tools (a) ({card}): the second layer of the dryrun's phi4-mini "
+            f"train_4k adds {grow / 1e9:.3f} GB a device (a unit's input "
+            f"and that layer's share of the state kept; the activations "
+            f"recomputed a unit in the backward)")
     if bad:
         fail("phase 4n: " + "; ".join(bad))
 
@@ -5605,6 +5801,9 @@ def main() -> None:
     train_path = guarded("phase 4l", phase_train, torch, dataclasses.replace(
         cfg, n_layers=TRAIN_LAYERS), card)
     torch.cuda.empty_cache()
+    long_path = guarded("phase 4o", phase_train_long, torch,
+                        dataclasses.replace(cfg, n_layers=TRAIN_LAYERS), card)
+    torch.cuda.empty_cache()
     guarded("phase 5l", phase_train_parity, torch, card)
     torch.cuda.empty_cache()
 
@@ -5632,7 +5831,7 @@ def main() -> None:
     # 192 / 128 widths, K5 at 256 groups) and phase 6j's rows (K7 at the
     # VLM and encoder-decoder shapes, Sq != Skv among them, and K1 at the
     # odd LM heads) with their "shape"; the other shapes are in the log
-    # above.  Launches: summed over the seventeen main paths (training runs
+    # above.  Launches: summed over the eighteen main paths (training runs
     # none; phase 4n's prefill probe runs K1 and K7); a deepseek
     # row's are those of the deepseek path, a phase 6j row's those of the
     # internvl2-1b and seamless-m4t paths.
@@ -5642,7 +5841,7 @@ def main() -> None:
         gemma_path["counts"], granite_path["counts"], cr_path["counts"],
         guard_path["counts"], sched_path["counts"], mla_path["counts"],
         vlm_path["counts"], ed_path["counts"], train_path["counts"],
-        mesh_path["counts"], tools_path["counts"]))
+        long_path["counts"], mesh_path["counts"], tools_path["counts"]))
         for n in KERNELS}
     first = {}
     for r in rows:

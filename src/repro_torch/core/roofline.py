@@ -18,10 +18,12 @@ NotImplemented to the subclass, as `CommDebugMode` does) and then counts
 the local ops and collectives that op becomes on rank 0:
 
   * flops: the local ops' FLOPs by `torch.utils.flop_counter`'s formulas
-    (GEMMs, attention; elementwise ops count 0), so per device: a sharded
-    op at its local shape, replicated work and the ops the port runs on a
-    rank's own block (attention, the embedding lookup, MoE experts) as
-    each device runs them;
+    (GEMMs, attention) and, for pointwise, reduction and scan ops, what
+    XLA's cost analysis gives the same function (`pointwise_flops`;
+    transcendentals, data movement and collectives count 0), so per
+    device: a sharded op at its local shape, replicated work and the ops
+    the port runs on a rank's own block (attention, the embedding lookup,
+    MoE experts) as each device runs them;
   * bytes: each local op's input + output bytes, views and metadata
     queries excluded: the unfused eager traffic the port moves (XLA's
     "bytes accessed" is of a fused module);
@@ -107,12 +109,15 @@ class CollectiveStats:
 @dataclasses.dataclass
 class ProgramCost:
     """What one device does in a program: FLOPs, bytes moved, collective
-    wire bytes and counts, and peak live bytes."""
+    wire bytes and counts, and peak live bytes.  `gemm_flops` is the part
+    of `flops` that GEMMs and attention do (`flop_registry`'s formulas),
+    the elementwise ops' FLOPs aside."""
     flops: float
     bytes: float
     collective_bytes: float
     collective_counts: dict[str, int]
     bytes_per_device: int
+    gemm_flops: float = 0.0
 
 
 def tensors(tree, out: list | None = None) -> list[torch.Tensor]:
@@ -154,6 +159,86 @@ def _in_sharding_propagation() -> bool:
     return False
 
 
+# FLOPs an element of an elementwise op's output costs, as XLA's
+# HloCostAnalysis counts the same function: one for each arithmetic,
+# compare, select or convert op XLA runs for it.  Transcendentals (exp,
+# log, tanh, rsqrt, pow, erf ...) XLA counts in a field of their own, not
+# in "flops", so they are absent here, and so are data movement (views,
+# copies, gathers, concatenation, padding) and collectives.  A fused torch
+# op counts what XLA's expansion of it does (silu = x * logistic(x), and
+# XLA expands the logistic to 1 / (1 + exp(-x)); gelu is the tanh form).
+_PER_ELEMENT = {
+    **dict.fromkeys((
+        "add", "add_", "sub", "sub_", "rsub", "mul", "mul_", "div", "div_",
+        "neg", "abs", "reciprocal", "maximum", "minimum", "clamp",
+        "clamp_", "clamp_min", "clamp_max", "where", "masked_fill",
+        "masked_fill_", "eq", "ne", "gt", "ge", "lt", "le", "bitwise_and",
+        "bitwise_or", "bitwise_not", "logical_and", "logical_or",
+        "logical_not", "sign", "floor", "ceil", "round", "remainder",
+        "fmod", "tril", "triu", "lerp"), 1),
+    "sigmoid": 3, "sigmoid_backward": 3, "tanh_backward": 3,
+    "silu": 4, "silu_backward": 9, "gelu": 8, "gelu_backward": 20,
+    "softplus": 6, "softplus_backward": 7,
+}
+# reductions: one op for each input element folded into an output
+_REDUCE = {"sum", "amax", "amin", "max", "min", "prod", "nansum"}
+
+
+def _xla_cumsum(n: int) -> int:
+    """XLA's count for a cumulative sum along a length-n row: a reduce
+    window of n - 1 adds an output up to 16, else the rewrite into blocks
+    of 16 (padded; the block sums scanned the same way)."""
+    if n <= 16:
+        return n * (n - 1)
+    m = -(-n // 16)
+    return 256 * m + (m * m - 1 if m <= 16 else _xla_cumsum(m))
+
+
+def pointwise_flops(func, args, kwargs, out: torch.Tensor) -> float:
+    """XLA's FLOPs for one pointwise, reduction or scan aten op (0 for any
+    other op without a `flop_registry` formula)."""
+    name = func._overloadpacket.__name__
+    n = out.numel()
+    if name in _PER_ELEMENT:
+        return float(_PER_ELEMENT[name] * n)
+    src = args[0] if args and isinstance(args[0], torch.Tensor) else None
+    if name in ("_to_copy", "copy_"):
+        # a convert when the dtype changes, a copy (no FLOPs) otherwise
+        src = args[1] if name == "copy_" else src
+        return float(n) if src is not None and src.dtype != out.dtype \
+            else 0.0
+    if src is None:
+        return 0.0
+    if name in _REDUCE:
+        return float(src.numel() - n) if n <= src.numel() else 0.0
+    if name == "mean":
+        return float(src.numel())              # the adds and one divide
+    if name == "pow":
+        e = args[1] if len(args) > 1 else kwargs.get("exponent")
+        if isinstance(e, (int, float)) and float(e).is_integer() and e:
+            return float((abs(int(e)) - 1 + (e < 0)) * n)
+        return 0.0                             # a transcendental power
+    if name in ("cumsum", "cumsum_"):
+        dim = args[1] if len(args) > 1 else kwargs["dim"]
+        length = src.shape[dim] if src.dim() else 1
+        return float(_xla_cumsum(length) * (n // max(length, 1)))
+    if name == "_softmax":                     # max, sub, sum, divide
+        rows = n // src.shape[args[1]]
+        return float(2 * n + 2 * (n - rows))
+    if name == "_softmax_backward_data":       # y * (g - sum(g * y))
+        rows = n // src.shape[args[2]]
+        return float(3 * n + n - rows)
+    if name == "logsumexp":
+        rows = out.numel()
+        return float(src.numel() + 2 * (src.numel() - rows) + 4 * rows)
+    if name in ("index_add", "index_add_", "scatter_add", "scatter_add_"):
+        return float(args[3].numel())          # one add an update
+    if name in ("index_put", "index_put_") and (
+            args[3] if len(args) > 3 else kwargs.get("accumulate", False)):
+        return float(args[2].numel())
+    return 0.0
+
+
 class ProgramCounter(TorchDispatchMode):
     """Counts rank 0's local work (see the module docstring).  `inputs`
     (any tree of tensors or `DTensor`s) are live from the start."""
@@ -161,6 +246,7 @@ class ProgramCounter(TorchDispatchMode):
     def __init__(self, inputs: Any = ()):
         super().__init__()
         self.flops = 0.0
+        self.gemm_flops = 0.0
         self.bytes = 0.0
         self.collectives = CollectiveStats({}, {})
         self.live = 0
@@ -219,7 +305,11 @@ class ProgramCounter(TorchDispatchMode):
     def _count(self, func, out, outs, args, kwargs) -> None:
         formula = flop_registry.get(func._overloadpacket)
         if formula is not None:
-            self.flops += formula(*args, **kwargs, out_val=out)
+            flops = formula(*args, **kwargs, out_val=out)
+            self.flops += flops
+            self.gemm_flops += flops
+        elif outs:
+            self.flops += pointwise_flops(func, args, kwargs, outs[0])
         if not outs or func.is_view:
             return          # a metadata query (prim.device) or a view
         self.bytes += _nbytes(tensors((args, kwargs))) + _nbytes(outs)
@@ -229,7 +319,8 @@ class ProgramCounter(TorchDispatchMode):
             flops=float(self.flops), bytes=float(self.bytes),
             collective_bytes=float(self.collectives.total_bytes),
             collective_counts=dict(self.collectives.counts),
-            bytes_per_device=int(self.peak))
+            bytes_per_device=int(self.peak),
+            gemm_flops=float(self.gemm_flops))
 
 
 def measure(fn, *args, **kwargs) -> tuple[Any, ProgramCost]:

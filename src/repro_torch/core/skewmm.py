@@ -162,7 +162,10 @@ def matmul(a: torch.Tensor, b: torch.Tensor, *, backend: str | None = None,
         # This *is* the ladder's reference rung, selected by config rather
         # than by degradation — attributed as such.
         def ref_run() -> torch.Tensor:
-            z = torch.matmul(a.float(), b.float())
+            # a `DTensor` product is contracted as `sharding.matmul` lays
+            # it out (its pending sum reduced before the epilogue)
+            from repro_torch.distributed import sharding
+            z = sharding.matmul(a.float(), b.float())
             z = epilogue_mod.apply_spec(z, ep.spec, ep.operands())
             return z.to(odt)
 

@@ -153,11 +153,14 @@ def pad(x, widths: tuple, value: float = 0.0):
                               x.device_mesh, place, run_check=False)
 
 
-def on_local_blocks(fn, args, in_specs, out_specs):
+def on_local_blocks(fn, args, in_specs, out_specs, *, grad_sum=None,
+                    out_sum=(), mesh=None):
     """``fn(*args)``.  Where an arg is a `DTensor`, `fn` runs instead on
     each rank's block, as torch's `local_map` does: the one place an op
     that DTensor's own rules cannot split (attention by heads, the SSD
-    scan) is run rank by rank.
+    scan) or splits worse than XLA's partitioner (a row-split projection,
+    whose backward DTensor computes whole on each rank) is run rank by
+    rank.
 
     `in_specs` has one spec a arg and `out_specs` one a output of `fn`
     (a single tensor, or a tuple of them): tuples of entries as
@@ -167,16 +170,30 @@ def on_local_blocks(fn, args, in_specs, out_specs):
     up (heads split only where q's and k / v's head counts both divide).
     Each arg (a plain tensor taken as replicated) is laid out by its spec
     and handed to `fn` as this rank's block; each output comes back as a
-    `DTensor` laid out by its own."""
+    `DTensor` laid out by its own, and as a pending sum over the mesh
+    axes in `out_sum` (a contraction split over them).
+
+    The gradient of an arg's block is that block's own (the arg's
+    placements), except over the mesh axes `grad_sum` names for it (one
+    tuple of axis names a arg, "dp" for the data axes): there it is a
+    pending sum, as where a weight is whole on every data rank and each
+    rank's tokens differ.  `mesh` is the one the blocks are taken on
+    where no arg is a `DTensor` (else their mesh; `fn(*args)` with
+    neither)."""
     mesh = next((a.device_mesh for a in args if hasattr(a, "placements")),
-                None)
+                mesh)
     if mesh is None:
         return fn(*args)
-    from torch.distributed.tensor import DTensor, Replicate
+    from torch.distributed.tensor import DTensor, Partial, Replicate
     dp = dp_axes(mesh)
+    names = axis_names(mesh)
 
     def entries(spec):
         return tuple(dp if e == "dp" else e for e in spec)
+
+    def axes(given) -> set:
+        return {a for e in entries(given) for a in
+                ((e,) if isinstance(e, str) else e)}
 
     dropped = {e for a, spec in zip(args, in_specs)
                for dim, e in zip(a.shape, entries(spec))
@@ -186,18 +203,63 @@ def on_local_blocks(fn, args, in_specs, out_specs):
         return to_placements(P(*(None if e in dropped else e
                                  for e in entries(spec))), mesh)
 
+    # a dropped axis splits nothing: no rank's block differs over it
+    unsplit = axes(tuple(dropped))
     local = []
-    for a, spec in zip(args, in_specs):
+    for i, (a, spec) in enumerate(zip(args, in_specs)):
         if not hasattr(a, "placements"):
             a = DTensor.from_local(a, mesh, [Replicate()] * mesh.ndim,
                                    run_check=False)
-        local.append(a.redistribute(mesh, placements(spec)).to_local())
+        place = placements(spec)
+        summed = axes(grad_sum[i]) - unsplit if grad_sum else set()
+        grad = [Partial() if n in summed else p
+                for n, p in zip(names, place)]
+        local.append(a.redistribute(mesh, place).to_local(
+            grad_placements=grad))
     out = fn(*local)
     outs = out if isinstance(out, tuple) else (out,)
-    placed = tuple(DTensor.from_local(o, mesh, placements(spec),
-                                      run_check=False)
-                   for o, spec in zip(outs, out_specs))
+    summed = axes(out_sum) - unsplit
+    placed = tuple(DTensor.from_local(
+        o, mesh, [Partial() if n in summed else p
+                  for n, p in zip(names, placements(spec))],
+        run_check=False) for o, spec in zip(outs, out_specs))
     return placed if isinstance(out, tuple) else placed[0]
+
+
+def matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a @ b, whole.  Where a gradient is taken, a `DTensor` weight whose
+    rows are split over "model" (the row-split projections: wo, w_down)
+    is contracted on each rank's blocks and its pending sum reduced here,
+    so that an epilogue (a fused residual) is applied once, after the sum:
+    DTensor's own rule computes that product's backward whole on every
+    "model" rank, where XLA's partitioner keeps both gradients split.  The
+    weight's gradient on a rank is a pending sum over the data axes (each
+    rank's rows of `a` differ).  A forward alone keeps DTensor's rule,
+    whose forward is split already; plain tensors are `torch.matmul`."""
+    place = getattr(b, "placements", None)
+    if place is None or not torch.is_grad_enabled() or \
+            not (a.requires_grad or b.requires_grad):
+        return torch.matmul(a, b)
+    from torch.distributed.tensor import Replicate, Shard
+    mesh = b.device_mesh
+    names = axis_names(mesh)
+    if "model" not in names or place[names.index("model")] != Shard(0):
+        return torch.matmul(a, b)
+    lead = ("dp",) + (None,) * (a.ndim - 2)
+    z = on_local_blocks(
+        torch.matmul, (a, b), (lead + ("model",), ("model", None)),
+        (lead + (None,),), grad_sum=((), ("dp",)), out_sum=("model",))
+    return z.redistribute(mesh, [Replicate() if p.is_partial() else p
+                                 for p in z.placements])
+
+
+def spec_of(x) -> tuple:
+    """The spec entries of a `DTensor`'s layout: for each dim, the mesh
+    axes that split it (in mesh order) or None."""
+    names = axis_names(x.device_mesh)
+    return tuple(P(tuple(n for n, p in zip(names, x.placements)
+                         if p.is_shard(d)) or None)[0]
+                 for d in range(x.ndim))
 
 
 def block_start(mesh, placements, dim: int, block: int) -> int:

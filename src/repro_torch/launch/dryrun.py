@@ -9,7 +9,9 @@ allocated) placed as a `DTensor` by its production sharding on a
 and records:
 
   * bytes per device: the peak of rank 0's live local bytes (proves it fits)
-  * per-device FLOPs / bytes of the ops rank 0 runs
+  * per-device FLOPs / bytes of the ops rank 0 runs, and apart from them
+    the FLOPs of its GEMMs and attention (`gemm_flops`, a key JAX's
+    record lacks: XLA's cost analysis gives no such split)
   * collective bytes and counts, the collectives DTensor inserts
 
 into one roofline JSON a cell under build/dryrun/.  A cell that fails to
@@ -303,6 +305,7 @@ def run_cell(arch: str, shape_name: str, mesh_kind: str, out_dir: str, *,
         out_bytes_per_device=out_bytes,
         alias_bytes_per_device=0,
         code_bytes=0,
+        gemm_flops=cost.gemm_flops,
     )
     os.makedirs(out_dir, exist_ok=True)
     path = os.path.join(out_dir, f"{arch}__{shape_name}__{mesh_kind}.json")

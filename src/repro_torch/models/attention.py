@@ -83,10 +83,31 @@ def per_head(attend, q, k, v):
     rank's batch rows and heads (attention is independent across both, as
     under the JAX package's shard_map; `sharding.on_local_blocks`): every
     other dim (a decode cache's positions too) is gathered first, and
-    heads stay split over "model" only where q's and k / v's head counts
-    both divide by it.  Plain tensors go straight through."""
+    heads stay split over "model" where q's head count divides by it.
+    Where k / v's does not (fewer kv heads than "model" ranks, as MQA),
+    k / v stay whole on each rank and a rank attends with the one kv head
+    its q heads share, as XLA's partitioner splits the grouped product;
+    their gradient is then a pending sum over "model".  Plain tensors go
+    straight through."""
     spec = ("dp", None, "model", None)
-    return sharding.on_local_blocks(attend, (q, k, v), (spec,) * 3, (spec,))
+    mesh = next((t.device_mesh for t in (q, k, v)
+                 if hasattr(t, "placements")), None)
+    split = sharding.axis_sizes(mesh).get("model", 1) if mesh else 1
+    hq, hkv = q.shape[2], k.shape[2]
+    group = hq // hkv
+    if split == 1 or hkv % split == 0 or hq % split or \
+            group % (hq // split):
+        return sharding.on_local_blocks(attend, (q, k, v), (spec,) * 3,
+                                        (spec,))
+
+    def attend_group(ql, kl, vl):
+        j = mesh.get_local_rank("model") * ql.shape[2] // group
+        return attend(ql, kl[:, :, j:j + 1], vl[:, :, j:j + 1])
+
+    whole = ("dp", None, None, None)
+    return sharding.on_local_blocks(
+        attend_group, (q, k, v), (spec, whole, whole), (spec,),
+        grad_sum=((), ("model",), ("model",)))
 
 
 def cross_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

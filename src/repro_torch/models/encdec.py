@@ -10,7 +10,9 @@ optional ``unembed``, and the lists ``enc`` and ``dec`` of per-layer
 block dicts — the JAX package's stacked ``enc`` / ``dec`` arrays unstacked
 along the layer axis (see `repro_torch.convert`).  Each layer runs in
 `stage_trace.repeat(r)`, so host records are made once per encoder and
-decoder site, as under the JAX package's two `lax.scan`s.
+decoder site, as under the JAX package's two `lax.scan`s; with grad
+enabled each layer is checkpointed (`remat.checkpointed`), as JAX's
+`jax.checkpoint(enc_block)` / `jax.checkpoint(dec_block)`.
 
 Encoder self-attention and prefill cross-attention are not causal; under
 the "cuda" backend they run K7 (`attention.sequence_attention` and
@@ -19,11 +21,13 @@ the "cuda" backend they run K7 (`attention.sequence_attention` and
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from repro_torch.core import skewmm, stage_trace
 from repro_torch.distributed.sharding import constrain
-from repro_torch.models import attention, layers, transformer
+from repro_torch.models import attention, layers, remat, transformer
 from repro_torch.models.layers import (add_pos, embed_init, linear_init,
                                       rmsnorm)
 
@@ -110,16 +114,20 @@ def encode(params, cfg, frames: torch.Tensor) -> torch.Tensor:
     pos = torch.arange(frames.shape[1], dtype=torch.int32,
                        device=frames.device)
     x = add_pos(frames.to(layers.dtype_of(cfg)), cfg, pos)
+
+    def enc_block(p, x):
+        x = constrain(x, "dp", None, None)
+        h = rmsnorm(x, p["ln1"], cfg.norm_eps)
+        x = constrain(x + attention.gqa_attn(
+            h, p["attn"], cfg, window=None, positions=pos,
+            causal=False), "dp", None, None)
+        h = rmsnorm(x, p["ln2"], cfg.norm_eps)
+        # residual add fused into the down projection's epilogue
+        return layers.mlp(h, p["mlp"], cfg, residual=x)
+
     for r, p in enumerate(params["enc"]):
         with stage_trace.repeat(r):
-            x = constrain(x, "dp", None, None)
-            h = rmsnorm(x, p["ln1"], cfg.norm_eps)
-            x = constrain(x + attention.gqa_attn(
-                h, p["attn"], cfg, window=None, positions=pos,
-                causal=False), "dp", None, None)
-            h = rmsnorm(x, p["ln2"], cfg.norm_eps)
-            # residual add fused into the down projection's epilogue
-            x = layers.mlp(h, p["mlp"], cfg, residual=x)
+            x = remat.checkpointed(functools.partial(enc_block, p), x)
     return rmsnorm(constrain(x, "dp", None, None), params["enc_norm"],
                    cfg.norm_eps)
 
@@ -138,20 +146,24 @@ def decode_hidden(params, cfg, tokens: torch.Tensor,
     """tokens (B, S), enc_out (B, F, D) -> hidden (B, S, D) after the final
     norm."""
     x, pos = embed_decoder(params, cfg, tokens)
+
+    def dec_block(p, x):
+        x = constrain(x, "dp", None, None)
+        h = rmsnorm(x, p["ln1"], cfg.norm_eps)
+        x = constrain(x + attention.gqa_attn(
+            h, p["attn"], cfg, window=None, positions=pos,
+            causal=True), "dp", None, None)
+        h = rmsnorm(x, p["ln_x"], cfg.norm_eps)
+        x = constrain(x + cross_attn(
+            h, cross_kv(enc_out, p["xattn"], cfg), p["xattn"], cfg),
+            "dp", None, None)
+        h = rmsnorm(x, p["ln2"], cfg.norm_eps)
+        # residual add fused into the down projection's epilogue
+        return layers.mlp(h, p["mlp"], cfg, residual=x)
+
     for r, p in enumerate(params["dec"]):
         with stage_trace.repeat(r):
-            x = constrain(x, "dp", None, None)
-            h = rmsnorm(x, p["ln1"], cfg.norm_eps)
-            x = constrain(x + attention.gqa_attn(
-                h, p["attn"], cfg, window=None, positions=pos,
-                causal=True), "dp", None, None)
-            h = rmsnorm(x, p["ln_x"], cfg.norm_eps)
-            x = constrain(x + cross_attn(
-                h, cross_kv(enc_out, p["xattn"], cfg), p["xattn"], cfg),
-                "dp", None, None)
-            h = rmsnorm(x, p["ln2"], cfg.norm_eps)
-            # residual add fused into the down projection's epilogue
-            x = layers.mlp(h, p["mlp"], cfg, residual=x)
+            x = remat.checkpointed(functools.partial(dec_block, p), x)
     return rmsnorm(constrain(x, "dp", None, None), params["final_norm"],
                    cfg.norm_eps)
 

@@ -129,12 +129,17 @@ def chunk_override(q_chunk: int, kv_chunk: int):
     (q_chunk, kv_chunk) chunks, whatever its caller asks: the cost probes'
     single-trip attention, ``chunk_override(1 << 30, 1 << 30)``.  The JAX
     package sets a module global for the rest of the process instead."""
-    prev = getattr(_CHUNKS, "override", None)
+    prev = current_chunk_override()
     _CHUNKS.override = (q_chunk, kv_chunk)
     try:
         yield
     finally:
         _CHUNKS.override = prev
+
+
+def current_chunk_override() -> tuple[int, int] | None:
+    """This thread's `chunk_override`, or None."""
+    return getattr(_CHUNKS, "override", None)
 
 
 def blockwise_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -151,8 +156,15 @@ def blockwise_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     positions below 0 are invalid.  Masked scores are -1e30, padded q rows
     sit at position 2**30, and the result is acc / max(l, 1e-30) — the
     JAX package's blockwise_attention, with its scans as Python loops.
+    Each kv step is checkpointed as JAX's is (`remat.checkpointed`): with
+    grad enabled the backward keeps the (m, l, acc) carry of each step and
+    recomputes one chunk pair's scores at a time.  A walk of a single
+    chunk pair is not: XLA inlines both one-trip scans and merges the
+    checkpoint's recompute with the forward, so JAX's program keeps the
+    scores.
     """
-    override = getattr(_CHUNKS, "override", None)
+    from repro_torch.models import remat
+    override = current_chunk_override()
     if override is not None:
         q_chunk, kv_chunk = override
     b, hq, sq, d = q.shape
@@ -180,9 +192,31 @@ def blockwise_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         v = torch.nn.functional.pad(v, (0, 0, 0, skv_p - skv))
         kp = torch.nn.functional.pad(kp, (0, skv_p - skv), value=-1)
 
+    def kv_step(m_prev, l_prev, acc, qi, kj, vj, kpj, qpi):
+        kj = kj.repeat_interleave(group, dim=1)
+        vj = vj.repeat_interleave(group, dim=1)
+        s = torch.einsum("bhqd,bhkd->bhqk", qi.float(), kj.float()) * scale
+        if softcap > 0.0:
+            s = softcap * torch.tanh(s / softcap)
+        mask = (kpj[:, None, :] >= 0).expand(b, q_chunk, kv_chunk)
+        if causal:
+            mask = mask & (kpj[:, None, :] <= qpi[:, :, None])
+        if window is not None:
+            mask = mask & (kpj[:, None, :] > qpi[:, :, None] - window)
+        s = torch.where(mask[:, None], s, -1e30)
+        m_cur = torch.amax(s, dim=-1, keepdim=True)
+        m_new = torch.maximum(m_prev, m_cur)
+        p = torch.exp(s - m_new)
+        p = torch.where(mask[:, None], p, 0.0)
+        alpha = torch.exp(m_prev - m_new)
+        l_new = l_prev * alpha + torch.sum(p, dim=-1, keepdim=True)
+        acc = acc * alpha + torch.einsum("bhqk,bhkd->bhqd", p, vj.float())
+        return m_new, l_new, acc
+
+    trips = (sq_p // q_chunk) * (skv_p // kv_chunk)
     outs = []
     for q0 in range(0, sq_p, q_chunk):
-        qi = q[:, :, q0:q0 + q_chunk].float()
+        qi = q[:, :, q0:q0 + q_chunk]
         qpi = qp[:, q0:q0 + q_chunk]
         m_i = torch.full((b, hq, q_chunk, 1), -1e30, dtype=torch.float32,
                          device=dev)
@@ -191,27 +225,10 @@ def blockwise_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         acc = torch.zeros((b, hq, q_chunk, dv), dtype=torch.float32,
                           device=dev)
         for k0 in range(0, skv_p, kv_chunk):
-            kj = k[:, :, k0:k0 + kv_chunk].repeat_interleave(group, dim=1)
-            vj = v[:, :, k0:k0 + kv_chunk].repeat_interleave(group, dim=1)
-            kpj = kp[:, k0:k0 + kv_chunk]
-            s = torch.einsum("bhqd,bhkd->bhqk", qi, kj.float()) * scale
-            if softcap > 0.0:
-                s = softcap * torch.tanh(s / softcap)
-            mask = (kpj[:, None, :] >= 0).expand(b, q_chunk, kv_chunk)
-            if causal:
-                mask = mask & (kpj[:, None, :] <= qpi[:, :, None])
-            if window is not None:
-                mask = mask & (kpj[:, None, :] > qpi[:, :, None] - window)
-            s = torch.where(mask[:, None], s, -1e30)
-            m_cur = torch.amax(s, dim=-1, keepdim=True)
-            m_new = torch.maximum(m_i, m_cur)
-            p = torch.exp(s - m_new)
-            p = torch.where(mask[:, None], p, 0.0)
-            alpha = torch.exp(m_i - m_new)
-            l_i = l_i * alpha + torch.sum(p, dim=-1, keepdim=True)
-            acc = acc * alpha + torch.einsum("bhqk,bhkd->bhqd", p,
-                                             vj.float())
-            m_i = m_new
+            m_i, l_i, acc = remat.checkpointed(
+                kv_step, m_i, l_i, acc, qi, k[:, :, k0:k0 + kv_chunk],
+                v[:, :, k0:k0 + kv_chunk], kp[:, k0:k0 + kv_chunk], qpi,
+                trips=trips)
         outs.append((acc / torch.clamp(l_i, min=1e-30)).to(q.dtype))
     out = torch.cat(outs, dim=2)
     return out[:, :, :sq]

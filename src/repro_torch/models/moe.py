@@ -222,7 +222,7 @@ def moe_mlp_shardmap(x: torch.Tensor, p: dict, cfg, mesh):
     collective is one sum of the fp32 (T_local, D) output over "model" a
     layer; aux is averaged over the data axes.  A shared expert is added
     after the sum, with a plain `layers.mlp`."""
-    from torch.distributed.tensor import DTensor, Partial, Replicate
+    from torch.distributed.tensor import DTensor
 
     from repro_torch.distributed import sharding as shd
     b, s, d = x.shape
@@ -231,49 +231,37 @@ def moe_mlp_shardmap(x: torch.Tensor, p: dict, cfg, mesh):
     n_local = max(e // msz, 1)
     dp = shd.dp_axes(mesh)
     plain = not isinstance(x, DTensor)
-    rep = [Replicate()] * mesh.ndim
 
-    def local(t, spec, grad_over):
-        """t's local block by `spec`; its gradient there is a pending sum
-        over the mesh dims in `grad_over` (where the ranks' uses differ)
-        and keeps the block's placement elsewhere."""
-        if not isinstance(t, DTensor):
-            t = DTensor.from_local(t, mesh, rep, run_check=False)
-        place = shd.to_placements(spec, mesh)
-        grad = [Partial() if name in grad_over else pl for name, pl in
-                zip(shd.axis_names(mesh), place)]
-        return t.redistribute(mesh, place).to_local(grad_placements=grad)
+    def routed(xl, router, w_gate, w_up, w_down):
+        tl = xl.shape[0] * xl.shape[1]
+        m_idx = mesh.get_local_rank("model") if n_local < e else 0
+        y, aux = _dispatch_compute_combine(
+            xl.reshape(tl, d), {"router": router, "w_gate": w_gate,
+                                "w_up": w_up, "w_down": w_down},
+            cfg, n_local_experts=n_local, expert_offset=m_idx * n_local)
+        if m_idx:   # every model rank has aux; its gradient counts once
+            aux = aux.detach()
+        y = _all_reduce_sum(y, mesh.get_group("model"))
+        # aux is identical on every model rank (computed from the
+        # replicated token copy): average over the data ranks only.
+        n_dp = 1
+        for a in dp:
+            if a in shd.axis_names(mesh):
+                aux = _all_reduce_sum(aux, mesh.get_group(a))
+                n_dp *= mesh.size(shd.axis_names(mesh).index(a))
+        return y.reshape(xl.shape).to(x.dtype), aux / n_dp
 
     _EP_COUNTS["shardmap_calls"] += 1
-    # tokens: each model rank routes the copy to its own experts; weights:
-    # each data rank routes its own tokens
-    xl = local(x, shd.P(dp, None, None), ("model",))
-    expert = shd.P("model", None, None)
-    pl = {"router": local(p["router"], shd.P(None, None),
-                          dp + ("model",)),
-          "w_gate": local(p["w_gate"], expert, dp),
-          "w_up": local(p["w_up"], expert, dp),
-          "w_down": local(p["w_down"], expert, dp)}
-    tl = xl.shape[0] * xl.shape[1]
-    m_idx = mesh.get_local_rank("model") if n_local < e else 0
-    y, aux = _dispatch_compute_combine(
-        xl.reshape(tl, d), pl, cfg, n_local_experts=n_local,
-        expert_offset=m_idx * n_local)
-    if m_idx:       # every model rank has aux; its gradient counts once
-        aux = aux.detach()
-    y = _all_reduce_sum(y, mesh.get_group("model"))
-    # aux is identical on every model rank (computed from the replicated
-    # token copy): average over the data ranks only.
-    n_dp = 1
-    for a in dp:
-        if a in shd.axis_names(mesh):
-            aux = _all_reduce_sum(aux, mesh.get_group(a))
-            n_dp *= mesh.size(shd.axis_names(mesh).index(a))
-    aux = aux / n_dp
-    y = y.reshape(xl.shape).to(x.dtype)
-    y = DTensor.from_local(y, mesh, shd.to_placements(
-        shd.P(dp, None, None), mesh), run_check=False)
-    aux = DTensor.from_local(aux, mesh, rep, run_check=False)
+    # tokens: each model rank routes its copy to its own experts, so a
+    # token's gradient is a pending sum over "model"; weights: each data
+    # rank routes its own tokens
+    expert = ("model", None, None)
+    y, aux = shd.on_local_blocks(
+        routed, (x, p["router"], p["w_gate"], p["w_up"], p["w_down"]),
+        (("dp", None, None), (None, None), expert, expert, expert),
+        (("dp", None, None), ()),
+        grad_sum=(("model",), ("dp", "model"), ("dp",), ("dp",), ("dp",)),
+        mesh=mesh)
     if plain:
         y, aux = y.full_tensor(), aux.to_local()
     if cfg.n_shared_experts:

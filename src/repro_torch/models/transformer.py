@@ -7,15 +7,21 @@ Parameters are a plain dict: ``embed``, ``final_norm``, optional
 params}`` — the JAX package's stacked stage
 arrays unstacked along the layer axis (see `repro_torch.convert`).
 Each repeat runs in `stage_trace.repeat(r)`, so host records are made
-once per stage site, as under the JAX package's `lax.scan`.
+once per stage site, as under the JAX package's `lax.scan`; with grad
+enabled each repeat is one checkpointed unit (`remat.checkpointed`), as
+JAX's `jax.checkpoint(unit_fwd)`: the backward keeps the hidden state at
+unit boundaries only.
 """
 
 from __future__ import annotations
 
+import functools
+import itertools
+
 import torch
 
 from repro_torch.core import skewmm, stage_trace
-from repro_torch.models import blocks, layers
+from repro_torch.models import blocks, layers, remat
 from repro_torch.models.layers import embed_init, linear_init, rmsnorm
 
 
@@ -64,32 +70,36 @@ def lookup(embed: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
     differ."""
     if not hasattr(embed, "placements"):
         return embed[tokens]
-    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+    from torch.distributed.tensor import Replicate, Shard
 
-    from repro_torch.distributed.sharding import block_start
+    from repro_torch.distributed import sharding
     mesh = embed.device_mesh
+    names = sharding.axis_names(mesh)
     tok_place = (tokens.placements if hasattr(tokens, "placements")
                  else (Replicate(),) * mesh.ndim)
-    place, grad, out_place = [], [], []
-    for tp, ep in zip(tok_place, embed.placements):
-        if ep == Shard(0) and tp.is_replicate():
-            place.append(Shard(0))
-            grad.append(Shard(0))
-            out_place.append(Partial())
-        else:
-            place.append(Replicate())
-            grad.append(Replicate() if tp.is_replicate() else Partial())
-            out_place.append(tp)
-    table = embed.redistribute(mesh, place).to_local(grad_placements=grad)
-    lo = block_start(mesh, place, 0, table.shape[0])
-    local = tokens.to_local() if hasattr(tokens, "placements") else tokens
-    idx = local - lo
-    inside = (idx >= 0) & (idx < table.shape[0])
-    rows = table[idx.clamp(0, table.shape[0] - 1)]
-    rows = torch.where(inside[..., None], rows, torch.zeros_like(rows))
-    x = DTensor.from_local(rows, mesh, out_place, run_check=False)
+    vocab = tuple(n for n, tp, ep in zip(names, tok_place, embed.placements)
+                  if ep == Shard(0) and tp.is_replicate())
+    split = tuple(n for n, tp in zip(names, tok_place)
+                  if not tp.is_replicate())
+    table_place = [Shard(0) if n in vocab else Replicate() for n in names]
+    block = embed.shape[0]
+    for n in vocab:
+        block //= mesh.size(names.index(n))
+    lo = sharding.block_start(mesh, table_place, 0, block)
+
+    def rows_of(table, tok):
+        idx = tok - lo
+        inside = (idx >= 0) & (idx < table.shape[0])
+        rows = table[idx.clamp(0, table.shape[0] - 1)]
+        return torch.where(inside[..., None], rows, torch.zeros_like(rows))
+
+    tok_spec = sharding.spec_of(tokens) if hasattr(tokens, "placements") \
+        else (None,) * tokens.ndim
+    x = sharding.on_local_blocks(
+        rows_of, (embed, tokens), ((vocab or None, None), tok_spec),
+        (tok_spec + (None,),), grad_sum=(split, ()), out_sum=vocab)
     return x.redistribute(mesh, [Replicate() if p.is_partial() else p
-                                 for p in out_place])
+                                 for p in x.placements])
 
 
 def embed_tokens(params, cfg, tokens: torch.Tensor) -> torch.Tensor:
@@ -119,11 +129,22 @@ def forward_hidden(params, cfg, tokens: torch.Tensor, *,
     scalar)."""
     x, positions = embed_inputs(params, cfg, tokens, prefix_embeds)
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
-    for kind, p, _, r, _ in layer_iter(params, cfg):
+    for (_, r), unit in itertools.groupby(layer_iter(params, cfg),
+                                          key=lambda e: e[2:4]):
         with stage_trace.repeat(r):
-            x, aux = blocks.block_fwd(x, p, cfg, kind, positions)
-        aux_total = aux_total + aux
+            x, aux_total = remat.checkpointed(
+                functools.partial(_unit_fwd, [e[:2] for e in unit], cfg,
+                                  positions), x, aux_total)
     return rmsnorm(x, params["final_norm"], cfg.norm_eps), aux_total
+
+
+def _unit_fwd(unit, cfg, positions, x, aux):
+    """One repeating unit: its blocks ((kind, params) pairs) in order,
+    carrying (x, the summed aux loss), as JAX's checkpointed `unit_fwd`."""
+    for kind, p in unit:
+        x, a = blocks.block_fwd(x, p, cfg, kind, positions)
+        aux = aux + a
+    return x, aux
 
 
 def unembed(params, cfg, h: torch.Tensor) -> torch.Tensor:

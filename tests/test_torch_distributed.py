@@ -15,8 +15,10 @@ forms its ("data", "model") mesh with `launch.mesh.make_host_mesh`.  Rank
   * (2, 1): the loader, the (1, 2) checkpoint restored, and the trainer
     (also with two microbatches and int8 error feedback);
   * (1, 1): MoE and the (1, 2) checkpoint restored;
-  * (1, 4): MoE, and the ring over a subgroup of 3 ranks (1000 elements
-    padded to 1002); (2, 2): MoE and the loader;
+  * (1, 4): MoE, the ring over a subgroup of 3 ranks (1000 elements
+    padded to 1002), the row-split products and attention with one kv
+    head; (2, 2): MoE, the loader, the row-split products and attention
+    with one kv head;
   * 8 ranks: the int8 ring.
 
 Tolerances: the ring is the numpy emulation of JAX's source bit for bit,
@@ -194,8 +196,8 @@ WORLDS = [  # (data, model, cases); the (1, 2) world saves the checkpoint
     (1, 2, ("ring", "moe", "loader", "save", "restore_jax", "train")),
     (2, 1, ("loader", "restore", "train", "train_mb")),
     (1, 1, ("moe", "restore")),
-    (1, 4, ("moe", "ring3")),
-    (2, 2, ("moe", "loader")),
+    (1, 4, ("moe", "ring3", "rowsplit", "mqa")),
+    (2, 2, ("moe", "loader", "rowsplit", "mqa")),
     (8, 1, ("ring",)),
 ]
 RING_WORLD = {2: "1x2", 3: "1x4", 8: "8x1"}
@@ -339,6 +341,38 @@ def test_moe_shardmap_gradients_equal_meshless(run, arch, mesh):
     assert err.max() < 1e-4, err
 
 
+# ----------------------------------------------------- row-split products
+@pytest.mark.parametrize("wid", ["1x4", "2x2"])
+def test_row_split_gradients_equal_meshless(run, wid):
+    """`wo` and `w_down` (the MLP's down projection with its residual) of
+    phi4-mini `reduced()` on the rules' placements in a gloo world of 4:
+    the outputs and the gradients of the inputs, the weights and the
+    residual within 1e-5 of each one's largest magnitude of the meshless
+    products' (fp32; the four ranks' partial sums add in another order),
+    and each of the two products taken on the ranks' blocks
+    (`sharding.on_local_blocks` with a pending-sum output)."""
+    got = run["worlds"][wid]
+    err = got["arrays"]["rowsplit/err"]
+    assert err.max() < 1e-5, err
+    assert got["rowsplit_local_calls"] == 2
+
+
+@pytest.mark.parametrize("wid", ["1x4", "2x2"])
+def test_one_kv_head_attention_splits_q_heads(run, wid):
+    """`attention.per_head` with one kv head (recurrentgemma's MQA) and
+    four q heads in a gloo world of 4: q's heads stay split over "model"
+    and each rank attends with the kv head its q heads share, as XLA
+    splits the grouped product (the kv head is not split, so heads were
+    once run whole on every "model" rank).  The output and the q, k, v
+    gradients within 1e-5 of each one's largest magnitude of the meshless
+    attention's (fp32; k's and v's gradients sum over the "model" ranks
+    in another order)."""
+    got = run["worlds"][wid]
+    err = got["arrays"]["mqa/err"]
+    assert err.max() < 1e-5, err
+    assert got["mqa_q_heads_local"] == 4 // int(wid.split("x")[1])
+
+
 # --------------------------------------------------------------- loader
 @pytest.mark.parametrize("wid", ["1x2", "2x1", "2x2"])
 def test_loader_local_batches_are_global_slices(run, wid):
@@ -471,6 +505,110 @@ def _moe_grads(arch, cfg, mesh, x, p, arrays):
     arrays[f"{arch}/grad_err"] = np.array([
         float((a - b).abs().max() / max(b.abs().max(), 1e-30))
         for a, b in zip(got, want)])
+
+
+def _case_rowsplit(mesh, d, tmp, arrays, res):
+    """The row-split products on `mesh` against the meshless ones."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.core import skewmm
+    from repro_torch.core.config import mm_config
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.models import layers
+    cfg = get_config("phi4-mini-3.8b").reduced()
+    rng = np.random.default_rng(31)
+    b, s, hd = 4, 16, cfg.n_heads * cfg.head_dim
+
+    def draw(*shape):
+        return torch.from_numpy((rng.normal(size=shape) * 0.3).astype(
+            np.float32))
+
+    acts = {"ctx": draw(b, s, hd), "h": draw(b, s, cfg.d_model),
+            "resid": draw(b, s, cfg.d_model)}
+    weights = {"wo": draw(hd, cfg.d_model),
+               "w_gate": draw(cfg.d_model, cfg.d_ff),
+               "w_up": draw(cfg.d_model, cfg.d_ff),
+               "w_down": draw(cfg.d_ff, cfg.d_model)}
+    cot = draw(b, s, cfg.d_model)
+    calls = []
+    local = shd.on_local_blocks
+
+    def counted(*args, **kwargs):
+        if kwargs.get("out_sum"):
+            calls.append(1)
+        return local(*args, **kwargs)
+
+    def products(a, w, c):
+        names = list(a) + list(w)
+        live = [t.detach().requires_grad_(True) for t in
+                list(a.values()) + list(w.values())]
+        v = dict(zip(names, live))
+        with mm_config(backend="torch"):
+            y1 = skewmm.matmul(v["ctx"], v["wo"])
+            y2 = layers.mlp(v["h"], {k: v[k] for k in
+                                     ("w_gate", "w_up", "w_down")}, cfg,
+                            residual=v["resid"])
+        grads = torch.autograd.grad(((y1 + y2) * c).sum(), live)
+        return [t.full_tensor() if hasattr(t, "full_tensor") else t
+                for t in (y1, y2, *grads)]
+
+    want = products(acts, weights, cot)
+    specs = shd.tree_param_specs(weights, mesh)
+    placed_w = shd.shard_like(weights, specs, mesh)
+    placed_a = {"ctx": shd.place(acts["ctx"], shd.P("data", None, "model"),
+                                 mesh),
+                **{k: shd.place(acts[k], shd.batch_spec((b, s, 1), mesh),
+                                mesh) for k in ("h", "resid")}}
+    shd.on_local_blocks = counted
+    try:
+        got = products(placed_a, placed_w, shd.place(
+            cot, shd.batch_spec((b, s, 1), mesh), mesh))
+    finally:
+        shd.on_local_blocks = local
+    res["rowsplit_local_calls"] = len(calls)
+    arrays["rowsplit/err"] = np.array([
+        float((g - w).abs().max() / max(w.abs().max(), 1e-30))
+        for g, w in zip(got, want)])
+
+
+def _case_mqa(mesh, d, tmp, arrays, res):
+    """Attention with one kv head on `mesh` against the meshless one."""
+    from repro_torch.core.config import mm_config
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.models import attention, layers
+    rng = np.random.default_rng(37)
+    b, s, hq, hd = 4, 16, 4, 8
+
+    def draw(*shape):
+        return torch.from_numpy(rng.normal(size=shape).astype(np.float32))
+
+    q, k, v, cot = (draw(b, s, hq, hd), draw(b, s, 1, hd),
+                    draw(b, s, 1, hd), draw(b, s, hq, hd))
+    heads = []
+
+    def attend(qb, kb, vb):
+        heads.append(qb.shape[2])
+        return layers.blockwise_attention(
+            qb.transpose(1, 2), kb.transpose(1, 2), vb.transpose(1, 2),
+            causal=True, q_chunk=8, kv_chunk=8).transpose(1, 2)
+
+    def run(*args):
+        live = [t.detach().requires_grad_(True) for t in args[:3]]
+        with mm_config(backend="torch"):
+            out = attention.per_head(attend, *live)
+        grads = torch.autograd.grad((out * args[3]).sum(), live)
+        return [t.full_tensor() if hasattr(t, "full_tensor") else t
+                for t in (out, *grads)]
+
+    want = run(q, k, v, cot)
+    heads.clear()
+    split = shd.P("data", None, "model", None)
+    whole = shd.P("data", None, None, None)
+    got = run(shd.place(q, split, mesh), shd.place(k, whole, mesh),
+              shd.place(v, whole, mesh), shd.place(cot, split, mesh))
+    res["mqa_q_heads_local"] = heads[0]
+    arrays["mqa/err"] = np.array([
+        float((g - w).abs().max() / max(w.abs().max(), 1e-30))
+        for g, w in zip(got, want)])
 
 
 def _case_loader(mesh, d, tmp, arrays, res):
@@ -631,7 +769,8 @@ def _case_train(mesh, d, tmp, arrays, res, prefix="", ts=None):
 
 
 _CASES = {"ring": _case_ring, "ring3": _case_ring3, "moe": _case_moe,
-          "train_mb": _case_train_mb, "loader": _case_loader,
+          "rowsplit": _case_rowsplit, "mqa": _case_mqa, "train_mb": _case_train_mb,
+          "loader": _case_loader,
           "save": _case_save, "restore": _case_restore,
           "restore_jax": _case_restore_jax, "train": _case_train}
 

@@ -14,7 +14,14 @@ tests/test_torch_roofline.py <out.json>`: a fake process group of 4 ranks
 is process-wide): an all-gather whose local output is bf16 (1024, 1024)
 counts JAX's `collective_stats("%ag = bf16[1024,1024]{1,0}
 all-gather(%x)")` bytes, and likewise all-reduce, reduce-scatter and
-all-to-all; a functional collective's wait counts nothing more.
+all-to-all; a functional collective's wait counts nothing more; a
+redistribute and a view count no FLOPs.
+
+The elementwise census: for each op class (add, mul, div, where, max,
+exp, tanh, rsqrt, the integer powers, sums, max and mean over an axis,
+convert, cumsum at three lengths, and the fused activations, softmax and
+logsumexp) `ProgramCounter`'s FLOPs of the torch op equal XLA's
+`cost_analysis()["flops"]` of the same jitted JAX function.
 """
 
 import json
@@ -226,6 +233,15 @@ def test_counter_counts_local_flops_and_peak(collectives):
     assert got["peak"] >= got["inputs"] > 0
 
 
+def test_redistribute_and_view_count_no_flops(collectives):
+    """A `DTensor` all-gathered and a pending sum all-reduced (the sum is
+    the collective's, as XLA's all-reduce is not an elementwise op here),
+    and a view: no FLOPs."""
+    got = collectives["redistribute"]
+    assert got["flops"] == 0
+    assert got["counts"] == {"all-gather": 1, "all-reduce": 1}
+
+
 def _counter_world(out: str) -> None:
     """Rank 0 of a fake world of 4: each collective of a bf16 local
     output of (1024, 1024) under its own counter."""
@@ -268,8 +284,98 @@ def _counter_world(out: str) -> None:
         cost = c.cost()
         res["mm"] = {"flops": cost.flops, "peak": cost.bytes_per_device,
                      "inputs": 256 * 1024 * 4 + 1024 * 1024 * 4}
+        from torch.distributed.tensor import Partial
+        part = torch.distributed.tensor.DTensor.from_local(
+            torch.empty((256, 1024)), mesh, [Partial()], run_check=False)
+        c = roofline.ProgramCounter((a, part))
+        with c:
+            a.redistribute(mesh, [Replicate()])
+            part.redistribute(mesh, [Replicate()])
+            a.view(1024, 16, 64)
+        res["redistribute"] = {"flops": c.cost().flops,
+                               "counts": c.collectives.counts}
     with open(out, "w") as f:
         json.dump(res, f)
+
+
+# ---------------------------------------------------- elementwise census
+def _census_cases():
+    """op class -> (JAX function, torch function, input shapes): one
+    jitted JAX function a class, the same function in torch."""
+    import jax
+    import jax.numpy as jnp
+    import torch
+    import torch.nn.functional as F
+    return {
+        "add": (lambda x, y: x + y, lambda x, y: x + y, [(4, 8), (4, 8)]),
+        "mul": (lambda x, y: x * y, lambda x, y: x * y, [(4, 8), (4, 8)]),
+        "mul_scalar": (lambda x: x * 3.0, lambda x: x * 3.0, [(4, 8)]),
+        "div": (lambda x, y: x / y, lambda x, y: x / y, [(4, 8), (4, 8)]),
+        "where": (lambda x, y: jnp.where(x > y, x, y),
+                  lambda x, y: torch.where(x > y, x, y), [(4, 8), (4, 8)]),
+        "max": (jnp.maximum, torch.maximum, [(4, 8), (4, 8)]),
+        "exp": (jnp.exp, torch.exp, [(4, 8)]),
+        "tanh": (jnp.tanh, torch.tanh, [(4, 8)]),
+        "rsqrt": (jax.lax.rsqrt, torch.rsqrt, [(4, 8)]),
+        "square": (jnp.square, torch.square, [(4, 8)]),
+        "cube": (lambda x: x ** 3, lambda x: x ** 3, [(4, 8)]),
+        "sum_axis": (lambda x: jnp.sum(x, axis=-1),
+                     lambda x: torch.sum(x, dim=-1), [(4, 8)]),
+        "sum_all": (jnp.sum, torch.sum, [(4, 8)]),
+        "amax_axis": (lambda x: jnp.max(x, axis=-1),
+                      lambda x: torch.amax(x, dim=-1), [(4, 8)]),
+        "mean_axis": (lambda x: jnp.mean(x, axis=-1),
+                      lambda x: torch.mean(x, dim=-1), [(4, 8)]),
+        "convert": (lambda x: x.astype(jnp.bfloat16),
+                    lambda x: x.to(torch.bfloat16), [(4, 8)]),
+        "cumsum_8": (lambda x: jnp.cumsum(x, axis=-1),
+                     lambda x: torch.cumsum(x, dim=-1), [(3, 8)]),
+        "cumsum_100": (lambda x: jnp.cumsum(x, axis=-1),
+                       lambda x: torch.cumsum(x, dim=-1), [(3, 100)]),
+        "cumsum_1000": (lambda x: jnp.cumsum(x, axis=1),
+                        lambda x: torch.cumsum(x, dim=1), [(2, 1000, 3)]),
+        "sigmoid": (jax.nn.sigmoid, torch.sigmoid, [(4, 8)]),
+        "silu": (jax.nn.silu, F.silu, [(4, 8)]),
+        "gelu": (jax.nn.gelu, lambda x: F.gelu(x, approximate="tanh"),
+                 [(4, 8)]),
+        "softplus": (jax.nn.softplus, F.softplus, [(4, 8)]),
+        "softmax": (lambda x: jax.nn.softmax(x, axis=-1),
+                    lambda x: torch.softmax(x, dim=-1), [(4, 8)]),
+        "logsumexp": (lambda x: jax.scipy.special.logsumexp(x, axis=-1),
+                      lambda x: torch.logsumexp(x, dim=-1), [(4, 8)]),
+        "view": (lambda x: x.reshape(8, 4), lambda x: x.view(8, 4),
+                 [(4, 8)]),
+    }
+
+
+CENSUS = ["add", "mul", "mul_scalar", "div", "where", "max", "exp", "tanh",
+          "rsqrt", "square", "cube", "sum_axis", "sum_all", "amax_axis",
+          "mean_axis", "convert", "cumsum_8", "cumsum_100", "cumsum_1000",
+          "sigmoid", "silu", "gelu", "softplus", "softmax", "logsumexp",
+          "view"]
+
+
+@pytest.mark.parametrize("case", CENSUS)
+def test_pointwise_flops_equal_xla(case):
+    """Each op class's FLOPs as `ProgramCounter` counts the torch op (fp32
+    on the CPU) equal to XLA's `cost_analysis()["flops"]` of the jitted
+    JAX function: arithmetic, compares, selects and converts one an
+    element, reductions one an input folded, transcendentals none (XLA
+    counts them apart), the cumulative sum as XLA's rewrite of it, the
+    fused activations as XLA's expansion."""
+    import jax
+    import jax.numpy as jnp
+    import torch
+
+    from repro_torch.core import roofline
+    jfn, tfn, shapes = _census_cases()[case]
+    rng = np.random.default_rng(3)
+    xs = [rng.uniform(0.5, 2.0, size=s).astype(np.float32) for s in shapes]
+    ca = jax.jit(jfn).lower(*[jnp.asarray(x) for x in xs]).compile(
+        ).cost_analysis()
+    ca = ca[0] if isinstance(ca, (list, tuple)) else ca
+    _, cost = roofline.measure(tfn, *[torch.tensor(x) for x in xs])
+    assert cost.flops == float(ca.get("flops", 0.0)), (cost.flops, ca)
 
 
 if __name__ == "__main__":
