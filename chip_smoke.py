@@ -357,9 +357,34 @@ then the launch tools, after the mesh's process group is destroyed:
      rung's on the same inputs (phase 5's bounds), then K7 at the probe's
      2 x 24/8 x 4096 x 128 and K1 at each plan of that run (M 8192)
      against their plain versions (phase 3's tolerance);
+then the port's examples, each run by the interpreter from its own file:
+  4p. (the nineteenth main path) `examples/skewmm_planner_demo_torch.py`
+     as written (K1 at 96 x 1024 x 4096 fp32 and with the fused
+     gelu / scale / bias / residual epilogue, each within phase 3's fp32
+     tolerance of the plain oracle, its CUDA-event time beside its
+     gpu_h100 modeled time), `examples/serve_decode_torch.py` for
+     gemma2-27b and mamba2-2.7b (reduced, b4 p64 g48: every sampled id in
+     the vocabulary, every logit finite, K1 and K7 / K8 launched, decode
+     tokens a second), `examples/quickstart_torch.py` (20 steps of reduced
+     gemma2 on a one-rank NCCL mesh: finite losses) and
+     `examples/train_tiny_lm_torch.py --steps 40` (12 x 768, 100.7M
+     params, fp32: finite losses, the last logged below the first, ms a
+     step and tokens a second); one process each, the demo, the serves and
+     the tiny LM alone in turn, then the quickstart (it reports no time);
+     each exit code checked; each zeroes the launch counts at its start
+     and prints them in the JSON summary on its last line, and their sum
+     joins the kernels line; each example's wall seconds printed; while
+     the quickstart runs, the serves' kernels held at the shapes they ran:
+     each served model (reduced, seed 0, the example's prompts) prefilled
+     and stepped once more in this process through "cuda", the first call
+     of each signature to K1, K7 and K8 recorded, its prefill and decode
+     logits against the "torch" rung's (phase 5's bounds), then each
+     recorded call against its plain version (phase 3's tolerance; K8's
+     chunk-state kernel and state pass too), after the examples' counts
+     were read;
   7. the served decode ms per token, graphed and eager, of every run; the
      `kernels` JSON line (K1-K9, K8's three kernels apart, launches summed
-     over the eighteen main paths; then phase 6i's five deepseek rows and
+     over the nineteen main paths; then phase 6i's five deepseek rows and
      phase 6j's rows, each with its "shape" and its paths' launches), then
      the device line.
 Every phase from 3 on runs between two `guard_disarmed` checks: no ladder
@@ -374,6 +399,7 @@ step and one replay of a decode graph.
 from __future__ import annotations
 
 import collections
+import contextlib
 import dataclasses
 import functools
 import gc
@@ -5539,6 +5565,326 @@ def phase_launch_tools(torch, card: str) -> dict:
     return {"counts": counts}
 
 
+# Phase 4p: the port's examples, each run by the interpreter from its own
+# file as a user runs it (the planner demo as written, two serves at their
+# defaults, the tiny LM at 40 steps, the quickstart), in waves run one after
+# another: the demo, the serves and the tiny LM alone, so their times are
+# the card's own; the quickstart, which reports no time, beside the
+# in-process check of the serves' kernels (`check_served_kernels`), which
+# reports none either.  Checkpoints and each process's output go under
+# build/examples/ (removed after).
+EXAMPLE_WAVES = (
+    (("skewmm_planner_demo_torch", ()),),
+    (("serve_decode_torch", ("--arch", "gemma2-27b")),),
+    (("serve_decode_torch", ("--arch", "mamba2-2.7b")),),
+    (("train_tiny_lm_torch", ("--steps", "40", "--ckpt-dir",
+                              "{dir}/tiny-lm")),),
+    (("quickstart_torch", ("--ckpt-dir", "{dir}/quickstart")),),
+)
+EXAMPLES_TIMEOUT = 300
+# what each example must have launched on the card
+EXAMPLE_KERNELS = {
+    "skewmm_planner_demo_torch": ("skew_matmul_k_inner",),
+    "gemma2-27b": ("skew_matmul_k_inner", "flash_attention"),
+    "mamba2-2.7b": ("skew_matmul_k_inner", "ssd_scan"),
+}
+# serve_decode_torch's defaults: batch, prompt length, decode steps
+SERVED = (4, 64, 48)
+# what `check_served_kernels` records: module, dispatch function, count prefix
+SERVED_HELD = {"skew_matmul": ("skew_matmul", "skew_matmul_"),
+               "flash_attention": ("flash_attention", "flash_attention"),
+               "ssd_scan": ("ssd_scan", "ssd_")}
+
+
+def _kept(torch, t):
+    """A copy of `t` with its storage, offset and strides (a view keeps
+    the gaps the kernel reads past)."""
+    if not isinstance(t, torch.Tensor):
+        return t
+    out = torch.empty(0, dtype=t.dtype, device=t.device)
+    return out.set_(t.untyped_storage().clone(), t.storage_offset(),
+                    t.size(), t.stride())
+
+
+def _call_key(args, kw) -> tuple:
+    return tuple((tuple(a.shape), tuple(a.stride()), str(a.dtype))
+                 if hasattr(a, "shape") else repr(a) for a in args) + \
+        tuple(sorted((k, repr(v)) for k, v in kw.items()))
+
+
+@contextlib.contextmanager
+def recorded_calls(torch):
+    """Within the block, the first call of each signature to K1's dense
+    dispatch, K7's and K8's, their inputs kept: {module: {signature:
+    (args, kw)}}."""
+    import importlib
+    calls = {name: {} for name in SERVED_HELD}
+    saved = []
+    for name, (fn, _) in SERVED_HELD.items():
+        mod = importlib.import_module(f"repro_torch.kernels.{name}")
+        orig = getattr(mod, fn)
+
+        def rec(*args, _orig=orig, _seen=calls[name], **kw):
+            _seen.setdefault(_call_key(args, kw), (
+                [_kept(torch, a) for a in args], dict(kw)))
+            return _orig(*args, **kw)
+        saved.append((mod, fn, orig))
+        setattr(mod, fn, rec)
+    try:
+        yield calls
+    finally:
+        for mod, fn, orig in saved:
+            setattr(mod, fn, orig)
+
+
+def served_run(torch, params, cfg, backend: str, toks, nxt=None):
+    """The served example's prefill and one eager decode step (the step its
+    graph replays) under `backend`: (prefill logits, decode logits, the
+    token fed)."""
+    from repro_torch.core import config as mmcfg
+    from repro_torch.serve import engine
+    _, prompt, gen = SERVED
+    with mmcfg.mm_config(backend=backend):
+        cache, logits = engine.prefill(params, cfg, toks,
+                                       max_len=prompt + gen)
+        if nxt is None:
+            nxt = torch.argmax(logits, -1)
+        step, _ = engine.decode_step(params, cfg, cache, nxt, prompt)
+    torch.cuda.synchronize()
+    return logits, step, nxt
+
+
+def hold_served_calls(torch, check, calls, arch: str) -> int:
+    """Each recorded call against its plain version on the same inputs (the
+    kernel tolerance); the number held."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import skew_matmul as mm
+    from repro_torch.kernels import ssd_scan as ssd
+    held = 0
+    for args, kw in calls["skew_matmul"].values():
+        a, b = args[:2]
+        sched, odt = kw.get("schedule", "k_inner"), kw["out_dtype"]
+        ep = "+".join(t for t, _ in kw.get("epilogue") or ()) or "none"
+        got = mm.skew_matmul_cuda(*args, **kw)
+        want = mm.skew_matmul_plain(*args, bk=kw["bk"],
+                                    epilogue=kw.get("epilogue"),
+                                    out_dtype=odt)
+        torch.cuda.synchronize()
+        check(f"skew_matmul_{sched}", got, want, odt,
+              f"{arch} {a.shape[0]}x{a.shape[1]}x{b.shape[1]} "
+              f"({kw['bm']}, {kw['bk']}, {kw['bn']}) {ep}")
+        held += 1
+    for (q, k, v), kw in calls["flash_attention"].values():
+        got = fa.flash_attention_cuda(q, k, v, **kw)
+        want = fa.flash_attention_plain(q, k, v, **kw)
+        torch.cuda.synchronize()
+        check("flash_attention", got, want, q.dtype,
+              f"{arch} {tuple(q.shape)} kv {k.shape[1]} "
+              f"window {kw.get('window')} softcap {kw.get('softcap')}")
+        held += 1
+    for args, kw in calls["ssd_scan"].values():
+        chunk = kw.get("chunk", 128)
+        y, st = ssd.ssd_scan_cuda(*args, chunk=chunk, return_state=True)
+        y_w, st_w = ssd.ssd_scan_plain(*args, chunk=chunk,
+                                       return_state=True)
+        torch.cuda.synchronize()
+        tag = f"{arch} {tuple(args[0].shape)} chunk {chunk}"
+        check("ssd_scan", y, y_w, args[0].dtype, f"{tag} y")
+        check("ssd_scan", st, st_w, torch.float32, f"{tag} fp32 state")
+        if args[0].shape[1] > chunk:
+            ssd_pieces_check(torch, check, args, chunk, tag)
+        held += 1
+    return held
+
+
+def check_served_kernels(torch, card: str) -> None:
+    """Phase 4p: the served examples' kernels at the shapes they ran.  For
+    gemma2-27b and mamba2-2.7b, the example's model (reduced, weights from
+    seed 0) and prompts (numpy seed 0) once more in this process: the
+    prefill and one eager decode step through "cuda", with the first call
+    of each signature to K1, K7 and K8 recorded, against the "torch" rung
+    on the same inputs (phase 5's bounds); then each recorded call against
+    its plain version (the kernel tolerance).  A kernel the run launched
+    that no recorded call holds fails the phase, as does a "torch" run
+    that launched any.  These launches come after the examples' counts
+    were read and join no count."""
+    import numpy as np
+
+    from repro_torch.configs.base import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.models.model import build_model
+    batch, prompt, _ = SERVED
+    t0 = time.perf_counter()
+    for arch in ("gemma2-27b", "mamba2-2.7b"):
+        cfg = get_config(arch).reduced()
+        params = build_model(cfg, "cuda").init(0)
+        toks = torch.tensor(np.random.default_rng(0).integers(
+            0, cfg.vocab_size, (batch, prompt)), dtype=torch.long,
+            device="cuda")
+        ops.reset_launch_counts()
+        with recorded_calls(torch) as calls:
+            got = served_run(torch, params, cfg, "cuda", toks)
+        ran = {k for k, v in ops.launch_counts().items() if v}
+        prefixes = tuple(pre for _, pre in SERVED_HELD.values())
+        unheld = sorted(k for k in ran if not k.startswith(prefixes))
+        if unheld:
+            fail(f"phase 4p: the {arch} serve launched {unheld}, which no "
+                 f"recorded call holds")
+        ops.reset_launch_counts()
+        want = served_run(torch, params, cfg, "torch", toks, nxt=got[2])
+        if any(ops.launch_counts().values()):
+            fail(f"phase 4p: the {arch} \"torch\" rung launched "
+                 f"{ops.launch_counts()}")
+        for what, g, w in (("prefill", got[0], want[0]),
+                           ("decode", got[1], want[1])):
+            diff = (g.float() - w.float()).abs()
+            rel_max = diff.max().item() / w.float().abs().max().item()
+            rel_mean = diff.mean().item() / w.float().abs().mean().item()
+            say(f"examples ({card}): {arch} {what} logits {tuple(g.shape)} "
+                f"\"cuda\" against \"torch\": rel max {rel_max:.3e}, mean "
+                f"{rel_mean:.3e} (bounds {PATH_TOL_MAX} / {PATH_TOL_MEAN})")
+            if not (rel_max <= PATH_TOL_MAX and rel_mean <= PATH_TOL_MEAN):
+                fail(f"phase 4p: the {arch} serve's {what} logits through "
+                     f"\"cuda\" disagree with the torch rung's")
+        errs: dict = {}
+        held = hold_served_calls(
+            torch, functools.partial(check_kernel, torch, errs), calls, arch)
+        for name in EXAMPLE_KERNELS[arch]:
+            if name not in errs:
+                fail(f"phase 4p: no {name} call of the {arch} serve was "
+                     f"held against its plain version")
+        say(f"examples ({card}): {arch} serve: {held} kernel calls of "
+            f"distinct signature held against their plain versions; "
+            f"largest errors {errs}")
+        del params, calls, got, want
+        torch.cuda.empty_cache()
+    say(f"examples ({card}): the serves' kernels held in "
+        f"{time.perf_counter() - t0:.1f} s")
+
+
+def run_wave(wave, env, out_dir: Path, beside=None) -> list[tuple]:
+    """Start a wave's examples together, call `beside()` (if given) while
+    they run, and wait for all of them: for each, (name, its JSON summary,
+    wall s, stdout).  A failure kills the rest."""
+    procs = []
+    try:
+        for i, (name, argv) in enumerate(wave):
+            argv = [a.format(dir=out_dir) for a in argv]
+            log = out_dir / f"{name}-{i}"
+            cmd = [sys.executable, str(ROOT / "examples" / f"{name}.py"),
+                   *argv]
+            with open(f"{log}.out", "w") as out, \
+                    open(f"{log}.err", "w") as err:
+                procs.append((name, argv, log, time.perf_counter(),
+                              subprocess.Popen(cmd, env=env, cwd=ROOT,
+                                               stdout=out, stderr=err)))
+        if beside is not None:
+            beside()
+        done = []
+        for name, argv, log, t0, proc in procs:
+            try:
+                rc = proc.wait(timeout=EXAMPLES_TIMEOUT)
+            except subprocess.TimeoutExpired:
+                fail(f"phase 4p: {name} {' '.join(argv)}: timed out")
+            wall = time.perf_counter() - t0
+            stdout = Path(f"{log}.out").read_text()
+            if rc != 0:
+                err = Path(f"{log}.err").read_text()
+                fail(f"phase 4p: {name} {' '.join(argv)}: rc {rc}: "
+                     f"{err.strip()[-1500:]}")
+            try:
+                summary = json.loads(stdout.strip().splitlines()[-1])
+            except (IndexError, json.JSONDecodeError):
+                fail(f"phase 4p: {name}: no JSON summary on its last line")
+            done.append((name, summary, wall, stdout))
+        return done
+    finally:
+        for *_, proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+
+
+def finite_losses(tag: str, history) -> list[float]:
+    losses = [loss for _, loss in history]
+    if not losses or not all(math.isfinite(x) for x in losses):
+        fail(f"phase 4p: {tag}: losses {losses}")
+    return losses
+
+
+def check_example(card: str, name: str, res: dict, stdout: str) -> str:
+    """Gate one example's summary and print what it measured; its tag."""
+    tag = res["arch"] if name == "serve_decode_torch" else name
+    missing = [k for k in EXAMPLE_KERNELS.get(tag, ())
+               if not res["launches"].get(k)]
+    if missing:
+        fail(f"phase 4p: {tag} launched no {missing}: {res['launches']}")
+    if name == "skewmm_planner_demo_torch":
+        for key in ("k1_err", "k1_epilogue_err"):
+            if not res[key] <= FP32_TOL:
+                fail(f"phase 4p: demo {key} {res[key]:.3e} over "
+                     f"{FP32_TOL:.0e} of the largest magnitude")
+        say(f"examples ({card}): demo K1 {res['plan']} at 96 x 1024 x 4096 "
+            f"fp32: {res['k1_us']:.2f} us (CUDA events) beside "
+            f"{res['modeled_us']:.2f} us modeled on gpu_h100; max|err| / "
+            f"max|oracle| {res['k1_err']:.2e}, with the fused epilogue "
+            f"{res['k1_epilogue_err']:.2e}")
+    elif name == "serve_decode_torch":
+        ids = [t for row in res["tokens"] for t in row]
+        if not res["logits_finite"] or not all(
+                0 <= t < res["vocab"] for t in ids):
+            fail(f"phase 4p: {tag}: finite={res['logits_finite']}, ids in "
+                 f"[{min(ids)}, {max(ids)}] of {res['vocab']}")
+        say(f"examples ({card}): serve {tag} reduced b4 p64 g48: prefill "
+            f"{res['prefill_s'] * 1e3:.1f} ms, decode {res['tok_per_s']:.1f} "
+            f"tok/s (graphed), cache {res['cache_bytes'] / 2**20:.2f} MiB, "
+            f"launches {res['launches']}")
+    else:
+        losses = finite_losses(tag, res["history"])
+        steps = [ln for ln in stdout.splitlines()
+                 if ln.startswith("[trainer]")]
+        say(f"examples ({card}): {tag}: " + "; ".join(steps))
+        if name == "train_tiny_lm_torch":
+            if not losses[-1] < losses[0]:
+                fail(f"phase 4p: tiny LM loss did not fall: {losses}")
+            say(f"examples ({card}): tiny LM {res['params'] / 1e6:.1f}M "
+                f"params fp32, b4 x 256, 2 microbatches: "
+                f"{res['step_ms']:.1f} ms a step, "
+                f"{res['tokens_per_s']:.0f} tokens/s")
+    return tag
+
+
+def phase_examples(torch, card: str) -> dict:
+    """Phase 4p (the nineteenth main path): every example of the port on
+    the card in its own process (see the module docstring).  Each example
+    zeroes the launch counts at its start and prints them at its end; their
+    sum joins the kernels line."""
+    import shutil
+    env = dict(os.environ)
+    env["PYTHONPATH"] = str(SRC) + (os.pathsep + env["PYTHONPATH"]
+                                    if env.get("PYTHONPATH") else "")
+    out_dir = ROOT / "build" / "examples"
+    shutil.rmtree(out_dir, ignore_errors=True)
+    out_dir.mkdir(parents=True)
+    counts = collections.Counter()
+    walls = []
+    t0 = time.perf_counter()
+    try:
+        for i, wave in enumerate(EXAMPLE_WAVES, 1):
+            beside = functools.partial(check_served_kernels, torch, card) \
+                if i == len(EXAMPLE_WAVES) else None
+            for name, res, wall, stdout in run_wave(wave, env, out_dir,
+                                                    beside):
+                tag = check_example(card, name, res, stdout)
+                walls.append(f"{tag} {wall:.1f} s")
+                counts.update(res["launches"])
+    finally:
+        shutil.rmtree(out_dir, ignore_errors=True)
+    say(f"examples ({card}): wall s each: " + ", ".join(walls) +
+        f"; the phase {time.perf_counter() - t0:.1f} s")
+    return {"counts": counts}
+
+
 def _flat_tensors(state) -> dict:
     """{path key: tensor} of a TrainState's params and moments (the
     checkpoint's keys, per layer), left on their device."""
@@ -5626,6 +5972,9 @@ def main() -> None:
     phase_build()
     if "--tools-only" in sys.argv[1:]:       # phase 4n alone, no contract
         guarded("phase 4n", phase_launch_tools, torch, card)
+        return
+    if "--examples-only" in sys.argv[1:]:    # phase 4p alone, no contract
+        guarded("phase 4p", phase_examples, torch, card)
         return
 
     from repro_torch.configs.base import get_config
@@ -5818,6 +6167,9 @@ def main() -> None:
     tools_path = guarded("phase 4n", phase_launch_tools, torch, card)
     torch.cuda.empty_cache()
 
+    # the port's examples, each in its own process
+    examples_path = guarded("phase 4p", phase_examples, torch, card)
+
     say("served decode, ms per token (host clock): " + "; ".join(
         f"{g['tag']} graphed {g['graph_ms']:.2f} eager {g['eager_ms']:.2f}"
         for path in (phi4_graph, moe_path, hyb_path, ssm_path, gemma_path,
@@ -5831,7 +6183,7 @@ def main() -> None:
     # 192 / 128 widths, K5 at 256 groups) and phase 6j's rows (K7 at the
     # VLM and encoder-decoder shapes, Sq != Skv among them, and K1 at the
     # odd LM heads) with their "shape"; the other shapes are in the log
-    # above.  Launches: summed over the eighteen main paths (training runs
+    # above.  Launches: summed over the nineteen main paths (training runs
     # none; phase 4n's prefill probe runs K1 and K7); a deepseek
     # row's are those of the deepseek path, a phase 6j row's those of the
     # internvl2-1b and seamless-m4t paths.
@@ -5841,7 +6193,8 @@ def main() -> None:
         gemma_path["counts"], granite_path["counts"], cr_path["counts"],
         guard_path["counts"], sched_path["counts"], mla_path["counts"],
         vlm_path["counts"], ed_path["counts"], train_path["counts"],
-        long_path["counts"], mesh_path["counts"], tools_path["counts"]))
+        long_path["counts"], mesh_path["counts"], tools_path["counts"],
+        examples_path["counts"]))
         for n in KERNELS}
     first = {}
     for r in rows:

@@ -1,6 +1,7 @@
-"""The port stands alone: importing every module of `repro_torch` loads no
-JAX and nothing of the JAX package, and the default-device entry points
-refuse to run on the CPU when CUDA is absent."""
+"""The port stands alone: importing every module of `repro_torch` and the
+port's examples (`examples/*_torch.py`) loads no JAX and nothing of the
+JAX package, and the default-device entry points refuse to run on the CPU
+when CUDA is absent."""
 
 import os
 import subprocess
@@ -17,16 +18,23 @@ from repro_torch.launch import serve as serve_mod
 from repro_torch.models.model import build_model
 
 _PROBE = r"""
-import importlib, pkgutil, sys
+import glob, importlib, importlib.util, os, pkgutil, sys
 import repro_torch
 names = [m.name for m in pkgutil.walk_packages(repro_torch.__path__,
                                                "repro_torch.")]
 for name in names:
     importlib.import_module(name)
+examples = os.path.join(os.path.dirname(repro_torch.__path__[0]), os.pardir,
+                        "examples")
+paths = sorted(glob.glob(os.path.join(examples, "*_torch.py")))
+for path in paths:
+    spec = importlib.util.spec_from_file_location(
+        os.path.basename(path)[:-3], path)
+    spec.loader.exec_module(importlib.util.module_from_spec(spec))
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith(("jax.", "jaxlib", "repro."))
              or m == "repro")
-print(len(names), bad)
+print(len(names), len(paths), bad)
 assert not bad, bad
 """
 
@@ -38,8 +46,9 @@ def test_importing_the_port_loads_no_jax_and_no_repro():
     proc = subprocess.run([sys.executable, "-c", _PROBE], env=env,
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stdout + proc.stderr
-    count = int(proc.stdout.split()[0])
+    count, examples = map(int, proc.stdout.split()[:2])
     assert count >= 20          # every module was imported
+    assert examples == 4        # and the four examples
 
 
 @pytest.fixture
