@@ -289,7 +289,8 @@ then training, after seamless-m4t's weights are freed:
      end lower than they begin (printed beside the same run at 3e-4,
      where Adam's first steps at this width raise the loss); (d) a step under the "cuda" backend
      raises the kernels' forward-only refusal; (e) `launch.train.main
-     --reduced` runs on the card through its defaults;
+     --reduced` runs on the card through its defaults (over the host
+     mesh, a one-rank NCCL world it forms and takes down);
   5l. the train step's parity — phi4-mini reduced, fp32, TF32 off: one
      init on the CPU copied to the card, two steps of 2 microbatches with
      int8 error feedback on each: loss, grad_norm and lr within 1e-4, the
@@ -323,12 +324,22 @@ then the mesh, after the training state is freed:
   5m. (b)'s logits bitwise equal to the meshless prefill's (both under
      deterministic algorithms: index_add_'s atomics otherwise order the
      combine's sums at random) and K5's launches equal; (c) phi4-mini at
-     full width and 8 of 32 layers through `Trainer(mesh=)`, the state
-     placed as DTensors by the rules (every leaf's placements checked),
-     against the meshless `Trainer` from the same seed: step 1's loss,
-     grad_norm and lr within 1e-4, params and moments bitwise or within
-     1e-4 of each leaf's largest magnitude (phase 5l's limit), step ms of
-     both; (d) a reduced phi4 checkpoint of the meshless trainer restored
+     full width and 8 of 32 layers through `Trainer(mesh=make_host_mesh())`
+     against the meshless `Trainer` from the same seed, all under
+     deterministic algorithms: a world of one places nothing
+     (`sharding.distributes`), so every state leaf and batch stays a
+     plain tensor, step 1's metrics are equal and its params and moments
+     bitwise equal; and the DTensor leg, the meshless trainer's state
+     placed explicitly by `state_specs` / `shard_like` (every leaf's
+     placements checked), its batches by `batch_spec`, stepped by
+     `mesh_step` (DTensor dispatch, redistributes, NCCL): step 1's
+     metrics within 1e-4, params and moments bitwise or within 1e-4 of
+     each leaf's largest magnitude; step ms of the three; then one step
+     of each at a one-row batch (1 x 512; on the DTensor leg split over
+     the "data" axis of one rank, so `Replicate()`), losses equal on the
+     plain legs and within 1e-4 on the DTensor leg; (d) a reduced phi4
+     checkpoint of the
+     meshless trainer restored
      through `restore(specs=, mesh=)` as DTensors on the card, byte for
      byte equal to the saved state;
 then the launch tools, after the mesh's process group is destroyed:
@@ -366,10 +377,11 @@ then the port's examples, each run by the interpreter from its own file:
      gemma2-27b and mamba2-2.7b (reduced, b4 p64 g48: every sampled id in
      the vocabulary, every logit finite, K1 and K7 / K8 launched, decode
      tokens a second), `examples/quickstart_torch.py` (20 steps of reduced
-     gemma2 on a one-rank NCCL mesh: finite losses) and
+     gemma2 over the host mesh, a one-rank NCCL world: finite losses) and
      `examples/train_tiny_lm_torch.py --steps 40` (12 x 768, 100.7M
-     params, fp32: finite losses, the last logged below the first, ms a
-     step and tokens a second); one process each, the demo, the serves and
+     params, fp32, over the host mesh as the example trains by default:
+     finite losses, the last logged below the first, ms a step and tokens
+     a second); one process each, the demo, the serves and
      the tiny LM alone in turn, then the quickstart (it reports no time);
      each exit code checked; each zeroes the launch counts at its start
      and prints them in the JSON summary on its last line, and their sum
@@ -4664,6 +4676,12 @@ def phase_train(torch, cfg, card: str) -> dict:
     shutil.rmtree(cli_dir, ignore_errors=True)
     if not math.isfinite(res["final_loss"]):
         fail(f"train (e): launch.train final loss {res['final_loss']}")
+    import torch.distributed as dist
+    if dist.is_initialized():
+        fail("train (e): launch.train left its one-rank group formed")
+    say(f"train (e) ({card}): launch.train --reduced over the host mesh "
+        f"(a one-rank NCCL world, taken down after): final loss "
+        f"{res['final_loss']:.4f}")
     torch.cuda.empty_cache()
     return {"counts": counts, "step_ms": step_ms, "mfu": mfu,
             "bound_ms": bound, "peak": peak}
@@ -5010,10 +5028,13 @@ def phase_mesh(torch, dcfg, pcfg, card: str, train_ms: float) -> dict:
     the annotation mesh, every MoE layer through `moe_mlp_shardmap` (K5
     inside), its logits bitwise equal to the meshless prefill's and its K5
     launches equal; (c) phi4-mini at full width, MESH_TRAIN_LAYERS layers,
-    through `Trainer(mesh=)`: the state placed as DTensors by the rules,
-    step 1 within phase 5l's tolerance of the meshless step, step ms of
-    both beside 4l's (`train_ms`, at TRAIN_LAYERS layers); (d) a reduced phi4 checkpoint of the meshless trainer restored
-    onto the mesh through `restore(specs=, mesh=)`, bytes equal."""
+    through `Trainer(mesh=)`: on a world of one the state stays plain
+    tensors and step 1 is the meshless step bit for bit; beside them the
+    DTensor leg, the state placed explicitly and stepped by `mesh_step`,
+    within 1e-4; step ms of each beside 4l's (`train_ms`, at TRAIN_LAYERS
+    layers), and a one-row step of each (`mesh_trainer`); (d) a reduced
+    phi4 checkpoint of the meshless trainer restored onto the mesh
+    through `restore(specs=, mesh=)`, bytes equal."""
     import torch.distributed as dist
     from repro_torch.launch.mesh import make_host_mesh
 
@@ -5131,111 +5152,197 @@ def mesh_prefill(torch, mesh, dcfg, card: str) -> dict:
 
 
 def mesh_trainer(torch, mesh, pcfg, card: str) -> dict:
-    """Phase 4m (c) / 5m (c): phi4-mini's trainer on the mesh against the
-    meshless trainer, step 1 compared and both timed."""
+    """Phase 4m (c) / 5m (c): phi4-mini's trainer three ways from one seed,
+    each under deterministic algorithms: meshless; `Trainer(mesh=)` on the
+    one-rank mesh, where a world of one places nothing, so the state stays
+    plain tensors and step 1 is the meshless step bit for bit; and the
+    DTensor leg, the meshless trainer's state placed explicitly by
+    `state_specs` / `shard_like`, its batches by `batch_spec`, stepped by
+    `mesh_step` (DTensor dispatch, the redistributes to the specs, NCCL),
+    every leaf's placements checked and step 1 within 1e-4 of the meshless
+    step (phase 5l's limit).  Each leg's steps timed, then one step at a
+    one-row batch (1 x TRAIN_SEQ) on each: equal losses on the plain legs,
+    within 1e-4 on the DTensor leg, whose one-row batch is split over the
+    "data" axis of one rank by its spec and so `Replicate()`."""
     import shutil
     import statistics
-    from torch.distributed.tensor import DTensor
+    import warnings
+    from torch.distributed.tensor import DTensor, Replicate
     from repro_torch.core import config as mmcfg
     from repro_torch.data.pipeline import DataLoader, SyntheticLM
     from repro_torch.distributed import sharding as shd
     from repro_torch.models.model import build_model
     from repro_torch.optim.adamw import AdamW
     from repro_torch.train.train_step import TrainStepConfig
-    from repro_torch.train.trainer import Trainer, TrainerConfig
+    from repro_torch.train.trainer import (Trainer, TrainerConfig,
+                                           mesh_step, state_specs)
 
     cfg = dataclasses.replace(pcfg, n_layers=MESH_TRAIN_LAYERS)
     say(model_line(cfg, 32) + f" batch {TRAIN_BATCH} x {TRAIN_SEQ}, "
-        f"loss_chunk {TRAIN_CHUNK}, {MESH_TRAIN_STEPS} steps a trainer")
+        f"loss_chunk {TRAIN_CHUNK}, {MESH_TRAIN_STEPS} steps a trainer, "
+        f"then one at 1 x {TRAIN_SEQ}")
+    if shd.distributes(mesh):
+        fail(f"mesh (c): a mesh of {mesh.size()} rank(s) would place")
     bundle = build_model(cfg, "cuda")
     ts_cfg = TrainStepConfig(loss_chunk=TRAIN_CHUNK)
     source = SyntheticLM(cfg.vocab_size)
     root = ROOT / "build" / "mesh_smoke"
     shutil.rmtree(root, ignore_errors=True)
-    results = {}
-    for name, m in (("meshless", None), ("mesh", mesh)):
+
+    def whole(x):
+        return x.full_tensor() if isinstance(x, DTensor) else x
+
+    def put(batch):
+        return {k: shd.place(v, shd.batch_spec(tuple(v.shape), mesh), mesh)
+                for k, v in batch.items()}
+
+    results, p_first = {}, None
+    for name, m in (("meshless", None), ("mesh", mesh), ("dtensor", None)):
         trainer = Trainer(bundle, AdamW(lr=3e-4), ts_cfg,
                           TrainerConfig(total_steps=MESH_TRAIN_STEPS,
                                         ckpt_dir=str(root / name)),
                           log_fn=say, mesh=m)
         loader = DataLoader(source, TRAIN_BATCH, TRAIN_SEQ,
                             device=bundle.device, mesh=m)
-        ms, seen = [], []
+        one_row = DataLoader(source, 1, TRAIN_SEQ, device=bundle.device,
+                             mesh=m)
         state, trainer.state = trainer.state, None   # held once, here
-        try:
-            with mmcfg.mm_config(backend="torch"):
-                for i in range(MESH_TRAIN_STEPS):
-                    batch = next(loader)
-                    torch.cuda.synchronize()
-                    t = time.perf_counter()
-                    state, metrics = trainer.step_fn(state, batch)
-                    torch.cuda.synchronize()
-                    ms.append((time.perf_counter() - t) * 1e3)
-                    seen.append({k: float(v) for k, v in metrics.items()})
-                    if i == 0:
-                        first = state
-        finally:
-            loader.close()
+        step_fn, specs, feed = trainer.step_fn, None, dict
+        if name == "dtensor":
+            specs = state_specs(state, mesh)
+            state = shd.shard_like(state, specs, mesh)
+            step_fn, feed = mesh_step(step_fn, specs, mesh), put
+        ms, seen, kinds = [], [], set()
+        # the embedding's and the loss's scatter-adds order their sums at
+        # random otherwise: every trainer runs the deterministic kernels
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            torch.use_deterministic_algorithms(True, warn_only=True)
+            try:
+                with mmcfg.mm_config(backend="torch"):
+                    for i in range(MESH_TRAIN_STEPS + 1):
+                        batch = feed(next(loader if i < MESH_TRAIN_STEPS
+                                          else one_row))
+                        kinds.add(type(batch["tokens"]))
+                        torch.cuda.synchronize()
+                        t = time.perf_counter()
+                        state, metrics = step_fn(state, batch)
+                        torch.cuda.synchronize()
+                        ms.append((time.perf_counter() - t) * 1e3)
+                        seen.append({k: float(v) for k, v in
+                                     metrics.items()})
+                        if i == 0:
+                            first = state
+            finally:
+                torch.use_deterministic_algorithms(False)
+                loader.close()
+                one_row.close()
         _finite_metrics(seen, f"mesh (c) {name}")
-        if m is not None:
-            specs = trainer.state_specs
-            placed = [0]
+        if name == "mesh":
+            placed = [k for k, v in _flat_tensors(first).items()
+                      if isinstance(v, DTensor)]
+            if placed or trainer.state_specs is not None \
+                    or kinds != {torch.Tensor}:
+                fail(f"mesh (c): a world of one placed {len(placed)} state "
+                     f"leaves, batches {kinds}")
+            say(f"mesh (c) ({card}): Trainer on the mesh: every state leaf "
+                "and batch a plain tensor (no DTensor, no annotation mesh)")
+        if name == "dtensor":
+            placed, named = [0], [0]
 
             def check(x, spec):
                 if spec is not None:
-                    if not isinstance(x, DTensor) or tuple(x.placements) \
-                            != shd.to_placements(spec, mesh):
+                    want = shd.to_placements(spec, mesh)
+                    if not isinstance(x, DTensor) \
+                            or tuple(x.placements) != want:
                         fail(f"mesh (c): a leaf is not placed by {spec}")
                     placed[0] += 1
+                    named[0] += any(a is not None for a in tuple(spec))
                 return x
             shd.map_specs(check, first, specs)
-            say(f"mesh (c) ({card}): {placed[0]} state leaves placed as "
-                "DTensors by tree_param_specs / tree_optstate_specs")
-            results[name] = (ms, seen, {
-                k: v.full_tensor() if isinstance(v, DTensor) else v
-                for k, v in _flat_tensors(first).items()})
+            row_spec = shd.batch_spec((1, TRAIN_SEQ), mesh)
+            row_at = shd.to_placements(row_spec, mesh)
+            if kinds != {DTensor} or tuple(row_spec)[0] is None \
+                    or row_at != (Replicate(),) * mesh.ndim:
+                fail(f"mesh (c): DTensor leg batches {kinds}, one-row "
+                     f"spec {row_spec} -> {row_at}")
+            say(f"mesh (c) ({card}): DTensor leg: {placed[0]} state leaves "
+                f"placed by tree_param_specs / tree_optstate_specs ("
+                f"{named[0]} of their specs name a mesh axis, each of size "
+                f"1 here, so Replicate()), every batch a DTensor by "
+                f"batch_spec; the one-row batch's spec {row_spec} -> "
+                f"{row_at}")
+        del trainer, state
+        first = {k: whole(v) for k, v in _flat_tensors(first).items()}
+        if name == "meshless":
+            p_first = first
         else:
-            results[name] = (ms, seen, _flat_tensors(first))
-        del trainer, state, first
+            compare_step1(torch, name, first, p_first, seen[0],
+                          results["meshless"][1][0],
+                          0.0 if name == "mesh" else 1e-4)
+        results[name] = (ms, seen)
+        del first
         gc.collect()
         torch.cuda.empty_cache()
-    (p_ms, p_seen, p_first), (m_ms, m_seen, m_first) = \
-        results["meshless"], results["mesh"]
-    for k in ("loss", "grad_norm", "lr"):
-        a, b = m_seen[0][k], p_seen[0][k]
-        if abs(a - b) > 1e-4 * abs(b):
-            fail(f"mesh (c): step 1 {k} {a} vs meshless {b}")
-    worst, bitwise = 0.0, 0
-    for k, want in p_first.items():
-        got = m_first[k]
-        if torch.equal(got, want):
-            bitwise += 1
-            continue
-        scale = max(want.float().abs().max().item(), 1e-30)
-        rel = (got.float() - want.float()).abs().max().item() / scale
-        worst = max(worst, rel)
-        if rel > 1e-4:
-            fail(f"mesh (c): step 1 {k} off by {rel:.3e} of its largest "
-                 "magnitude")
-    say(f"mesh (c) ({card}): step 1 loss {m_seen[0]['loss']:.7f} / "
-        f"meshless {p_seen[0]['loss']:.7f}, grad_norm "
-        f"{m_seen[0]['grad_norm']:.6f} / {p_seen[0]['grad_norm']:.6f}; "
-        f"{bitwise} of {len(p_first)} state leaves bitwise equal, the rest "
-        f"within {worst:.2e} of each leaf's largest magnitude (limit 1e-4)")
-    step_ms = statistics.median(m_ms[1:])
-    plain_ms = statistics.median(p_ms[1:])
+    say(f"mesh (c) ({card}): step 1 loss "
+        + " / ".join(f"{results[n][1][0]['loss']:.7f}" for n in results)
+        + " (" + " / ".join(results) + ")")
+    row = {n: results[n][1][-1]["loss"] for n in results}
+    ref = row["meshless"]
+    if row["mesh"] != ref or abs(row["dtensor"] - ref) > 1e-4 * abs(ref):
+        fail(f"mesh (c): the one-row step's losses {row}")
+    say(f"mesh (c) ({card}): one-row step (1 x {TRAIN_SEQ}, step "
+        f"{MESH_TRAIN_STEPS + 1}) loss meshless {row['meshless']:.7f}, "
+        f"Trainer on the mesh {row['mesh']:.7f} (equal), DTensor leg "
+        f"{row['dtensor']:.7f} (limit 1e-4 relative)")
+    step = {n: statistics.median(results[n][0][1:MESH_TRAIN_STEPS])
+            for n in results}
+    one = {n: results[n][0][-1] for n in results}
     say(f"mesh (c) ({card}): train step at {cfg.n_layers} layers, batch "
-        f"{TRAIN_BATCH} x {TRAIN_SEQ}: mesh {step_ms:.2f} ms, meshless "
-        f"{plain_ms:.2f} ms (median of steps 2-{MESH_TRAIN_STEPS}, host "
-        f"clock, a synchronise on each side; steps "
-        + " / ".join(f"{a:.1f}" for a in m_ms) + " vs "
-        + " / ".join(f"{a:.1f}" for a in p_ms) + ")")
-    del results, p_first, m_first, bundle
+        f"{TRAIN_BATCH} x {TRAIN_SEQ}: Trainer on the mesh "
+        f"{step['mesh']:.2f} ms, meshless {step['meshless']:.2f} ms, ratio "
+        f"{step['mesh'] / step['meshless']:.4f}; the one-rank DTensor leg "
+        f"{step['dtensor']:.2f} ms, {step['dtensor'] / step['meshless']:.4f}"
+        f"x meshless (median of steps 2-{MESH_TRAIN_STEPS}, host clock, a "
+        f"synchronise on each side, deterministic algorithms; steps "
+        + "; ".join(n + " " + " / ".join(f"{a:.1f}" for a in results[n][0])
+                    for n in results)
+        + f", the last at 1 x {TRAIN_SEQ}); the one-row step meshless "
+        f"{one['meshless']:.2f}, on the mesh {one['mesh']:.2f}, DTensor "
+        f"{one['dtensor']:.2f} ms")
+    del results, p_first, bundle
     gc.collect()
     torch.cuda.empty_cache()
 
     shutil.rmtree(root, ignore_errors=True)
-    return {"step_ms": step_ms, "plain_step_ms": plain_ms}
+    return {"step_ms": step["mesh"], "plain_step_ms": step["meshless"],
+            "dtensor_step_ms": step["dtensor"]}
+
+
+def compare_step1(torch, name: str, got: dict, want: dict, m_got: dict,
+                  m_want: dict, limit: float) -> None:
+    """Phase 4m (c): a leg's step-1 metrics and state leaves against the
+    meshless step's, bitwise (`limit` 0) or within `limit` (the metrics
+    relative, each leaf of its largest magnitude)."""
+    for k in (m_want if limit == 0 else ("loss", "grad_norm", "lr")):
+        a, b = m_got[k], m_want[k]
+        if abs(a - b) > limit * abs(b):
+            fail(f"mesh (c) {name}: step 1 {k} {a} vs meshless {b}")
+    worst, bitwise = 0.0, 0
+    for k, w in want.items():
+        if torch.equal(got[k], w):
+            bitwise += 1
+            continue
+        scale = max(w.float().abs().max().item(), 1e-30)
+        rel = (got[k].float() - w.float()).abs().max().item() / scale
+        worst = max(worst, rel)
+        if rel > limit:
+            fail(f"mesh (c) {name}: step 1 {k} off by {rel:.3e} of its "
+                 f"largest magnitude (limit {limit})")
+    say(f"mesh (c) {name}: step 1 grad_norm {m_got['grad_norm']:.6f} / "
+        f"meshless {m_want['grad_norm']:.6f}; {bitwise} of {len(want)} "
+        f"state leaves bitwise equal, the rest within {worst:.2e} of each "
+        f"leaf's largest magnitude (limit {limit})")
 
 
 def mesh_restore(torch, mesh, card: str) -> None:
@@ -5848,7 +5955,8 @@ def check_example(card: str, name: str, res: dict, stdout: str) -> str:
             if not losses[-1] < losses[0]:
                 fail(f"phase 4p: tiny LM loss did not fall: {losses}")
             say(f"examples ({card}): tiny LM {res['params'] / 1e6:.1f}M "
-                f"params fp32, b4 x 256, 2 microbatches: "
+                f"params fp32, b4 x 256, 2 microbatches, over the host "
+                f"mesh: "
                 f"{res['step_ms']:.1f} ms a step, "
                 f"{res['tokens_per_s']:.0f} tokens/s")
     return tag

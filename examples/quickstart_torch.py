@@ -6,9 +6,11 @@ short end-to-end training run.
 
 The planner section prices four shapes on the port's default chip
 (gpu_h100).  Training is 20 steps of gemma2-27b's `reduced()` config
-through `train.trainer.Trainer` over `launch.mesh.make_host_mesh()` (the
-state as `DTensor`s placed by the sharding rules), on the "torch" rung:
-the hand-written kernels are forward-only.  Checkpoints go to
+through `train.trainer.Trainer` over `launch.mesh.make_host_mesh()`, as
+the JAX quickstart trains (on more than one rank the state is `DTensor`s
+placed by the sharding rules; on one rank it stays plain tensors and a
+step is the one-device step), on the "torch" rung: the hand-written
+kernels are forward-only.  Checkpoints go to
 ``build/quickstart`` (``--ckpt-dir``); a run that finds one there resumes
 from it.  Runs on the card unless ``--device cpu`` is given.  The last
 line is a JSON summary (the logged losses, the kernel launches of the

@@ -11,10 +11,10 @@ substrate layer: the data pipeline, the chunked loss, microbatches, the
 warmup-cosine schedule, a checkpoint every 100 steps and the resume from
 the newest one (``--ckpt-dir``, default ``build/tiny-lm``; its data
 restarts at the restored step).  Training runs on the "torch" rung (the
-hand-written kernels are forward-only) on one device; ``--mesh`` trains
-over `make_host_mesh()` as the JAX example does, where a one-rank mesh
-costs XLA nothing but puts every op of the port through `DTensor`
-dispatch (ROADMAP queue 4 holds that cost).
+hand-written kernels are forward-only) over `make_host_mesh()`, as the
+JAX example does; on a world of one rank the state and batches stay plain
+tensors and a step is the one-device step, as XLA's program over a
+one-device mesh is the one-device program.
 Runs on the card unless ``--device cpu`` is given.  The last line is a
 JSON summary (the logged losses, ms a step, tokens a second, the kernel
 launches).
@@ -54,18 +54,18 @@ def tiny_lm_config():
 
 def train(cfg, device=None, *, steps: int = 300, batch: int = 4,
           seq: int = 256, microbatches: int = 2, log_every: int = 10,
-          ckpt_dir: str = "build/tiny-lm", mesh: bool = False) -> dict:
-    """Train `cfg` for `steps` steps (resuming from `ckpt_dir`), over the
-    host mesh if `mesh`; returns the trainer's result plus the synchronised
-    wall ms of each step run."""
+          ckpt_dir: str = "build/tiny-lm") -> dict:
+    """Train `cfg` for `steps` steps (resuming from `ckpt_dir`) over the
+    host mesh; returns the trainer's result plus the synchronised wall ms
+    of each step run."""
     bundle = build_model(cfg, device)
-    own_group = mesh and not dist.is_initialized()
-    mesh = make_host_mesh(device=bundle.device) if mesh else None
+    own_group = not dist.is_initialized()
     try:
+        mesh = make_host_mesh(device=bundle.device)
         return _train(bundle, cfg, mesh, steps, batch, seq, microbatches,
                       log_every, ckpt_dir)
     finally:
-        if own_group:
+        if own_group and dist.is_initialized():
             dist.destroy_process_group()
 
 
@@ -106,8 +106,6 @@ def main(argv=None) -> dict:
     ap.add_argument("--seq", type=int, default=256)
     ap.add_argument("--microbatches", type=int, default=2)
     ap.add_argument("--ckpt-dir", default="build/tiny-lm")
-    ap.add_argument("--mesh", action="store_true",
-                    help="train over make_host_mesh(), as the JAX example")
     ap.add_argument("--device", default=None,
                     help="torch device (default: cuda; raises without one)")
     args = ap.parse_args(argv)
@@ -118,8 +116,7 @@ def main(argv=None) -> dict:
     print(f"[tiny-lm] {n_params / 1e6:.1f}M params")
     ops.reset_launch_counts()
     out = train(cfg, dev, steps=args.steps, batch=args.batch, seq=args.seq,
-                microbatches=args.microbatches, ckpt_dir=args.ckpt_dir,
-                mesh=args.mesh)
+                microbatches=args.microbatches, ckpt_dir=args.ckpt_dir)
     # the first step run also pays for the allocator's warm-up
     ms = statistics.median(out["step_ms"][1:] or out["step_ms"] or [0.0])
     rate = args.batch * args.seq / ms * 1e3 if ms else 0.0
@@ -129,7 +126,7 @@ def main(argv=None) -> dict:
           f"({rate:.0f} tokens/s on {dev.type}; checkpoints in "
           f"{args.ckpt_dir})")
     print(json.dumps(dict(
-        example="train_tiny_lm", params=n_params, mesh=args.mesh,
+        example="train_tiny_lm", params=n_params,
         history=out["history"],
         final_loss=out["final_loss"], step_ms=ms, tokens_per_s=rate,
         launches={k: v for k, v in ops.launch_counts().items() if v})))

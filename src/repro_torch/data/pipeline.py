@@ -9,9 +9,11 @@ The loader delivers each batch as an int32 tensor on its device (the card
 unless told otherwise), with deterministic resume: the iterator state is a
 single step counter, so a restart at `start_step` replays exactly (the
 fault-tolerance contract).  A background thread keeps a bounded queue of
-ready host batches.  Given a `DeviceMesh`, the loader delivers each batch
-as a `DTensor` placed by `distributed.sharding.batch_spec`: dim 0 split
-over the data axes when they divide it.
+ready host batches.  Given a `DeviceMesh` of more than one rank, the
+loader delivers each batch as a `DTensor` placed by
+`distributed.sharding.batch_spec`: dim 0 split over the data axes when
+they divide it.  On a mesh of one rank it is a plain tensor on the mesh's
+device (`sharding.distributes`).
 """
 
 from __future__ import annotations
@@ -55,7 +57,7 @@ class MemmapTokens:
 class DataLoader:
     """Step-addressable loader with background prefetch; yields
     ``{"tokens": int32 tensor on device}`` (a `DTensor` on `mesh`'s devices
-    when a mesh is given)."""
+    when a mesh of more than one rank is given)."""
 
     def __init__(self, source, batch_size: int, seq_len: int, device=None,
                  prefetch: int = 2, start_step: int = 0, mesh=None):
@@ -90,7 +92,7 @@ class DataLoader:
         step, arr = self._q.get()
         self.step = step + 1
         tokens = torch.from_numpy(arr).to(self.device)
-        if self.mesh is not None:
+        if sharding.distributes(self.mesh):
             tokens = sharding.place(
                 tokens, sharding.batch_spec(tuple(arr.shape), self.mesh),
                 self.mesh)

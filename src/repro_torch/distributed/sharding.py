@@ -29,6 +29,8 @@ Placement: `to_placements` turns a spec into one `Shard(dim)` /
 `Replicate()` per mesh dim; `shard_like` places a tree leaf by leaf with
 `distribute_tensor`; `constrain` redistributes a `DTensor` to its guarded
 placements under the annotation mesh and is the identity otherwise.
+`distributes` says where a trainer or a loader places at all: on a mesh
+of more than one rank.
 """
 
 from __future__ import annotations
@@ -85,9 +87,20 @@ def dp_axes(mesh) -> tuple[str, ...]:
     return ("pod", "data") if "pod" in axis_names(mesh) else ("data",)
 
 
-# Mesh for in-model sharding annotations (set by the trainer or a caller
-# before a forward; None => constraints are no-ops and MoE layers take the
-# single-device path).
+def distributes(mesh) -> bool:
+    """Whether a trainer or a loader places its tensors on `mesh`: a
+    `DeviceMesh` of more than one rank.  Without a mesh, and on a mesh of
+    one rank, the state and the batches stay plain tensors on the
+    device and a step is the one-device step (no `DTensor` dispatch, no
+    annotation mesh), as XLA's program over a one-device mesh is the
+    one-device program.  `place`, `shard_like` and `on_local_blocks`
+    called directly still place on any mesh."""
+    return mesh is not None and mesh.size() > 1
+
+
+# Mesh for in-model sharding annotations (set by a trainer on more than
+# one rank, or a caller, before a forward; None => constraints are no-ops
+# and MoE layers take the single-device path).
 _ANNOTATE_MESH = None
 
 
@@ -569,14 +582,19 @@ def tree_cache_specs(cache: dict, mesh) -> dict:
 def to_placements(spec: P, mesh) -> tuple:
     """One `Shard(dim)` / `Replicate()` per mesh dim of a `DeviceMesh`: a
     mesh axis named in spec entry `dim` shards that dim; a dim split over
-    two axes, ``("pod", "data")``, is `Shard(dim)` on both."""
+    two axes, ``("pod", "data")``, is `Shard(dim)` on both.  An axis of
+    size 1 splits nothing and is `Replicate()`: the same blocks, but
+    DTensor's view rules refuse to squeeze or merge a dim `Shard`ed over
+    it (a one-row batch on data axes of one rank), where XLA reads such
+    a split as none."""
     from torch.distributed.tensor import Replicate, Shard
+    sizes = axis_sizes(mesh)
     where = {}
     for dim, axes in enumerate(tuple(spec)):
         for a in ((axes,) if isinstance(axes, str) else (axes or ())):
             where[a] = dim
-    return tuple(Shard(where[a]) if a in where else Replicate()
-                 for a in axis_names(mesh))
+    return tuple(Shard(where[a]) if a in where and sizes[a] > 1
+                 else Replicate() for a in axis_names(mesh))
 
 
 def place(x: torch.Tensor, spec: P, mesh):

@@ -12,16 +12,21 @@ launcher's "xla"); the kernels of "cuda" are forward-only and refuse a
 training step.  A run that finds a checkpoint in ``--ckpt-dir`` resumes
 from it, its data at the restored step.
 
-``--model-parallel N`` trains over `launch.mesh.make_host_mesh(model=N)`
-(the world of the launcher's environment, one rank when there is none),
-``--production-mesh`` over the 16 x 16 production mesh (256 ranks); the
-state and batches are then `DTensor`s placed by the sharding rules.
-Without either the run is on one device, as before.
+The run is over `launch.mesh.make_host_mesh(model=N)` (``--model-parallel
+N``, default 1; the world of the launcher's environment, one rank when
+there is none), or over the 16 x 16 production mesh (256 ranks) with
+``--production-mesh``, as the JAX launcher's.  On more than one rank the
+state and batches are `DTensor`s placed by the sharding rules; on one rank
+they stay plain tensors and the step is the one-device step
+(`distributed.sharding.distributes`).  A process group the launcher forms
+it destroys at the end.
 """
 
 from __future__ import annotations
 
 import argparse
+
+import torch.distributed as dist
 
 from repro_torch.configs.base import get_config
 from repro_torch.core import config as mmcfg
@@ -47,7 +52,7 @@ def main(argv=None) -> dict:
     ap.add_argument("--data", default=None, help="memmap token file")
     ap.add_argument("--ckpt-dir", default="build/ckpt")
     ap.add_argument("--ckpt-every", type=int, default=50)
-    ap.add_argument("--model-parallel", type=int, default=None,
+    ap.add_argument("--model-parallel", type=int, default=1,
                     help="train over a (world / N, N) host mesh")
     ap.add_argument("--production-mesh", action="store_true")
     ap.add_argument("--compress-grads", action="store_true")
@@ -61,13 +66,21 @@ def main(argv=None) -> dict:
     if args.reduced:
         cfg = cfg.reduced()
     bundle = build_model(cfg, args.device)
-    mesh = None
-    if args.production_mesh:
-        mesh = make_production_mesh(device=bundle.device)
-    elif args.model_parallel is not None:
-        mesh = make_host_mesh(model=args.model_parallel,
-                              device=bundle.device)
+    own_group = not dist.is_initialized()
+    try:
+        mesh = (make_production_mesh(device=bundle.device)
+                if args.production_mesh else
+                make_host_mesh(model=args.model_parallel,
+                               device=bundle.device))
+        out = _train(args, cfg, bundle, mesh)
+    finally:
+        if own_group and dist.is_initialized():
+            dist.destroy_process_group()
+    print(f"[train] done: final_loss={out['final_loss']}")
+    return out
 
+
+def _train(args, cfg, bundle, mesh) -> dict:
     opt = AdamW(lr=warmup_cosine(args.lr, args.warmup, args.steps))
     ts_cfg = TrainStepConfig(n_microbatches=args.microbatches,
                              loss_chunk=min(512, args.seq),
@@ -84,11 +97,9 @@ def main(argv=None) -> dict:
                         mesh=mesh)
     try:
         with mmcfg.scope_from_args(args):
-            out = trainer.run(loader)
+            return trainer.run(loader)
     finally:
         loader.close()
-    print(f"[train] done: final_loss={out['final_loss']}")
-    return out
 
 
 if __name__ == "__main__":

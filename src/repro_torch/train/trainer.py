@@ -1,13 +1,17 @@
 """Trainer: composes the step function, data, checkpointing and fault
 tolerance, on the bundle's device, or over a `DeviceMesh`.
 
-With ``mesh=``, the state is placed as `DTensor`s by the sharding rules:
+With ``mesh=`` of more than one rank (`sharding.distributes`), the state
+is placed as `DTensor`s by the sharding rules:
 params by `tree_param_specs`, the AdamW moments ZeRO-1 over "data"
 (`tree_optstate_specs`), the error-feedback residual like the params.  The
 step runs on those global views (plain tensors made inside it read as
 replicated) with the mesh as the annotation mesh, each gradient reduces to
 its param's placements, and the new state is put back on its specs: the
-counterpart of the JAX package's ``jit(out_shardings=)``."""
+counterpart of the JAX package's ``jit(out_shardings=)``.  On a mesh of one
+rank the state stays plain tensors and the step is the one-device step,
+with no annotation mesh: XLA's program over a one-device mesh is the
+one-device program, and MoE layers take their plain path there too."""
 
 from __future__ import annotations
 
@@ -78,7 +82,7 @@ class Trainer:
         state = init_train_state(bundle, opt, cfg.seed, ts_cfg)
         self.step_fn = make_train_step(bundle, opt, ts_cfg)
         self.state_specs = None
-        if mesh is not None:
+        if shd.distributes(mesh):
             self.state_specs = state_specs(state, mesh)
             state = shd.shard_like(state, self.state_specs, mesh)
             self.step_fn = mesh_step(self.step_fn, self.state_specs, mesh)

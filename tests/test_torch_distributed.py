@@ -11,10 +11,13 @@ forms its ("data", "model") mesh with `launch.mesh.make_host_mesh`.  Rank
 
   * (1, 2): the int8 ring at n = 2, expert-parallel MoE (forward and
     gradients), the loader, a checkpoint saved from this mesh, a JAX
-    checkpoint restored sharded, and the trainer;
+    checkpoint restored sharded, and the trainer (also at one-row
+    batches: batch 1, and batch 2 in two microbatches of one row);
   * (2, 1): the loader, the (1, 2) checkpoint restored, and the trainer
-    (also with two microbatches and int8 error feedback);
-  * (1, 1): MoE and the (1, 2) checkpoint restored;
+    (also with two microbatches and int8 error feedback, and at one-row
+    batches);
+  * (1, 1): MoE, the (1, 2) checkpoint restored, and the trainer at
+    one-row batches (a world of one: the state stays plain tensors);
   * (1, 4): MoE, the ring over a subgroup of 3 ranks (1000 elements
     padded to 1002), the row-split products and attention with one kv
     head; (2, 2): MoE, the loader, the row-split products and attention
@@ -27,7 +30,12 @@ by an ulp: named and bounded); MoE 1e-5 of JAX's (fp32, no-drop
 capacity; test_moe.py allows 2e-3) and bitwise to the port's meshless
 path on (1, 1), its gradients 1e-4 of the meshless path's; the trainer's
 losses 1e-5 of the meshless port run's and of JAX's `Trainer` on
-`make_host_mesh()`, from JAX's initial state.
+`make_host_mesh()`, from JAX's initial state (at batch 4, and at batch 1
+for the one-row runs; on a world of one bitwise the meshless run's).
+
+In this process: a one-rank gloo mesh, a one-row batch placed by
+`batch_spec` and reduced phi4's forward on `DTensor`s placed by
+`sharding.place`, against the plain forward.
 """
 
 import json
@@ -158,10 +166,11 @@ def _start_jax_reference(tmp):
         stderr=subprocess.PIPE, text=True, env=_env(), cwd=ROOT)
 
 
-def _jax_training(tmp) -> list:
+def _jax_training(tmp, batch: int = 4, name: str = "jax") -> list:
     """JAX's Trainer on make_host_mesh() (one device in this process):
-    its initial state saved as step 0 (the port's runs start from it),
-    then TRAIN_STEPS steps; returns the losses."""
+    its initial state saved as step 0 (the port's runs start from the
+    copy in "jax0"), then TRAIN_STEPS steps of `batch` x 32; returns the
+    losses."""
     import jax  # noqa: F401
 
     from repro.configs.base import get_config as jget_config
@@ -179,11 +188,12 @@ def _jax_training(tmp) -> list:
                        JTrainStepConfig(loss_chunk=16),
                        JTrainerConfig(total_steps=TRAIN_STEPS,
                                       ckpt_every=100, log_every=1,
-                                      ckpt_dir=str(tmp / "jax")),
+                                      ckpt_dir=str(tmp / name)),
                        log_fn=lambda _m: None)
     trainer.ckpt.save(0, trainer.state, blocking=True)
-    shutil.copytree(tmp / "jax", tmp / "jax0")
-    loader = JDataLoader(JSyntheticLM(cfg.vocab_size), 4, 32, mesh=mesh)
+    if not (tmp / "jax0").exists():
+        shutil.copytree(tmp / name, tmp / "jax0")
+    loader = JDataLoader(JSyntheticLM(cfg.vocab_size), batch, 32, mesh=mesh)
     try:
         hist = trainer.run(loader)["history"]
     finally:
@@ -193,9 +203,10 @@ def _jax_training(tmp) -> list:
 
 # ------------------------------------------------------------ the worlds
 WORLDS = [  # (data, model, cases); the (1, 2) world saves the checkpoint
-    (1, 2, ("ring", "moe", "loader", "save", "restore_jax", "train")),
-    (2, 1, ("loader", "restore", "train", "train_mb")),
-    (1, 1, ("moe", "restore")),
+    (1, 2, ("ring", "moe", "loader", "save", "restore_jax", "train",
+            "train_1row")),
+    (2, 1, ("loader", "restore", "train", "train_mb", "train_1row")),
+    (1, 1, ("moe", "restore", "train_1row")),
     (1, 4, ("moe", "ring3", "rowsplit", "mqa")),
     (2, 2, ("moe", "loader", "rowsplit", "mqa")),
     (8, 1, ("ring",)),
@@ -212,6 +223,7 @@ def run(tmp_path_factory):
     jax_ref = _start_jax_reference(tmp)
     try:
         jax_losses = _jax_training(tmp)
+        jax_losses_1row = _jax_training(tmp, batch=1, name="jax_1row")
         results = {}
         for d, m, cases in WORLDS:
             wid = f"{d}x{m}"
@@ -236,7 +248,8 @@ def run(tmp_path_factory):
     assert "JAX_REF_OK" in stdout, stderr[-3000:]
     with np.load(tmp / "ref.npz") as data:
         ref = dict(data)
-    return {"ref": ref, "jax_losses": jax_losses, "worlds": results}
+    return {"ref": ref, "jax_losses": jax_losses,
+            "jax_losses_1row": jax_losses_1row, "worlds": results}
 
 
 # ----------------------------------------------------------------- ring
@@ -411,6 +424,84 @@ def test_trainer_on_a_mesh_microbatched_with_error_feedback(run):
     np.testing.assert_allclose(res["mb_train_mesh"],
                                res["mb_train_meshless"], rtol=1e-5)
     assert res["mb_train_placed"] == "ok"
+
+
+ONE_ROW = {"batch1": "row1_", "batch2_mb2": "row1mb_"}
+
+
+@pytest.mark.parametrize("run_id", list(ONE_ROW))
+@pytest.mark.parametrize("wid", ["1x2", "2x1", "1x1"])
+def test_trainer_trains_one_row_batches(run, wid, run_id):
+    """A (micro)batch of one row: batch 1, and batch 2 in two microbatches
+    of one row, TRAIN_STEPS steps from JAX's initial state.  Where the
+    data axes span one rank (1, 2) the rows were once split over them and
+    DTensor's view rule refused the step; (2, 1) trained already.  Losses
+    within 1e-5 of the meshless port run's, and at batch 1 of JAX's
+    `Trainer` on `make_host_mesh()`; on a world of one the state stays
+    plain tensors and the run is the meshless run, bit for bit."""
+    res = run["worlds"][wid]
+    prefix = ONE_ROW[run_id]
+    mesh_l, plain_l = res[prefix + "train_mesh"], res[prefix + "train_meshless"]
+    assert len(mesh_l) == TRAIN_STEPS
+    np.testing.assert_allclose(mesh_l, plain_l, rtol=1e-5)
+    if run_id == "batch1":
+        np.testing.assert_allclose(mesh_l, run["jax_losses_1row"], rtol=1e-5)
+    if wid == "1x1":
+        assert mesh_l == plain_l
+        assert res[prefix + "train_placed"] == "plain"
+    else:
+        assert res[prefix + "train_placed"] == "ok"
+
+
+def test_one_row_batch_on_a_one_rank_mesh_forward():
+    """In this process, a one-rank gloo mesh: a (1, 32, D) batch placed by
+    `batch_spec` (dim 0 named for "data", as JAX's rule names it) holds
+    no split over the one-rank axis and reshapes, and reduced phi4's
+    forward on a one-row token batch placed the same way, with the params
+    placed by the rules (`sharding.place`, the explicit DTensor path),
+    gives the plain forward's logits (1e-5 of their largest magnitude)."""
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor, Replicate
+
+    from repro_torch.configs.base import get_config
+    from repro_torch.core.config import mm_config
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models.model import build_model
+    own_group = not dist.is_initialized()
+    mesh = make_host_mesh(device="cpu")         # a HashStore world of one
+    try:
+        cfg = get_config("phi4-mini-3.8b").reduced()
+        rng = np.random.default_rng(41)
+        h = torch.from_numpy(rng.normal(size=(1, 32, cfg.d_model)).astype(
+            np.float32))
+        spec = shd.batch_spec(tuple(h.shape), mesh)
+        assert tuple(spec) == ("data", None, None)
+        hd = shd.place(h, spec, mesh)
+        assert tuple(hd.placements) == (Replicate(), Replicate())
+        assert torch.equal(hd.reshape(32, cfg.d_model).full_tensor(),
+                           h.reshape(32, cfg.d_model))
+        bundle = build_model(cfg, "cpu")
+        params = bundle.init(0)
+        toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (1, 32)))
+
+        def forward(p, t):
+            return bundle.logits_fn(p, bundle.hidden_fn(p, {"tokens": t})[0])
+
+        with mm_config(backend="torch"):
+            want = forward(params, toks)
+            got = shd.on_mesh(forward, mesh)(
+                shd.shard_like(params, shd.tree_param_specs(params, mesh),
+                               mesh),
+                shd.place(toks, shd.batch_spec((1, 32), mesh), mesh))
+        assert isinstance(got, DTensor)
+        got = got.full_tensor()
+        assert got.shape == want.shape == (1, 32, cfg.vocab_size)
+        assert torch.isfinite(got).all()
+        assert (got - want).abs().max() <= 1e-5 * want.abs().max()
+    finally:
+        if own_group:
+            dist.destroy_process_group()
 
 
 # ============================================================ rank side
@@ -727,15 +818,35 @@ def _case_train_mb(mesh, d, tmp, arrays, res):
     """Two microbatches and int8 error feedback: the mesh against the
     meshless port (no JAX run: int8 ties may differ there)."""
     _case_train(mesh, d, tmp, arrays, res, prefix="mb_",
-                ts=dict(n_microbatches=2, compress_grads=True))
+                ts=dict(n_microbatches=2, compress_grads=True),
+                jax_init=False)
 
 
-def _case_train(mesh, d, tmp, arrays, res, prefix="", ts=None):
-    """TRAIN_STEPS steps from JAX's initial state, on the mesh and
-    without it, on the same batches."""
+def _case_train_1row(mesh, d, tmp, arrays, res):
+    """One-row (micro)batches from JAX's initial state: batch 1, and
+    batch 2 in two microbatches."""
+    _case_train(mesh, d, tmp, arrays, res, prefix=ONE_ROW["batch1"],
+                batch=1)
+    _case_train(mesh, d, tmp, arrays, res, prefix=ONE_ROW["batch2_mb2"],
+                batch=2, ts=dict(n_microbatches=2))
+
+
+def _check_plain(state):
+    """Every leaf a plain tensor: a world of one places nothing."""
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.core.tree import leaves
+    assert not any(isinstance(x, DTensor) for x in leaves(state))
+
+
+def _case_train(mesh, d, tmp, arrays, res, prefix="", ts=None, batch=4,
+                jax_init=True):
+    """TRAIN_STEPS steps (from JAX's initial state if `jax_init`), on the
+    mesh and without it, on the same batches of `batch` x 32."""
     from repro_torch.configs.base import get_config
     from repro_torch.core.config import mm_config
     from repro_torch.data.pipeline import DataLoader, SyntheticLM
+    from repro_torch.distributed import sharding as shd
     from repro_torch.models.model import build_model
     from repro_torch.optim.adamw import AdamW
     from repro_torch.train.train_step import TrainStepConfig
@@ -746,7 +857,7 @@ def _case_train(mesh, d, tmp, arrays, res, prefix="", ts=None):
                     (prefix + "train_meshless", None)):
         ckpt = os.path.join(tmp, f"{mesh.shape[0]}x{mesh.shape[1]}",
                             name)
-        if torch.distributed.get_rank() == 0 and not ts:
+        if torch.distributed.get_rank() == 0 and jax_init:
             shutil.copytree(os.path.join(tmp, "jax0"), ckpt)
         torch.distributed.barrier()
         trainer = Trainer(bundle, AdamW(lr=1e-3),
@@ -755,7 +866,7 @@ def _case_train(mesh, d, tmp, arrays, res, prefix="", ts=None):
                                         ckpt_every=100, log_every=1,
                                         ckpt_dir=ckpt),
                           log_fn=lambda _m: None, mesh=m)
-        loader = DataLoader(SyntheticLM(cfg.vocab_size), 4, 32,
+        loader = DataLoader(SyntheticLM(cfg.vocab_size), batch, 32,
                             device="cpu", mesh=m)
         try:
             with mm_config(backend="torch"):
@@ -763,16 +874,21 @@ def _case_train(mesh, d, tmp, arrays, res, prefix="", ts=None):
         finally:
             loader.close()
         res[name] = [loss for _, loss in hist]
-        if m is not None:
+        if shd.distributes(m):
             _check_placed(trainer.state, trainer.state_specs, mesh)
             res[prefix + "train_placed"] = "ok"
+        elif m is not None:
+            assert trainer.state_specs is None
+            _check_plain(trainer.state)
+            res[prefix + "train_placed"] = "plain"
 
 
 _CASES = {"ring": _case_ring, "ring3": _case_ring3, "moe": _case_moe,
           "rowsplit": _case_rowsplit, "mqa": _case_mqa, "train_mb": _case_train_mb,
           "loader": _case_loader,
           "save": _case_save, "restore": _case_restore,
-          "restore_jax": _case_restore_jax, "train": _case_train}
+          "restore_jax": _case_restore_jax, "train": _case_train,
+          "train_1row": _case_train_1row}
 
 
 def _rank_main(rank, world, model, wdir, tmp, cases):

@@ -16,8 +16,8 @@ package, on the CPU at small sizes, in this process:
   * the quickstart's and the tiny LM's trainers, 3 steps from JAX's
     initial state (a step-0 checkpoint of JAX's `Trainer`, restored by the
     port's), losses within 1e-4 of JAX's `Trainer` on the same batches
-    (fp32; the tiny LM at a narrow width, on one device and over the
-    host mesh as the JAX example trains);
+    (fp32; the tiny LM at a narrow width; both over the host mesh, as
+    the JAX examples train);
   * every example's `main` raises without a card unless given
     ``--device cpu``.
 """
@@ -229,8 +229,10 @@ NARROW = dict(n_layers=2, d_model=64, n_heads=4, n_kv_heads=2, head_dim=16,
 
 def test_tiny_lm_trainer_matches_jax(ex, tmp_path, no_group, monkeypatch):
     """The tiny LM's trainer (microbatches 2, warmup-cosine to 6e-4 over
-    50 steps, loss_chunk 128) at a narrow width, 4 x 32 tokens, on one
-    device and over the host mesh (``--mesh``)."""
+    50 steps, loss_chunk 128) at a narrow width, 4 x 32 tokens, over the
+    host mesh as the example's default path trains (a world of one here:
+    the state stays plain tensors), and the one-rank group it formed
+    taken down after."""
     mod = ex["train_tiny_lm_torch"]
     full, jfull = mod.tiny_lm_config(), _jax_tiny_lm_config()
     assert full.__dict__ == jfull.__dict__
@@ -239,17 +241,14 @@ def test_tiny_lm_trainer_matches_jax(ex, tmp_path, no_group, monkeypatch):
     steps, batch, seq = 3, 4, 32
     want = _jax_losses(jcfg, JAdamW(lr=jwarmup_cosine(6e-4, 50, steps)),
                        JTrainStepConfig(n_microbatches=2, loss_chunk=128),
-                       steps, batch, seq, tmp_path, monkeypatch,
-                       copies=("port", "port-mesh"))
-    for mesh in (False, True):
-        out = mod.train(cfg, "cpu", steps=steps, batch=batch, seq=seq,
-                        microbatches=2, log_every=1, mesh=mesh,
-                        ckpt_dir=str(tmp_path / ("port-mesh" if mesh
-                                                 else "port")))
-        assert [s for s, _ in out["history"]] == [1, 2, 3]
-        np.testing.assert_allclose([loss for _, loss in out["history"]],
-                                   want, rtol=0, atol=TOL)
-        assert len(out["step_ms"]) == steps
+                       steps, batch, seq, tmp_path, monkeypatch)
+    out = mod.train(cfg, "cpu", steps=steps, batch=batch, seq=seq,
+                    microbatches=2, log_every=1,
+                    ckpt_dir=str(tmp_path / "port"))
+    assert [s for s, _ in out["history"]] == [1, 2, 3]
+    np.testing.assert_allclose([loss for _, loss in out["history"]],
+                               want, rtol=0, atol=TOL)
+    assert len(out["step_ms"]) == steps
 
 
 # ---------------------------------------------------------- devices

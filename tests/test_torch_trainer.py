@@ -435,6 +435,42 @@ def test_train_launcher_on_the_cpu(tmp_path, capsys):
     assert CheckpointManager(str(tmp_path)).all_steps() == [2, 3]
 
 
+def test_train_launcher_trains_over_the_host_mesh(tmp_path, monkeypatch):
+    """No mesh flag: a one-row batch trained over `make_host_mesh(model=1)`,
+    as the JAX launcher trains; a world of one places nothing (the state
+    stays plain tensors) and the one-rank group the launcher formed is
+    taken down after."""
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.core.tree import leaves
+    made, trainers = [], []
+    real_mesh = train_cli.make_host_mesh
+
+    def host_mesh(**kw):
+        made.append(kw)
+        return real_mesh(**kw)
+
+    class Seen(train_cli.Trainer):
+        def __init__(self, *args, **kw):
+            super().__init__(*args, **kw)
+            trainers.append(self)
+
+    monkeypatch.setattr(train_cli, "make_host_mesh", host_mesh)
+    monkeypatch.setattr(train_cli, "Trainer", Seen)
+    assert not dist.is_initialized()
+    out = train_cli.main(["--arch", "phi4-mini-3.8b", "--reduced",
+                          "--device", "cpu", "--batch", "1", "--steps", "1",
+                          "--seq", "16", "--ckpt-dir", str(tmp_path)])
+    assert np.isfinite(out["final_loss"])
+    assert made == [{"model": 1, "device": torch.device("cpu")}]
+    (trainer,) = trainers
+    assert tuple(trainer.mesh.shape) == (1, 1)
+    assert trainer.state_specs is None
+    assert not any(isinstance(x, DTensor) for x in leaves(trainer.state))
+    assert not dist.is_initialized()
+
+
 def test_train_launcher_refuses_the_cuda_backend(tmp_path):
     with pytest.raises(RuntimeError, match="K1-K9 are forward-only"):
         train_cli.main(_argv(tmp_path, "--device", "cpu", "--mm-backend",
