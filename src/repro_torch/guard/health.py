@@ -34,6 +34,13 @@ Counters (monotonic within a process, `reset()` is test/suite-only):
   moe_slots_total / _filled /       MoE capacity-slot accounting, opt-in
   moe_slots_underfilled             via moe.track_capacity_slots()
   obs_*                             tracer-side counters (armed only)
+  serve_queue_wait_us / _waits      the scheduler's work, counted while
+  serve_prefill_tokens / _slots     a torch.profiler records
+  serve_decode_keys / serve_kv_slots  (serve/sched/loop): queue wait from
+                                    submit to the prefill group, real
+                                    prompt tokens against bucket slots,
+                                    live rows' cached keys against the
+                                    slab's rows x max_len
 """
 
 from __future__ import annotations

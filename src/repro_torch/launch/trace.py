@@ -10,9 +10,10 @@ stdout, the Chrome-trace JSON at ``--out`` (load it in Perfetto /
 chrome://tracing).  ``--clock sim`` (default) measures every dispatch
 at exactly its modeled time, so the trace is host-independent and the
 drift report comes back identically zero; ``--clock wall`` stamps real
-timestamps (the card synchronised around each dispatch) so the same
-tree shows where the wall time went, and the drift report shows how far
-the cost model is from the card, per shape class (after one untraced
+timestamps (each dispatch timed on the card by a pair of CUDA events,
+read when the scope closes, with no synchronise inside the dispatch) so
+the same tree shows where the wall time went, and the drift report shows
+how far the cost model is from the card, per shape class (after one untraced
 warm-up pass, so no dispatch is a cold first call).
 
 ``--check`` turns the run into a smoke gate: the Chrome document must
@@ -163,8 +164,8 @@ def main(argv=None) -> int:
     ap.add_argument("--mode", choices=("matmul", "serve"), default="matmul")
     ap.add_argument("--clock", choices=("sim", "wall"), default="sim",
                     help="sim: measured == modeled exactly "
-                         "(host-independent); wall: perf_counter with the "
-                         "card synchronised around each dispatch")
+                         "(host-independent); wall: CUDA events around "
+                         "each dispatch on the card, perf_counter off it")
     ap.add_argument("--out", default=None, metavar="PATH",
                     help="write the Chrome-trace JSON here")
     ap.add_argument("--size", type=int, default=128,

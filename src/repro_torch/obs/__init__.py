@@ -6,11 +6,14 @@ package:
 - **Span tree** (`spans`): thread-local `trace_scope()` arms tracing;
   hot paths emit `span()` / `event()` / `annotate()`.  Disarmed, every
   emit is one integer check — no spans, no counters, no allocations, and
-  nothing inside a CUDA graph capture or replay.
+  nothing inside a CUDA graph capture or replay.  While a
+  `torch.profiler` records, `span()` and `phase()` also open profiler
+  ranges `repro_torch.<kind>`, on the clock of the device events.
 - **Metrics registry** (`metrics`): typed counters / gauges /
   histograms under one lock.  `guard.health` writes here.
 - **Attribution** (`clock`, `attribution`): an injectable clock stamps
-  `measured_us` on dispatch spans next to the planner's `modeled_us`;
+  `measured_us` on dispatch spans next to the planner's `modeled_us`
+  (the wall clock by CUDA events on the card, read when the scope closes);
   per-shape-class drift histograms feed `drift_report()`, judged
   against the calibration gate's `MAX_LOG_SPREAD`.
 

@@ -6,7 +6,8 @@ attribution pair into the metrics registry — per-shape-class drift
 histograms (`drift/<class>` observes log(measured/modeled)) plus the
 obs counters the `obs` bench suite gates integer-exact.  `measured()`
 routes the actual kernel thunk through the armed trace's clock so the
-span picks up `measured_us`.
+span picks up `measured_us` (the wall clock on the card stamps it when
+the trace scope closes).
 
 `drift_report()` turns the per-class histograms into the same
 fit-quality shape the calibration gate uses: a class is *accepted* when
@@ -77,14 +78,22 @@ def _dispatch_span(site: str, **attrs: Any) -> Iterator[Span | Any]:
     with _spans.span("dispatch", site, **attrs) as sp:
         yield sp
     REGISTRY.inc("obs_dispatches")
-    if sp.modeled_us is not None and sp.measured_us is not None:
-        m = sp.attrs.get("m")
-        k = sp.attrs.get("k")
-        n = sp.attrs.get("n")
-        if m is not None and k is not None and n is not None:
-            cls = shape_class_token(m, k, n, int(sp.attrs.get("batch", 1)))
-            sp.set(shape_class=cls)
-            record_drift(cls, sp.modeled_us, sp.measured_us)
+    fold_drift(sp)
+
+
+def fold_drift(sp: Span) -> None:
+    """Stamp a dispatch span's shape class and fold its attribution pair
+    into the class's drift histogram, once both sides exist (at the
+    span's close, or when the wall clock resolves a deferred pair)."""
+    if sp.modeled_us is None or sp.measured_us is None:
+        return
+    m = sp.attrs.get("m")
+    k = sp.attrs.get("k")
+    n = sp.attrs.get("n")
+    if m is not None and k is not None and n is not None:
+        cls = shape_class_token(m, k, n, int(sp.attrs.get("batch", 1)))
+        sp.set(shape_class=cls)
+        record_drift(cls, sp.modeled_us, sp.measured_us)
 
 
 def measured(sp: Span | Any, fn: Callable[[], Any]) -> Any:
@@ -97,7 +106,7 @@ def measured(sp: Span | Any, fn: Callable[[], Any]) -> Any:
     clock = trace.clock if trace is not None else None
     if clock is None:
         return fn()
-    out, us = clock.measure(fn, modeled_us=sp.modeled_us)
+    out, us = clock.measure(fn, modeled_us=sp.modeled_us, span=sp)
     if us is not None:
         sp.set(measured_us=us)
     return out

@@ -4,14 +4,16 @@
 cost model's prediction, so traces are deterministic, integer-exact
 across hosts, and per-class drift is identically zero — any non-zero
 drift in a sim-clock run means the modeled/measured plumbing itself
-broke.  `WallClock` is the live surface: `perf_counter` around the
-thunk, bracketed by `torch.cuda.synchronize()` on the output's device
-(before the start, so work queued earlier is not charged to this
-dispatch, and after the thunk, so measured_us covers the device's
-execution rather than the launch) — the counterpart of the JAX clock's
-`block_until_ready`.  While a CUDA graph is being captured nothing may
-synchronise: the thunk runs (it is recorded, not executed) and the
-measurement is None, as a traced output gives in the JAX package.
+broke.  `WallClock` is the live surface, and never waits for the card
+inside a traced dispatch: on the card a pair of CUDA events on the
+current stream brackets the thunk, so `measured_us` is the time the
+stream took from the dispatch's first launch to its last, and the pairs
+are read once, when the `trace_scope` closes (`resolve`: one synchronise,
+then each span's `measured_us` and its drift sample).  A thunk whose
+output is not on the card is timed by `perf_counter` at once.  While a
+CUDA graph is being captured the thunk runs (it is recorded, not
+executed) and the measurement is None, as a traced output gives in the
+JAX package.
 """
 
 from __future__ import annotations
@@ -21,6 +23,8 @@ from typing import Any, Callable
 
 import torch
 
+from repro_torch.obs.spans import capturing
+
 
 class SimClock:
     """Modeled measurer: measured == modeled, exactly."""
@@ -28,44 +32,62 @@ class SimClock:
     wall = False
 
     def measure(
-        self, fn: Callable[[], Any], modeled_us: float | None = None
+        self, fn: Callable[[], Any], modeled_us: float | None = None,
+        span: Any = None,
     ) -> tuple[Any, float | None]:
+        del span
         return fn(), modeled_us
 
 
-def _capturing() -> bool:
-    return torch.cuda.is_available() and \
-        torch.cuda.is_current_stream_capturing()
-
-
 class WallClock:
-    """perf_counter measurer, synchronised on the card around the thunk."""
+    """perf_counter span timestamps; CUDA-event dispatch times on the card,
+    read when the scope closes."""
 
     wall = True
 
     def __init__(self):
         self._t0 = time.perf_counter()
+        self._pending: list[tuple[Any, Any, Any]] = []
 
     def now_us(self) -> float:
         """Microseconds since this clock was armed (span timestamps)."""
         return (time.perf_counter() - self._t0) * 1e6
 
     def measure(
-        self, fn: Callable[[], Any], modeled_us: float | None = None
+        self, fn: Callable[[], Any], modeled_us: float | None = None,
+        span: Any = None,
     ) -> tuple[Any, float | None]:
+        """(fn's output, its us) — or None for the us when the card's
+        event pair is deferred to `resolve()` onto `span`."""
         del modeled_us
-        if _capturing():
+        if capturing():
             return fn(), None
-        synced = torch.cuda.is_initialized()
-        if synced:
-            torch.cuda.synchronize()
+        start = None
+        if span is not None and torch.cuda.is_initialized():
+            start = torch.cuda.Event(enable_timing=True)
+            start.record()
         t0 = time.perf_counter()
         out = fn()
-        if isinstance(out, torch.Tensor) and out.is_cuda:
-            torch.cuda.synchronize(out.device)
-        elif synced:
-            torch.cuda.synchronize()
+        if start is not None and isinstance(out, torch.Tensor) \
+                and out.is_cuda:
+            end = torch.cuda.Event(enable_timing=True)
+            end.record()
+            self._pending.append((span, start, end))
+            return out, None
         return out, (time.perf_counter() - t0) * 1e6
+
+    def resolve(self) -> None:
+        """Stamp every deferred span's `measured_us` from its event pair
+        (one synchronise for all) and fold its drift sample."""
+        if not self._pending:
+            return
+        from repro_torch.obs.attribution import fold_drift
+
+        torch.cuda.synchronize()
+        pending, self._pending = self._pending, []
+        for sp, start, end in pending:
+            sp.set(measured_us=start.elapsed_time(end) * 1e3)
+            fold_drift(sp)
 
 
 def make_clock(kind: str | None):

@@ -9,6 +9,15 @@ spans through `span()` / `event()` / `annotate()`; all three follow the
 null object and touch nothing, so tracing disarmed costs one integer
 check per call site and shows no extra counters anywhere.
 
+While a `torch.profiler` records, `span()` also opens a `record_function`
+range named `repro_torch.<kind>` (armed or not), so the profiler stamps the
+program's phases on the clock of its device events; `phase()` opens such a
+range alone, for a part of a span that the tree does not hold (the tree
+stays the JAX package's).  Range names carry the kind only, so a breakdown
+by name stays a few entries; the tree's spans keep the attributes.  Nothing
+opens a range while a CUDA graph is being captured, and with the profiler
+off a range costs one more falsy check.
+
 Span kinds emitted by the instrumented stack:
 
   dispatch   one guarded matmul dispatch (kernels/ops): site, dims,
@@ -24,8 +33,13 @@ Span kinds emitted by the instrumented stack:
              the cached schedule (split-K hits are the GEMV ledger)
   validate   a pre-dispatch plan rejection (guard/validate)
   retry      a transient re-execution (guard/fallback.retry_call)
-  tick       one scheduler step (children admit / prefill / decode):
-             emitted once the serving scheduler is ported
+  tick       one scheduler step (`serve/sched/loop`; children admit /
+             prefill / decode, a prefill group's span carrying its
+             requests' ids as `rids`)
+
+Phases (profiler ranges only) inside the scheduler's spans: `forward`
+(the model call), `sample` (the argmax and its transfer to the host),
+`scatter` (prefilled rows into the slab), `slab` (a slab growth).
 
 The tree itself is plain data (`Span`); exporters live in
 `repro_torch.obs.export` and are reachable through `Trace.export_chrome` /
@@ -39,6 +53,12 @@ import dataclasses
 import threading
 from typing import Any, Iterator
 
+import torch
+import torch.autograd.profiler as _profiler
+
+# Prefix of the profiler ranges; not one of the benchmark harness's own
+# (`tick.`, `harness.`, `portbench.`).
+RANGE_PREFIX = "repro_torch."
 _TLS = threading.local()
 _ARM_LOCK = threading.Lock()
 # Process-wide count of open trace scopes: the disarmed fast path is one
@@ -203,7 +223,9 @@ def trace_scope(clock: Any = None) -> Iterator[Trace]:
     trace), the stack is thread-local, and exit always restores the
     enclosing state.  `clock` is an attribution clock (`SimClock` /
     `WallClock` from `repro_torch.obs.clock`, or None for structure-only
-    traces); dispatch sites consult it through `measured()`.
+    traces); dispatch sites consult it through `measured()`.  On exit a
+    clock with a `resolve()` (the wall clock on the card) stamps the
+    measurements it deferred.
 
         with trace_scope(clock=SimClock()) as tr:
             out = skew_matmul(a, b)
@@ -221,6 +243,9 @@ def trace_scope(clock: Any = None) -> Iterator[Trace]:
         with _ARM_LOCK:
             _ARMED -= 1
         layers.pop()
+        resolve = getattr(clock, "resolve", None)
+        if resolve is not None:
+            resolve()
 
 
 @contextlib.contextmanager
@@ -235,15 +260,43 @@ def suspended() -> Iterator[None]:
         _TLS.layers = saved
 
 
+def capturing() -> bool:
+    """Is a CUDA graph being captured on the current stream?"""
+    return torch.cuda.is_initialized() and \
+        torch.cuda.is_current_stream_capturing()
+
+
+def profiling() -> bool:
+    """Is a `torch.profiler` recording, outside a CUDA graph capture?"""
+    return _profiler._is_profiler_enabled and not capturing()
+
+
+@contextlib.contextmanager
+def _ranged(kind: str, inner=_NULL_SPAN_CTX) -> Iterator[Span | _NullSpan]:
+    with _profiler.record_function(RANGE_PREFIX + kind), inner as sp:
+        yield sp
+
+
+def phase(kind: str):
+    """A profiler range `repro_torch.<kind>` around the block while the
+    profiler records, and no tree span (the null context otherwise)."""
+    return _ranged(kind) if profiling() else _NULL_SPAN_CTX
+
+
 def span(kind: str, name: str = "", **attrs: Any):
     """Open a span for the extent of the block (no-op when disarmed: the
-    shared null context, cheaper to enter than a generator's).
+    shared null context, cheaper to enter than a generator's), inside a
+    profiler range `repro_torch.<kind>` while the profiler records.
 
     The yielded object supports ``.set(**attrs)`` either way, so call
     sites never branch on armed-ness themselves.
     """
     if not _ARMED:
-        return _NULL_SPAN_CTX
+        if not _profiler._is_profiler_enabled:
+            return _NULL_SPAN_CTX
+        return phase(kind)
+    if profiling():
+        return _ranged(kind, _span(kind, name, **attrs))
     return _span(kind, name, **attrs)
 
 

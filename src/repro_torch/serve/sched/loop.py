@@ -38,6 +38,19 @@ slots simply by decoding jointly; with `track_capacity_slots` armed the
 health ledger shows whether the slots ship full.  The decode graph adds
 the host counters its capture recorded to every replay, so a graphed
 run leaves the ledger an eager run leaves.
+
+While a `torch.profiler` records, the scheduler's spans are profiler
+ranges (`repro_torch.tick` / `admit` / `prefill` / `decode`, with the
+phases `forward`, `sample`, `scatter` and `slab` inside them), and the
+scheduler counts its work into `guard.health` as it happens: each
+request's wall us from `submit` to the start of its prefill group
+(`serve_queue_wait_us` over `serve_queue_waits`), each prefill group's
+real prompt tokens against its batch x prompt bucket
+(`serve_prefill_tokens`, `serve_prefill_slots`), and each decode step's
+cached keys of the live rows against the slab's rows x `max_len`
+(`serve_decode_keys`, `serve_kv_slots`).  They are counted outside the
+decode graph, so a replay adds none of them; with the profiler off
+nothing is counted, and the ledger stays the JAX package's.
 """
 
 from __future__ import annotations
@@ -49,7 +62,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.guard import faults
+from repro_torch.guard import faults, health
 from repro_torch.guard.fallback import NumericFault
 from repro_torch.models import moe
 from repro_torch.obs import spans as _obs
@@ -142,6 +155,7 @@ class Scheduler:
         self._free: kvcache.SlotFreeList | None = None
         self._tokens: np.ndarray | None = None  # (B,) last token per row
         self._pos: np.ndarray | None = None  # (B,) next write position
+        self._submitted_ns: dict[int, int] = {}  # rid -> submit wall ns
 
     # ------------------------------------------------------------- intake
     @property
@@ -159,13 +173,17 @@ class Scheduler:
                 f"request {req.rid}: max_new {req.max_new} exceeds table "
                 f"budget {self.table.max_new}"
             )
+        self._submitted_ns[req.rid] = time.perf_counter_ns()
         self.queue.push(req)
 
     # -------------------------------------------------------------- slab
     def _ensure_slab(self, required: int) -> None:
+        if required > self.slab_batch:
+            with _obs.phase("slab"):
+                self._grow_slab(required)
+
+    def _grow_slab(self, required: int) -> None:
         cur = self.slab_batch
-        if required <= cur:
-            return
         new_b = self.table.batch_bucket(required)
         if self._slab is None:
             self._slab = kvcache.init_cache(self.cfg, new_b,
@@ -194,7 +212,16 @@ class Scheduler:
     def _prefill_group(self, reqs: list[Request], pb: int, now: int) -> None:
         n = len(reqs)
         b_pad = self.table.batch_bucket(n)
-        with _obs.span("prefill", f"pb{pb}", bucket=pb, n=n, batch=b_pad):
+        t_ns = time.perf_counter_ns()
+        waits = [t_ns - self._submitted_ns.pop(r.rid, t_ns) for r in reqs]
+        if _obs.profiling():
+            health.record("serve_queue_wait_us", sum(waits) // 1000)
+            health.record("serve_queue_waits", n)
+            health.record("serve_prefill_tokens",
+                          sum(r.prompt_len for r in reqs))
+            health.record("serve_prefill_slots", b_pad * pb)
+        with _obs.span("prefill", f"pb{pb}", bucket=pb, n=n, batch=b_pad,
+                       rids=tuple(r.rid for r in reqs)):
             self._prefill_group_inner(reqs, pb, now, n, b_pad)
 
     def _prefill_group_inner(self, reqs: list[Request], pb: int, now: int,
@@ -205,16 +232,18 @@ class Scheduler:
             tokens[i, : r.prompt_len] = r.tokens
             last[i] = r.prompt_len - 1
         dev = self.device
-        cache, logits = self._model_call(
-            lambda: engine.prefill(
-                self.params,
-                self.cfg,
-                torch.from_numpy(tokens).to(dev),
-                max_len=self.table.max_len,
-                last_index=torch.from_numpy(last).to(dev),
+        with _obs.phase("forward"):
+            cache, logits = self._model_call(
+                lambda: engine.prefill(
+                    self.params,
+                    self.cfg,
+                    torch.from_numpy(tokens).to(dev),
+                    max_len=self.table.max_len,
+                    last_index=torch.from_numpy(last).to(dev),
+                )
             )
-        )
-        first = self._argmax(logits, "prefill")
+        with _obs.phase("sample"):
+            first = self._argmax(logits, "prefill")
         if self.trace_logits:
             rows_np = logits.float().cpu().numpy()
             for i, r in enumerate(reqs):
@@ -223,9 +252,10 @@ class Scheduler:
         rows = [self._free.alloc() for _ in reqs]
         # pad-on-device stays on device: scatter the n real rows into the
         # slab at their allocated slots (unpad-on-fetch).
-        idx = torch.tensor(rows, dtype=torch.long, device=dev)
-        _map_cache(lambda slab, new: slab.index_copy_(1, idx, new[:, :n]),
-                   self._slab, cache)
+        with _obs.phase("scatter"):
+            idx = torch.tensor(rows, dtype=torch.long, device=dev)
+            _map_cache(lambda slab, new: slab.index_copy_(1, idx, new[:, :n]),
+                       self._slab, cache)
         del cache
         self.telemetry.prefill_batches += 1
         for i, r in enumerate(reqs):
@@ -290,15 +320,26 @@ class Scheduler:
         if self.decode_graphs and not (self.guard and faults.active()):
             if self._graph is None:
                 self._graph = self._capture()
-            logits = self._graph.step(tok, pos)
-            return logits, self._argmax(logits, "decode step")
+            with _obs.phase("forward"):
+                logits = self._graph.step(tok, pos)
+            with _obs.phase("sample"):
+                return logits, self._argmax(logits, "decode step")
         step_fn = (engine.guarded_decode_step if self.guard
                    else engine.decode_step)
-        logits, self._slab = step_fn(self.params, self.cfg, self._slab,
-                                     tok, pos)
-        return logits, torch.argmax(logits, dim=-1).cpu().numpy()
+        with _obs.phase("forward"):
+            logits, self._slab = step_fn(self.params, self.cfg, self._slab,
+                                         tok, pos)
+        with _obs.phase("sample"):
+            return logits, torch.argmax(logits, dim=-1).cpu().numpy()
 
     def _decode_all(self, now: int) -> None:
+        if _obs.profiling():
+            # row r attends to its _pos[r] cached keys and the one it writes
+            rows = list(self.live)
+            health.record("serve_decode_keys",
+                          int(self._pos[rows].sum()) + len(rows))
+            health.record("serve_kv_slots",
+                          len(self._tokens) * self.table.max_len)
         with _obs.span("decode", batch=len(self._tokens), live=len(self.live)):
             logits, tok = self._model_call(self._decode_step)
         # a copy: the decode graph's logits are overwritten by its next step
